@@ -5,14 +5,23 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``libdeflate_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card (random
-inputs and the main path's real inputs, exact equality), drives the
-port's main path -- lean min-cost-DP raw-DEFLATE compress of a 16 MiB
-corpus in 1 MiB chunks, 4 chunks per call -- through
-``compress_chunks_lean``, round-trips every chunk through zlib, checks
-that the CUDA output equals the CPU output for one chunk, and times each
-kernel beside its plain version.  Any failure raises and the script
-exits non-zero; without a CUDA device it exits non-zero at once.
+holds each kernel against its plain version on the card (random inputs
+and the main paths' real inputs, exact equality), and drives the port's
+two paths through their entry points:
+
+- compress: lean min-cost-DP raw-DEFLATE compress of a 16 MiB corpus in
+  1 MiB chunks, 4 chunks per call, through ``compress_chunks_lean``; every
+  chunk round-trips through zlib, and one chunk's CUDA output equals the
+  CPU output;
+- decode: the compress path's own streams, left on the card and padded
+  there, and zlib level-6 streams of the same 16 chunks, each set decoded
+  in one known-size ``decompress_chunks_words`` call of B = 16; the zlib
+  set also through the unknown-size ``decompress_chunks``.  Every chunk
+  must equal the corpus.
+
+It times each kernel beside its plain version.  Any failure raises and
+the script exits non-zero; without a CUDA device it exits non-zero at
+once.
 
 The last lines are a JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -33,6 +42,8 @@ import torch
 CHUNK = 1 << 20
 BATCH = 4
 CORPUS_MB = 16
+PART_CHUNKS = (0, 4, 8, 12, 15)  # one chunk of each corpus part
+DAMAGED_CHUNK = 1 << 16
 SEED = 0x51E51A
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, NVIDIA data sheet
@@ -162,16 +173,127 @@ def pack_random_inputs(dev, B=4, m=CHUNK // 128, seed=1):
     return sbuf, gw, nwords
 
 
+def zlib6(raw: bytes, strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, strategy)
+    return c.compress(raw) + c.flush()
+
+
+def damaged_streams(chunks, seed=7):
+    """32 damaged zlib streams of 64 KiB corpus slices, 8 sources x (bit
+    flips, a byte overwrite, a cut in the middle, a cut of 1-3 bytes)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(8):
+        ci = PART_CHUNKS[i % len(PART_CHUNKS)]
+        off = int(rng.integers(0, CHUNK - DAMAGED_CHUNK))
+        raw = chunks[ci, off:off + DAMAGED_CHUNK].tobytes()
+        s = zlib6(raw, zlib.Z_FIXED if i % 4 == 3 else
+                  zlib.Z_DEFAULT_STRATEGY)
+        for kind in range(4):
+            b = bytearray(s)
+            if kind == 0:
+                for _ in range(int(rng.integers(1, 4))):
+                    j = int(rng.integers(0, 8 * len(b)))
+                    b[j // 8] ^= 1 << (j % 8)
+            elif kind == 1:
+                b[int(rng.integers(0, len(b)))] = int(rng.integers(0, 256))
+            elif kind == 2:
+                b = b[:int(rng.integers(1, len(b)))]
+            else:
+                b = b[:len(b) - int(rng.integers(1, 4))]
+            out.append(bytes(b))
+    return out
+
+
+def run_on_stream(bits: int, n: int) -> bytes:
+    """A final dynamic block without EOB: 2**bits - 1 literals from "a"
+    (or "b" for bits > 1) and EOB, all codewords `bits` long, then n times
+    the last literal.  The all-zero codeword is a literal, so decoding runs
+    on through the zero padding until the guard, out_len or the 32 KiB
+    boundary stops it, and where it stops depends on the staging base and
+    the burst budget."""
+    first = ord("a") if bits == 1 else ord("b")
+    lit = list(range(first, first + (1 << bits) - 1))
+    lens = [0] * 258                      # 257 litlen + 1 offset length
+    for sym in lit + [256]:
+        lens[sym] = bits
+    items = []                            # (precode symbol, extra, nbits)
+    i = 0
+    while i < len(lens):
+        run = 1
+        while lens[i] == 0 and i + run < len(lens) and lens[i + run] == 0:
+            run += 1
+        if lens[i] == 0 and run >= 11:
+            run = min(run, 138)
+            items.append((18, run - 11, 7))
+        elif lens[i] == 0 and run >= 3:
+            items.append((17, run - 3, 3))
+        else:
+            run = 1
+            items.append((lens[i], 0, 0))
+        i += run
+    # a complete precode over the 3 or 4 symbols used, canonical codes
+    pre = sorted({sym for sym, _, _ in items})
+    plen = {sym: 1 if len(pre) == 3 and k == 0 else 2
+            for k, sym in enumerate(pre)}
+    pcode, code = {}, 0
+    for ln in (1, 2):
+        for sym in pre:
+            if plen[sym] == ln:
+                pcode[sym] = code
+                code += 1
+        code <<= 1
+    perm = [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15]
+    num_pre = max(perm.index(sym) for sym in pre) + 1
+    acc, nacc = 0, 0
+
+    def put(value, nbits):
+        nonlocal acc, nacc
+        acc |= value << nacc
+        nacc += nbits
+
+    def put_code(code, nbits):            # canonical codes go MSB first
+        put(int(f"{code:0{nbits}b}"[::-1], 2), nbits)
+
+    put(1, 1)
+    put(2, 2)
+    put(0, 5)
+    put(0, 5)
+    put(num_pre - 4, 4)
+    for k in range(num_pre):
+        put(plen.get(perm[k], 0), 3)
+    for sym, extra, nbits in items:
+        put_code(pcode[sym], plen[sym])
+        put(extra, nbits)
+    for _ in range(n):
+        put_code(len(lit) - 1, bits)
+    return acc.to_bytes((nacc + 7) // 8, "little")
+
+
+def time_best(fn, passes: int = 3) -> float:
+    """Best host-clock seconds of fn() over passes, each ending in
+    torch.cuda.synchronize()."""
+    best = float("inf")
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from libdeflate_tpu_torch import _build
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.decompress import decode as dd
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -190,7 +312,8 @@ def main() -> int:
     batches = [torch.as_tensor(chunks[i:i + BATCH].copy(), device=dev)
                for i in range(0, nchunks, BATCH)]
     lengths = torch.full((BATCH,), CHUNK, dtype=torch.int64, device=dev)
-    bfinal = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+    # each chunk a whole stream (final block), so that it decodes alone
+    bfinal = torch.ones(BATCH, dtype=torch.bool, device=dev)
 
     # ---- K1: the DP kernel against its plain version -------------------
     rand_dp = dp_random_inputs(dev)
@@ -229,16 +352,13 @@ def main() -> int:
         require_equal("literal cost table", [tab.cpu()], [tab_cpu])
     print("literal cost tables: CUDA equals CPU on every batch", flush=True)
 
-    # ---- the main path, through the entry point ------------------------
+    # ---- the compress main path, through the entry point ---------------
     pk.reset_launch_counts()
+    dd.reset_launch_counts()
     outs = [po.compress_chunks_lean(b, lengths, bfinal) for b in batches]
     torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        outs = [po.compress_chunks_lean(b, lengths, bfinal) for b in batches]
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
+    best = time_best(lambda: [po.compress_chunks_lean(b, lengths, bfinal)
+                              for b in batches])
     stage_ms: dict[str, float] = {}
     for b in batches:
         marks = []
@@ -257,6 +377,8 @@ def main() -> int:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"the main path never launched {name}")
+    if dd.decompress_chunks_words.launches:
+        raise AssertionError("the compress path launched the decoder")
 
     comp_bytes = 0
     for bi, (words, total_bits) in enumerate(outs):
@@ -279,7 +401,7 @@ def main() -> int:
 
     # ---- the CPU against the card on one chunk -------------------------
     w_cpu, t_cpu = po.compress_chunks_lean(chunks[:1], np.array([CHUNK]),
-                                           np.array([False]), device="cpu")
+                                           np.array([True]), device="cpu")
     w_gpu, t_gpu = outs[0]
     require_equal("CPU vs CUDA stream", [w_cpu[0], t_cpu[0]],
                   [w_gpu[0].cpu(), t_gpu[0].cpu()])
@@ -291,6 +413,96 @@ def main() -> int:
                   [x.cpu() for x in po.compress_chunks_lean(*tail)])
     print("CPU agreement: chunk 0 and a 40000-byte tail chunk give the same "
           "words on the CPU", flush=True)
+
+    # ---- K3: the decoder against its plain version ---------------------
+    pad_w = 2 * dd.STAGE_W
+    zstreams = [zlib6(chunks[i].tobytes()) for i in range(nchunks)]
+    z_comp, z_clen = dd.pack_streams(zstreams, pad_w)
+    z_words = torch.as_tensor(z_comp.view(np.int32), device=dev)
+    z_clen_d = torch.as_tensor(z_clen, device=dev)
+    full = torch.full((nchunks,), CHUNK, dtype=torch.int32, device=dev)
+    lean = [pp.device_stream_to_bytes(outs[i // BATCH][0][i % BATCH],
+                                      outs[i // BATCH][1][i % BATCH])
+            for i in PART_CHUNKS]
+    fixed = [zlib6(chunks[0].tobytes(), zlib.Z_FIXED)]
+    damaged = damaged_streams(chunks)
+    sets = [("zlib-6, 16 chunks", z_comp, z_clen, [CHUNK] * nchunks, True),
+            ("lean, one chunk per part", *dd.pack_streams(lean, pad_w),
+             [CHUNK] * len(lean), True),
+            ("Z_FIXED", *dd.pack_streams(fixed, pad_w), [CHUNK], True)]
+    d_comp, d_clen = dd.pack_streams(damaged, pad_w)
+    run_on = [run_on_stream(bits, n) for bits in (1, 3)
+              for n in (1, 106, 113, 4000)]
+    r_comp, r_clen = dd.pack_streams(run_on, pad_w)
+    for known in (True, False):
+        sets.append((f"damaged, known_size={known}", d_comp, d_clen,
+                     [DAMAGED_CHUNK] * len(damaged), known))
+        sets.append((f"run-on, known_size={known}", r_comp, r_clen,
+                     [70001, 69632, 81920, 66000] * 2, known))
+    err_dec = 0
+    plain_s = {}
+    for name, comp, clen, olen, known in sets:
+        args = (comp.view(np.int32), clen, np.array(olen, np.int32),
+                max(olen))
+        got = dd.decompress_chunks_words(*args, known_size=known)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = dd.decompress_chunks_words(*args, known_size=known,
+                                          device="cpu")
+        plain_s[name] = time.perf_counter() - t0
+        err_dec = max(err_dec, require_equal(f"decode_chunks ({name})",
+                                             [g.cpu() for g in got], want))
+        n_bad = int(want[1].sum())
+        print(f"K3 decode_chunks ({name}): equal to its plain version, "
+              f"{len(olen) - n_bad} chunks OK and {n_bad} BAD_DATA, plain "
+              f"{plain_s[name]:.3f} s", flush=True)
+    print(f"K3 plain version: {sum(plain_s.values()):.3f} s in all",
+          flush=True)
+
+    # ---- the decode main path, through the entry points ----------------
+    corpus_d = torch.as_tensor(chunks.copy(), device=dev)
+    rt_words = torch.cat([o[0] for o in outs])
+    rt_words = torch.cat([rt_words, torch.zeros(
+        rt_words.shape[0], pad_w, dtype=torch.int32, device=dev)], 1)
+    rt_clen = ((torch.cat([o[1] for o in outs]) + 7) // 8).to(torch.int32)
+    pk.reset_launch_counts()
+    dd.reset_launch_counts()
+    dec_rate = {}
+    for name, words, clen in (("round trip", rt_words, rt_clen),
+                              ("zlib-6", z_words, z_clen_d)):
+        out, st, ol, cons = dd.decompress_chunks_words(words, clen, full,
+                                                       CHUNK)
+        if not (bool((st == 0).all()) and bool((ol == CHUNK).all())
+                and bool((cons == clen).all())
+                and torch.equal(out, corpus_d)):
+            raise AssertionError(f"decode ({name}): a chunk does not "
+                                 f"decode to the corpus")
+        best = time_best(lambda: dd.decompress_chunks_words(
+            words, clen, full, CHUNK))
+        dec_rate[name] = (len(corpus) / best / 1e9, best)
+    n_max = max(map(len, zstreams))
+    bufs = np.zeros((nchunks, n_max), np.uint8)
+    for k, zs in enumerate(zstreams):
+        bufs[k, :len(zs)] = np.frombuffer(zs, np.uint8)
+    out, ol, cons, st = dd.decompress_chunks(bufs, z_clen, CHUNK)
+    if not (bool((st == 0).all()) and bool((ol == CHUNK).all())
+            and torch.equal(cons.cpu(), torch.as_tensor(z_clen))
+            and torch.equal(out, corpus_d)):
+        raise AssertionError("unknown-size decompress_chunks: wrong result")
+    dec_launches = dd.decompress_chunks_words.launches
+    if dec_launches <= 0:
+        raise AssertionError("the decode path never launched decode_chunks")
+    if pk.dp_parse.launches or pk.pack_groups.launches:
+        raise AssertionError("the decode path launched a compress kernel")
+    for name, (gbs, best) in dec_rate.items():
+        print(f"decode main path ({name}): {gbs:.6f} GB/s of output (best "
+              f"of 3 passes over {nchunks} x {CHUNK} bytes in one call, "
+              f"{best:.6f} s), every chunk equals the corpus", flush=True)
+    print(f"unknown-size decompress_chunks (zlib-6): out_lens {CHUNK}, "
+          f"consumed = stream lengths ({int(z_clen.sum())} bytes), every "
+          f"chunk equals the corpus", flush=True)
+    print(f"decode main path launches: "
+          f"{json.dumps({'decode_chunks': dec_launches})}", flush=True)
 
     # ---- kernel times at main-path shapes ------------------------------
     lanes = BATCH * CHUNK // po.DP_SEG
@@ -330,8 +542,20 @@ def main() -> int:
          "bound_ms": 1e3 * pack_bytes / H100_BYTES_PER_S,
          "bound_by": "bytes",
          "library_ms": cuda_ms(lambda: acc.index_add_(0, tgt, flat), 50)},
+        {"name": "decode_chunks", "route": "cuda",
+         "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
+         "replaces": "libdeflate_tpu/decompress/pallas_decode.py:941",
+         "launches": dec_launches, "max_abs_err": err_dec,
+         "ms": cuda_ms(lambda: dd.decompress_chunks_words(
+             z_words, z_clen_d, full, CHUNK), 3),
+         "plain_ms": 1e3 * plain_s["zlib-6, 16 chunks"],
+         "bound_ms": 1e3 * (int(z_clen.sum()) + nchunks * CHUNK)
+         / H100_BYTES_PER_S,
+         "bound_by": "bytes",
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

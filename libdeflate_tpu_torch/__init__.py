@@ -3,7 +3,9 @@
 Counterpart of ``libdeflate_tpu/``.  The port goes slice by slice; this
 package holds the lean min-cost-DP compress path (the JAX package's
 ``compress/tpu_optimal.py::compress_chunks_lean_pallas``) with its two
-kernels written by hand in CUDA C++ for Hopper (``csrc/``).
+kernels, and the scalar DEFLATE decoder
+(``decompress/pallas_decode.py``) with its kernel, all written by hand in
+CUDA C++ for Hopper (``csrc/``).
 
 The package imports ``torch`` and ``numpy`` and nothing of JAX or of the
 JAX package.  Entry points run on the CUDA device unless the caller
@@ -12,10 +14,18 @@ passes ``device="cpu"``.
 
 from .compress.optimal import compress_chunks_lean, from_numpy_batch
 from .compress.pipeline import device_stream_to_bytes
+from .decompress.decode import (
+    decompress_chunks,
+    decompress_chunks_host,
+    decompress_chunks_words,
+)
 from .device import resolve_device
 
 __all__ = [
     "compress_chunks_lean",
+    "decompress_chunks",
+    "decompress_chunks_host",
+    "decompress_chunks_words",
     "device_stream_to_bytes",
     "from_numpy_batch",
     "resolve_device",

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 No counterpart in ``libdeflate_tpu/``: Pallas kernels compile inside JAX.
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so`` at the
-repository root on first use (or when the source is newer), then loaded
-with ``ctypes``.  A missing ``nvcc`` or a failed build raises.
+The sources are ``csrc/dp_parse.cu`` (K1), ``csrc/pack_groups.cu`` (K2)
+and ``csrc/decode_chunks.cu`` (K3).  Each has a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so``
+at the repository root on first use (or when the source is newer), then
+loaded with ``ctypes``.  A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-KERNEL_SOURCES = ("dp_parse", "pack_groups")
+KERNEL_SOURCES = ("dp_parse", "pack_groups", "decode_chunks")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

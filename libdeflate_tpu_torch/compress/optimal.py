@@ -21,7 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import as_tensor, resolve_device
 from . import kernels
 from .bits import bsr, to_i32
 from .dynamic import (
@@ -62,17 +62,9 @@ def from_numpy_batch(bufs, lengths, bfinal, device=None):
     """The JAX entry's inputs (uint8[B, N], int32[B], bool[B], as numpy
     arrays or tensors) as tensors on ``device`` (CUDA when None)."""
     dev = resolve_device(device)
-
-    def tensor(x, dtype):
-        if isinstance(x, torch.Tensor):
-            return x
-        # read-only arrays (np.frombuffer) are copied: tensors need writable
-        return torch.from_numpy(np.require(np.asarray(x, dtype), dtype,
-                                           ["C", "W"]))
-
-    bufs = tensor(bufs, np.uint8)
-    lengths = tensor(lengths, np.int64)
-    bfinal = tensor(bfinal, bool)
+    bufs = as_tensor(bufs, np.uint8)
+    lengths = as_tensor(lengths, np.int64)
+    bfinal = as_tensor(bfinal, bool)
     if bufs.dtype != torch.uint8 or bufs.dim() != 2:
         raise ValueError(f"bufs must be uint8[B, N], got {bufs.dtype} "
                          f"{tuple(bufs.shape)}")

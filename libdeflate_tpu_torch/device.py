@@ -8,6 +8,7 @@ silent move to the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def as_tensor(x, dtype) -> torch.Tensor:
+    """``x`` itself if it is a tensor, else a CPU tensor of the numpy
+    ``dtype``; read-only arrays (``np.frombuffer``) are copied, since
+    tensors need writable memory."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.require(np.asarray(x, dtype), dtype,
+                                       ["C", "W"]))

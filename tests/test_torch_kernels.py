@@ -4,9 +4,12 @@ libdeflate_tpu_torch/compress/kernels.py against
 libdeflate_tpu/compress/tpu_pipeline.py::_group_place (the pack kernel's
 plain version, on the generator of
 tests/test_pallas_kernels.py::test_pack_kernel_matches_scatter); CPU
-tensors take the plain versions and launch nothing; without CUDA the
-entry points refuse to run unless asked for the CPU; the port and
-chip_smoke.py import neither JAX nor the JAX package.  The CUDA kernels
+tensors take the plain versions and launch nothing, the decode wrapper
+(libdeflate_tpu_torch/decompress/decode.py) included, and the wrappers
+reject shapes and types their kernels do not take; without CUDA the
+entry points refuse to run unless asked for the CPU, and a missing nvcc
+fails the build of every kernel source; the port and chip_smoke.py
+import neither JAX nor the JAX package.  The CUDA kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py.  Tolerance: exact.
 """
@@ -14,6 +17,7 @@ chip_smoke.py.  Tolerance: exact.
 import ast
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ import libdeflate_tpu_torch as lt
 from libdeflate_tpu.compress import tpu_pipeline as tp
 from libdeflate_tpu_torch import _build
 from libdeflate_tpu_torch.compress import kernels, optimal, pipeline
+from libdeflate_tpu_torch.decompress import decode
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -99,6 +104,83 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError):
         _build.nvcc_path()
+
+
+@pytest.mark.parametrize("name", ["dp_parse", "pack_groups",
+                                  "decode_chunks"])
+def test_missing_nvcc_fails_every_build(name, monkeypatch, tmp_path):
+    assert name in _build.KERNEL_SOURCES
+    assert (_build.SRC_DIR / f"{name}.cu").is_file()
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load(name)
+
+
+def _decode_inputs():
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw = b"abcabcabcabd" * 50
+    s = c.compress(raw) + c.flush()
+    comp = np.zeros((2, 2 * decode.STAGE_W), np.uint32)
+    comp[0, :-(-len(s) // 4)] = np.frombuffer(s + b"\0" * (-len(s) % 4),
+                                              np.uint32)
+    return raw, torch.from_numpy(comp), torch.tensor([len(s), 2]), \
+        torch.tensor([len(raw), 0])
+
+
+def test_cpu_decode_takes_plain_version_and_launches_nothing():
+    raw, comp, clen, olen = _decode_inputs()
+    decode.reset_launch_counts()
+    out, status, out_lens, consumed = lt.decompress_chunks_words(
+        comp, clen, olen, 1024, device="cpu")
+    assert decode.decompress_chunks_words.launches == 0
+    assert out.device.type == "cpu" and out.dtype == torch.uint8
+    assert status.tolist() == [0, 1] and out_lens[0] == len(raw)
+    assert bytes(out[0, :len(raw)].numpy()) == raw
+    assert consumed[0] == clen[0]
+    want = decode.decode_chunks_plain(comp.view(torch.int32), clen.int(),
+                                      olen.int(), 1024)
+    assert all(torch.equal(g, w) for g, w in zip(
+        (out, status, out_lens, consumed), want))
+
+
+@pytest.mark.parametrize("case", ["dtype", "rank", "narrow", "lens",
+                                  "out_bytes", "strided"])
+def test_decode_wrapper_rejects_bad_inputs(case):
+    _, comp, clen, olen = _decode_inputs()
+    args = [comp, clen, olen, 1024]
+    if case == "dtype":
+        args[0] = comp.to(torch.int64)
+    elif case == "rank":
+        args[0] = comp.reshape(-1)
+    elif case == "narrow":
+        args[0] = comp[:, :decode.STAGE_W - 1].contiguous()
+    elif case == "lens":
+        args[1] = clen[:1]
+    elif case == "out_bytes":
+        args[3] = 1022
+    else:
+        args[0] = torch.zeros(2 * decode.STAGE_W, 2, dtype=torch.int32).T
+    with pytest.raises(ValueError):
+        lt.decompress_chunks_words(*args, device="cpu")
+
+
+def test_decode_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        return
+    raw, comp, clen, olen = _decode_inputs()
+    bufs = np.zeros((1, 64), np.uint8)
+    with pytest.raises(RuntimeError):
+        lt.decompress_chunks(bufs, np.array([64]), 64)
+    with pytest.raises(RuntimeError):
+        lt.decompress_chunks_words(comp, clen, olen, 1024)
+    with pytest.raises(RuntimeError):
+        lt.decompress_chunks_host([b"\x03\x00"], [0])
+    outs, status = lt.decompress_chunks_host([b"\x03\x00"], [0],
+                                             device="cpu")
+    assert outs == [b""] and status == [0]
 
 
 def _port_files():
