@@ -17,9 +17,20 @@ two paths through their entry points:
   there, and zlib level-6 streams of the same 16 chunks, each set decoded
   in one known-size ``decompress_chunks_words`` call of B = 16; the zlib
   set also through the unknown-size ``decompress_chunks``.  Every chunk
-  must equal the corpus.
+  must equal the corpus;
+- measure: the device measurement roundup,
+  ``experiments.exp_device_roundup.main``, at its full size: the launch
+  probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
+  8 zlib-6 chunks, the tokenize-only ceiling (K4 per corpus class beside
+  K3's decode of the same streams) and the grid and loop probes (K5, K6).
+  Before it, K4 is held against its plain version in all six
+  configurations (the 16 zlib-6 chunks, Z_FIXED, the damaged and run-on
+  sets), its store variants are checked in the SASS for their token
+  stores, and K5-K7 against x + 1 and x.clone().
 
-It times each kernel beside its plain version.  Any failure raises and
+It times each kernel beside its plain version: K1-K4 by CUDA events
+around back-to-back calls, K5-K7 (a few microseconds each, less than
+their wrappers' host time) by replaying 200 calls from a CUDA graph.  Any failure raises and
 the script exits non-zero; without a CUDA device it exits non-zero at
 once.
 
@@ -44,7 +55,6 @@ BATCH = 4
 CORPUS_MB = 16
 PART_CHUNKS = (0, 4, 8, 12, 15)  # one chunk of each corpus part
 DAMAGED_CHUNK = 1 << 16
-SEED = 0x51E51A
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, NVIDIA data sheet
 DP_OPS_PER_RUNG = 16             # int32 compares/selects/adds per rung, dp_parse.cu
@@ -56,45 +66,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def make_corpus(root: Path, total_mb: int = CORPUS_MB) -> bytes:
-    """The benchmark corpus recipe of the JAX package's bench.py
-    (make_corpus): text, skewed-alphabet markov bytes, 64-byte records with
-    5% noise, random bytes, runs -- with the repository's own prose as the
-    text part."""
-    rng = np.random.default_rng(SEED)
-    txt = b"".join((root / name).read_bytes()
-                   for name in ("SURVEY.md", "PERF_NOTES.md"))
-    unit = total_mb * 1024 * 1024 // 8
-    parts = [
-        (txt * (2 * unit // len(txt) + 1))[: 2 * unit],
-        rng.choice(
-            np.frombuffer(b"etaoinshrdlucmfwypvbgkjqxz .,\n'-", np.uint8),
-            size=2 * unit, p=rng.dirichlet(np.ones(32) * 0.2)).tobytes(),
-    ]
-    rec = rng.integers(0, 256, size=64, dtype=np.uint8)
-    recs = np.tile(rec, 2 * unit // 64)
-    noise = rng.integers(0, 256, size=recs.size, dtype=np.uint8)
-    recs = np.where(rng.random(recs.size) < 0.05, noise, recs).astype(np.uint8)
-    parts.append(recs.tobytes())
-    parts.append(rng.integers(0, 256, size=unit, dtype=np.uint8).tobytes())
-    parts.append(b"\x00" * (unit // 2) + b"abcdefgh" * (unit // 16))
-    return b"".join(parts)[: total_mb * 1024 * 1024]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps launches, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def require_equal(name: str, got, want) -> int:
@@ -294,6 +265,11 @@ def main() -> int:
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
+    from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
+    from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
+    from libdeflate_tpu_torch.experiments.corpus import make_corpus
+    from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -306,7 +282,7 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {'; '.join(regs)}", flush=True)
 
-    corpus = make_corpus(root)
+    corpus = make_corpus(CORPUS_MB << 20, root)
     nchunks = len(corpus) // CHUNK
     chunks = np.frombuffer(corpus, np.uint8).reshape(nchunks, CHUNK)
     batches = [torch.as_tensor(chunks[i:i + BATCH].copy(), device=dev)
@@ -504,6 +480,84 @@ def main() -> int:
     print(f"decode main path launches: "
           f"{json.dumps({'decode_chunks': dec_launches})}", flush=True)
 
+    # ---- K4: the tokenize-only kernel against its plain version --------
+    err_tok = 0
+    tok_plain_s = {}
+    for name, comp, clen, olen, _ in [st for st in sets if st[4]
+                                      and not st[0].startswith("lean")]:
+        args = (comp.view(np.int32), clen, np.array(olen, np.int32))
+        t0 = time.perf_counter()
+        want = tk.tokenize_chunks(*args, device="cpu")
+        tok_plain_s[name] = time.perf_counter() - t0
+        for cfg, (unroll, store) in tk.CONFIGS.items():
+            got = tk.tokenize_chunks(*args, unroll, store)
+            err_tok = max(err_tok, require_equal(
+                f"tokenize_chunks {cfg} ({name})", [g.cpu() for g in got],
+                want))
+        n_bad = int(want[0].sum())
+        print(f"K4 tokenize_chunks ({name}): all {len(tk.CONFIGS)} "
+              f"configurations equal to the plain version, "
+              f"{len(olen) - n_bad} chunks OK and {n_bad} BAD_DATA, plain "
+              f"{tok_plain_s[name]:.3f} s", flush=True)
+    sts = tk.sass_store_counts()
+    if not (sts["tokst"] > sts["tok1"] and sts["tokst4"] > sts["tok4"]):
+        raise AssertionError(f"a token-store variant lost its stores: {sts}")
+    print(f"K4 SASS shared-memory stores (STS) per variant: "
+          f"{json.dumps(sts)}", flush=True)
+
+    # ---- K5-K7: the launch probes against their plain versions ---------
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err_probe = {"grid_add_one": 0, "loop_add_one": 0, "grid_copy": 0}
+    for n in lo.STEP_COUNTS:
+        x = torch.randint(-1 << 31, (1 << 31) - 1, (n * lo.ROWS, lo.LANES),
+                          dtype=torch.int32, device=dev, generator=gen)
+        err_probe["grid_add_one"] = max(err_probe["grid_add_one"],
+                                        require_equal(
+            f"grid_add_one ({n} steps)", [lo.grid_add_one(x)],
+            [lo.add_one_plain(x)]))
+    x_loop = torch.randint(-1 << 31, (1 << 31) - 1,
+                           (lo.LOOP_TILES * lo.ROWS, lo.LANES),
+                           dtype=torch.int32, device=dev, generator=gen)
+    err_probe["loop_add_one"] = require_equal(
+        "loop_add_one", [lo.loop_add_one(x_loop)], [lo.add_one_plain(x_loop)])
+    x_tile = torch.randn(rd.TILE, device=dev, generator=gen)
+    for steps in rd.PROBE_STEPS:
+        err_probe["grid_copy"] = max(err_probe["grid_copy"], require_equal(
+            f"grid_copy ({steps} steps)", [rd.grid_copy(x_tile, steps)],
+            [rd.copy_plain(x_tile)]))
+    print(f"K5 grid_add_one, K6 loop_add_one, K7 grid_copy: equal to x + 1 "
+          f"and x.clone() at {lo.STEP_COUNTS}, {lo.LOOP_TILES} tiles and "
+          f"{rd.PROBE_STEPS} steps", flush=True)
+
+    # ---- the measurement main path, through its entry point ------------
+    for mod in (pk, dd, tk, lo, rd):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rd.main()
+    if not rd.all_ok(res):
+        raise AssertionError("measurement roundup: a result is wrong")
+    meas_launches = {"decode_chunks": dd.decompress_chunks_words.launches,
+                     "tokenize_chunks": tk.tokenize_chunks.launches,
+                     "grid_add_one": lo.grid_add_one.launches,
+                     "loop_add_one": lo.loop_add_one.launches,
+                     "grid_copy": rd.grid_copy.launches}
+    for name, count in meas_launches.items():
+        if count <= 0:
+            raise AssertionError(f"the measurement path never launched "
+                                 f"{name}")
+    if pk.dp_parse.launches or pk.pack_groups.launches:
+        raise AssertionError("the measurement path launched a compress "
+                             "kernel")
+    print(f"measurement main path: every section right, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"measurement main path launches: {json.dumps(meas_launches)}",
+          flush=True)
+    tok = res["tok"]
+    for cls, row in tok.items():
+        share = row["tok1"]["s"] / row["dec"]["s"]
+        print(f"ceiling {cls}: tok1 / K3 decode time = {share:.6f}",
+              flush=True)
+
     # ---- kernel times at main-path shapes ------------------------------
     lanes = BATCH * CHUNK // po.DP_SEG
     feasible_rungs = sum(sum(1 for f in pk.LEN_LADDER_DENSE2
@@ -553,7 +607,42 @@ def main() -> int:
          / H100_BYTES_PER_S,
          "bound_by": "bytes",
          "library_ms": None},
+        {"name": "tokenize_chunks", "route": "cuda",
+         "source": "libdeflate_tpu_torch/csrc/tokenize_chunks.cu",
+         "replaces": "scripts/exp_tokenize_ceiling.py:351",
+         "launches": meas_launches["tokenize_chunks"], "max_abs_err": err_tok,
+         "ms": cuda_ms(lambda: tk.tokenize_chunks(z_words, z_clen_d, full),
+                       3),
+         "plain_ms": 1e3 * tok_plain_s["zlib-6, 16 chunks"],
+         "bound_ms": 1e3 * (int(z_clen.sum()) + nchunks * 3 * 4)
+         / H100_BYTES_PER_S,
+         "bound_by": "bytes",
+         "library_ms": None},
     ]
+    x_grid = torch.zeros(lo.STEP_COUNTS[-1] * lo.ROWS, lo.LANES,
+                         dtype=torch.int32, device=dev)
+    for name, source, replaces, fn, plain, x in (
+            ("grid_add_one", "launch_probes.cu",
+             "scripts/exp_pallas_overhead.py:31",
+             lambda x: lo.grid_add_one(x), lo.add_one_plain, x_grid),
+            ("loop_add_one", "launch_probes.cu",
+             "scripts/exp_pallas_overhead.py:61",
+             lo.loop_add_one, lo.add_one_plain, x_loop),
+            ("grid_copy", "launch_probes.cu",
+             "scripts/exp_device_roundup.py:67",
+             lambda x: rd.grid_copy(x, rd.PROBE_STEPS[-1]), rd.copy_plain,
+             x_tile)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"libdeflate_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": meas_launches[name],
+            "max_abs_err": err_probe[name],
+            "ms": graph_ms(lambda: fn(x), 200),
+            "plain_ms": graph_ms(lambda: plain(x), 200),
+            "bound_ms": 1e3 * 2 * x.numel() * 4 / H100_BYTES_PER_S,
+            "bound_by": "bytes",
+            "library_ms": graph_ms(lambda: (x + 1 if name != "grid_copy"
+                                            else x.clone()), 200)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card, flush=True)

@@ -1,17 +1,21 @@
 """Build and load the port's CUDA kernels.
 
 No counterpart in ``libdeflate_tpu/``: Pallas kernels compile inside JAX.
-The sources are ``csrc/dp_parse.cu`` (K1), ``csrc/pack_groups.cu`` (K2)
-and ``csrc/decode_chunks.cu`` (K3).  Each has a plain C interface and is
+The sources are ``csrc/dp_parse.cu`` (K1), ``csrc/pack_groups.cu`` (K2),
+``csrc/decode_chunks.cu`` (K3), ``csrc/tokenize_chunks.cu`` (K4) and
+``csrc/launch_probes.cu`` (K5-K7); K3 and K4 share
+``csrc/inflate_common.cuh``.  Each source has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so``
-at the repository root on first use (or when the source is newer), then
-loaded with ``ctypes``.  A missing ``nvcc`` or a failed build raises.
+at the repository root on first use (or when the source or a header it
+includes is newer), then loaded with ``ctypes``.  A missing ``nvcc`` or a
+failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -19,7 +23,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-KERNEL_SOURCES = ("dp_parse", "pack_groups", "decode_chunks")
+KERNEL_SOURCES = ("dp_parse", "pack_groups", "decode_chunks",
+                  "tokenize_chunks", "launch_probes")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -40,6 +45,13 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the headers of ``csrc/`` it includes."""
+    src = SRC_DIR / f"{name}.cu"
+    return [src] + [SRC_DIR / h for h in
+                    re.findall(r'#include "([^"]+)"', src.read_text())]
+
+
 def build(names=KERNEL_SOURCES) -> dict[str, str]:
     """Compile every stale source, one ``nvcc`` each, all started
     together.  Returns the compiler's output (``-Xptxas -v``) per built
@@ -49,13 +61,14 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     procs = {}
     try:
         for name in names:
-            src, so = SRC_DIR / f"{name}.cu", lib_path(name)
-            if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+            deps, so = sources(name), lib_path(name)
+            if so.exists() and so.stat().st_mtime >= max(
+                    d.stat().st_mtime for d in deps):
                 continue
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(src)]
+                   "-Xptxas", "-v", "-o", str(tmp), str(deps[0])]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, so)

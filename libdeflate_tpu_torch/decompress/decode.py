@@ -102,61 +102,71 @@ def _stored(dw, rowb, out, t, bb, olen, base_max):
     return ib << 3, bb, OK
 
 
+def read_tables(dw, t, bb, btype, base_max):
+    """The table setup of a static or dynamic block (``do_huffman``'s
+    first half) from the bit after its header, over the row ``dw`` of
+    ``row_pairs``.  Returns (ll, of, t, bb, ok); the tables are None when
+    the code lengths are bad."""
+    if btype == 1:
+        return _STATIC_LL, _STATIC_OF, t, bb, True
+    if (t >> 5) + 1 - bb >= STAGE_W:
+        bb = (min(t >> 5, base_max) >> 10) << 10
+    v = dw[t >> 5] >> (t & 31)
+    num_ll = 257 + (v & 31)
+    num_of = 1 + ((v >> 5) & 31)
+    num_pre = 4 + ((v >> 10) & 15)
+    t += 14
+    plens = [0] * 19
+    for i in range(num_pre):
+        if (t >> 5) + 1 - bb >= STAGE_W:
+            bb = (min(t >> 5, base_max) >> 10) << 10
+        plens[_PERM[i]] = (dw[t >> 5] >> (t & 31)) & 7
+        t += 3
+    pre, ok = build_table(plens, 0)
+    # RLE-decode the litlen + offset lengths
+    total = num_ll + num_of
+    lens = [0] * total
+    i = 0
+    while ok and i < total:
+        if (t >> 5) + 1 - bb >= STAGE_W:
+            bb = (min(t >> 5, base_max) >> 10) << 10
+        e = pre[(dw[t >> 5] >> (t & 31)) & 127]
+        sym = e >> 16
+        t += e & 0xFF
+        if (t >> 5) + 1 - bb >= STAGE_W:
+            bb = (min(t >> 5, base_max) >> 10) << 10
+        w2 = dw[t >> 5] >> (t & 31)
+        if sym < 16:
+            lens[i] = sym
+            i += 1
+            continue
+        if sym == 16:
+            rep, ebits, val = 3 + (w2 & 3), 2, lens[i - 1] if i else 0
+        elif sym == 17:
+            rep, ebits, val = 3 + (w2 & 7), 3, 0
+        else:
+            rep, ebits, val = 11 + (w2 & 127), 7, 0
+        if (sym == 16 and i == 0) or i + rep > total:
+            ok = False
+        else:
+            lens[i:i + rep] = [val] * rep
+        i += rep
+        t += ebits
+    if not ok:
+        return None, None, t, bb, False
+    ll, ok_l = build_table(lens[:num_ll], 1)
+    of, ok_o = build_table(lens[num_ll:], 2)
+    if not (ok_l and ok_o):
+        return None, None, t, bb, False
+    return ll, of, t, bb, True
+
+
 def _huffman(dw, out, t, bb, btype, olen, guard, base_max):
     """One static or dynamic block (``do_huffman``) from the bit after its
     header: table setup, then the group loop.  Returns (t, bb, status)."""
-    if btype == 1:
-        ll, of = _STATIC_LL, _STATIC_OF
-    else:
-        if (t >> 5) + 1 - bb >= STAGE_W:
-            bb = (min(t >> 5, base_max) >> 10) << 10
-        v = dw[t >> 5] >> (t & 31)
-        num_ll = 257 + (v & 31)
-        num_of = 1 + ((v >> 5) & 31)
-        num_pre = 4 + ((v >> 10) & 15)
-        t += 14
-        plens = [0] * 19
-        for i in range(num_pre):
-            if (t >> 5) + 1 - bb >= STAGE_W:
-                bb = (min(t >> 5, base_max) >> 10) << 10
-            plens[_PERM[i]] = (dw[t >> 5] >> (t & 31)) & 7
-            t += 3
-        pre, ok = build_table(plens, 0)
-        # RLE-decode the litlen + offset lengths
-        total = num_ll + num_of
-        lens = [0] * total
-        i = 0
-        while ok and i < total:
-            if (t >> 5) + 1 - bb >= STAGE_W:
-                bb = (min(t >> 5, base_max) >> 10) << 10
-            e = pre[(dw[t >> 5] >> (t & 31)) & 127]
-            sym = e >> 16
-            t += e & 0xFF
-            if (t >> 5) + 1 - bb >= STAGE_W:
-                bb = (min(t >> 5, base_max) >> 10) << 10
-            w2 = dw[t >> 5] >> (t & 31)
-            if sym < 16:
-                lens[i] = sym
-                i += 1
-                continue
-            if sym == 16:
-                rep, ebits, val = 3 + (w2 & 3), 2, lens[i - 1] if i else 0
-            elif sym == 17:
-                rep, ebits, val = 3 + (w2 & 7), 3, 0
-            else:
-                rep, ebits, val = 11 + (w2 & 127), 7, 0
-            if (sym == 16 and i == 0) or i + rep > total:
-                ok = False
-            else:
-                lens[i:i + rep] = [val] * rep
-            i += rep
-            t += ebits
-        if not ok:
-            return t, bb, BAD_DATA
-        ll, ok_l = build_table(lens[:num_ll], 1)
-        of, ok_o = build_table(lens[num_ll:], 2)
-        if not (ok_l and ok_o):
-            return t, bb, BAD_DATA
+    ll, of, t, bb, ok = read_tables(dw, t, bb, btype, base_max)
+    if not ok:
+        return t, bb, BAD_DATA
 
     # group loop: a literal burst within the staged window and >= 8 bytes
     # clear of the next 32 KiB boundary and of out_len, then one item
@@ -231,22 +241,26 @@ def _huffman(dw, out, t, bb, btype, olen, guard, base_max):
             return t, bb, stt
 
 
+def row_pairs(words: np.ndarray, W_pad: int):
+    """One row of uint32 words as (dw, rowb): the 64-bit pairs dw[i] =
+    word i | word i+1 << 32, zero-padded to W_pad words, then word
+    W_pad - 1 repeated for reads past the row (a damaged stream's header
+    and RLE reads reach ~150 words past); rowb the padded row's bytes."""
+    wp = np.zeros(W_pad + 258, np.uint64)
+    wp[:words.shape[0]] = words
+    wp[W_pad:] = wp[W_pad - 1]
+    dw = (wp[:-1] | (wp[1:] << np.uint64(32))).tolist()
+    return dw, wp[:W_pad].astype("<u4").tobytes()
+
+
 def _decode_row(words: np.ndarray, W_pad: int, clen: int, olen: int,
                 strict: bool):
     """Decode one chunk: words uint32[W] -> (bytearray, status, out_len,
     consumed)."""
-    W = words.shape[0]
     in_words = (clen + 3) >> 2
-    if clen < 0 or in_words + STAGE_W > W:
+    if clen < 0 or in_words + STAGE_W > words.shape[0]:
         return bytearray(), BAD_DATA, 0, 0
-    # the row as 64-bit pairs dw[i] = word i | word i+1 << 32, zero-padded
-    # to W_pad words, then word W_pad - 1 repeated for reads past the row
-    # (a damaged stream's header and RLE reads reach ~150 words past)
-    wp = np.zeros(W_pad + 258, np.uint64)
-    wp[:W] = words
-    wp[W_pad:] = wp[W_pad - 1]
-    dw = (wp[:-1] | (wp[1:] << np.uint64(32))).tolist()
-    rowb = wp[:W_pad].astype("<u4").tobytes()
+    dw, rowb = row_pairs(words, W_pad)
     base_max = W_pad - STAGE_W
     guard = in_words + STAGE_W
 
@@ -304,6 +318,31 @@ def decode_chunks_plain(comp_words, comp_len, out_len, out_bytes: int,
     return torch.from_numpy(out), status, out_lens, consumed
 
 
+def prepare_words(comp_words, comp_len, out_len, dev: torch.device):
+    """Check the padded-words inputs of K3 and K4 and move them to dev:
+    returns (words int32 [B, W], comp_len int32 [B], out_len int32 [B])."""
+    if isinstance(comp_words, np.ndarray):
+        comp_words = torch.from_numpy(np.ascontiguousarray(comp_words))
+    if comp_words.dtype not in (torch.int32, torch.uint32) \
+            or comp_words.dim() != 2:
+        raise ValueError(f"comp_words must be int32/uint32 [B, W], got "
+                         f"{comp_words.dtype} {tuple(comp_words.shape)}")
+    B, W = comp_words.shape
+    if not STAGE_W <= W <= MAX_W:
+        raise ValueError(f"comp_words rows must hold {STAGE_W} to {MAX_W} "
+                         f"words (the stream plus STAGE_W words of zero "
+                         f"padding), got {W}")
+    if not comp_words.is_contiguous():
+        raise ValueError("comp_words must be contiguous")
+    comp_len = as_tensor(comp_len, np.int32)
+    out_len = as_tensor(out_len, np.int32)
+    if comp_len.shape != (B,) or out_len.shape != (B,):
+        raise ValueError("comp_len and out_len must have shape [B]")
+    return (comp_words.view(torch.int32).to(dev),
+            comp_len.to(dev, torch.int32).contiguous(),
+            out_len.to(dev, torch.int32).contiguous())
+
+
 def decompress_chunks_words(comp_words, comp_len, out_len, out_bytes: int,
                             known_size: bool = True, device=None):
     """Decode B raw-DEFLATE chunks (``decompress_chunks_pallas``).
@@ -322,29 +361,12 @@ def decompress_chunks_words(comp_words, comp_len, out_len, out_bytes: int,
     (out uint8[B, out_bytes], status int32[B], out_lens int32[B],
     consumed int32[B]); out is zero at and past each out_len."""
     dev = resolve_device(device)
-    if isinstance(comp_words, np.ndarray):
-        comp_words = torch.from_numpy(np.ascontiguousarray(comp_words))
-    if comp_words.dtype not in (torch.int32, torch.uint32) \
-            or comp_words.dim() != 2:
-        raise ValueError(f"comp_words must be int32/uint32 [B, W], got "
-                         f"{comp_words.dtype} {tuple(comp_words.shape)}")
-    B, W = comp_words.shape
-    if not STAGE_W <= W <= MAX_W:
-        raise ValueError(f"comp_words rows must hold {STAGE_W} to {MAX_W} "
-                         f"words (the stream plus STAGE_W words of zero "
-                         f"padding), got {W}")
-    if not comp_words.is_contiguous():
-        raise ValueError("comp_words must be contiguous")
     if out_bytes <= 0 or out_bytes % 4:
         raise ValueError(f"out_bytes must be a positive multiple of 4, got "
                          f"{out_bytes}")
-    comp_len = as_tensor(comp_len, np.int32)
-    out_len = as_tensor(out_len, np.int32)
-    if comp_len.shape != (B,) or out_len.shape != (B,):
-        raise ValueError("comp_len and out_len must have shape [B]")
-    words = comp_words.to(dev).view(torch.int32)
-    comp_len = comp_len.to(dev, torch.int32).contiguous()
-    out_len = out_len.to(dev, torch.int32).contiguous()
+    words, comp_len, out_len = prepare_words(comp_words, comp_len, out_len,
+                                             dev)
+    B, W = words.shape
     if dev.type == "cpu":
         return decode_chunks_plain(words, comp_len, out_len, out_bytes,
                                    known_size)

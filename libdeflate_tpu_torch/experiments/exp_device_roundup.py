@@ -1,0 +1,178 @@
+"""One-shot device measurement roundup (K7 and the measurement path).
+
+Counterpart of ``scripts/exp_device_roundup.py``.  ``main(sections)`` runs,
+in order, with a warm-up before each timing and a sync ending each pass:
+
+- "1": the launch probe (K7, the script's lines 57-78): ``grid_copy`` of a
+  float32 [128, 128] tile with 1, 16 and 64 blocks that all copy the same
+  tile, ms per call and per block on the host clock, by CUDA events and
+  replayed from a CUDA graph;
+- "4": CRC-32 and Adler-32 of 8 corpus chunks (lines 122-136) through
+  ``ops/checksums.py``, each equal to ``zlib``, in GB/s on the host clock
+  and replayed from a CUDA graph (the card's time alone);
+- "5": K3 on zlib-6 streams of the same 8 chunks (lines 138-170) through
+  ``decompress_chunks_words``, bit-exact, in MB/s;
+- "tok": the tokenize-only ceiling (K4), ``exp_tokenize_ceiling``;
+- "overhead": the grid and loop probes (K5, K6), ``exp_launch_overhead``.
+
+Sections "2" and "3" time compress tiers that are not ported (dynamic,
+optimal and deep); asking for them raises.  The default is every ported
+section.  ``grid_copy`` launches ``csrc/launch_probes.cu`` for CUDA tensors
+and computes its plain version, ``x.clone()``, for CPU tensors; launches
+are counted in ``grid_copy.launches``.
+
+Run (on a CUDA machine): ``python -m
+libdeflate_tpu_torch.experiments.exp_device_roundup [1 4 5 tok overhead]``.
+"""
+
+from __future__ import annotations
+
+import sys
+import zlib
+
+import numpy as np
+import torch
+
+from ..decompress.decode import decompress_chunks_words, pack_streams
+from ..device import resolve_device
+from ..ops import checksums
+from . import exp_launch_overhead, exp_tokenize_ceiling, timing
+from .corpus import CHUNK, CORPUS_BYTES, make_corpus, zlib_raw
+
+SECTIONS = ("1", "4", "5", "tok", "overhead")
+NOT_PORTED = {"2": "the dynamic compress tiers (dyn1, dyn2)",
+              "3": "the optimal and deep compress tiers"}
+PROBE_STEPS = (1, 16, 64)
+TILE = (128, 128)
+NCHUNKS = 8
+
+
+def reset_launch_counts() -> None:
+    grid_copy.launches = 0
+
+
+def copy_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7."""
+    return x.clone()
+
+
+def grid_copy(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """x copied by ``steps`` blocks that each copy all of x (float32, at
+    most 1 << 20 elements) to the one output."""
+    if x.dtype != torch.float32 or not 1 <= x.numel() <= 1 << 20:
+        raise ValueError(f"x must be float32 with 1 to {1 << 20} elements, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous() or steps < 1:
+        raise ValueError("x must be contiguous and steps >= 1")
+    if x.device.type == "cpu":
+        return copy_plain(x)
+    out = exp_launch_overhead.launch_probe("grid_copy", "grid_copy_launch",
+                                           x, x.numel(), steps)
+    grid_copy.launches += 1
+    return out
+
+
+def _probe(dev) -> dict:
+    x = torch.zeros(TILE, dtype=torch.float32, device=dev)
+    res = {}
+    for steps in PROBE_STEPS:
+        res[steps] = exp_launch_overhead.measure(
+            lambda x: grid_copy(x, steps), x, copy_plain, dev, 4)
+        print(f"[1] grid={steps}: "
+              f"{exp_launch_overhead.format_times(res[steps], steps)}",
+              flush=True)
+    return res
+
+
+def _checksums(bufs, dev) -> dict:
+    big = torch.as_tensor(bufs, device=dev)
+    lens = torch.full((len(bufs),), bufs.shape[1], dtype=torch.int64,
+                      device=dev)
+    res = {}
+    for name, fn, oracle in (("crc32", checksums.crc32_chunks, zlib.crc32),
+                             ("adler32", checksums.adler32_chunks,
+                              zlib.adler32)):
+        dt = timing.best_of(lambda: fn(big, lens, device=dev), dev, 4)
+        got = fn(big, lens, device=dev).tolist()
+        ok = got == [oracle(b.tobytes()) for b in bufs]
+        # the card's time alone: the same calls replayed from a CUDA graph
+        card_s = (timing.graph_ms(lambda: fn(big, lens, device=dev), 10)
+                  / 1e3 if dev.type == "cuda" else None)
+        res[name] = {"gb_s": bufs.size / dt / 1e9, "s": dt, "ok": ok,
+                     "graph_s": card_s}
+        print(f"[4] {name}: {bufs.size / dt / 1e9:.6f} GB/s ({dt:.6f} s for "
+              f"{bufs.size} bytes, host); graph replay "
+              + ("not measured" if card_s is None else
+                 f"{bufs.size / card_s / 1e9:.6f} GB/s ({card_s:.6f} s)")
+              + ("" if ok else " MISMATCH"), flush=True)
+    return res
+
+
+def _decode(bufs, dev) -> dict:
+    comp, clen = pack_streams([zlib_raw(b.tobytes()) for b in bufs])
+    ca = torch.as_tensor(comp.view(np.int32), device=dev)
+    cl = torch.as_tensor(clen, device=dev)
+    n, width = bufs.shape
+    ol = torch.full((n,), width, dtype=torch.int32, device=dev)
+    out, st, _, _ = decompress_chunks_words(ca, cl, ol, width, device=dev)
+    ok = bool((st == 0).all()) and np.array_equal(out.cpu().numpy(), bufs)
+    dt = timing.best_of(lambda: decompress_chunks_words(
+        ca, cl, ol, width, device=dev), dev, 4)
+    print(f"[5] K3 decode: {bufs.size / dt / 1e6:.6f} MB/s ({dt:.6f} s for "
+          f"{n} x {width} bytes), bit-exact={ok}", flush=True)
+    return {"mb_s": bufs.size / dt / 1e6, "s": dt, "ok": ok}
+
+
+def main(sections=None, device=None, total: int = CORPUS_BYTES,
+         chunk: int = CHUNK) -> dict:
+    """Run the sections (default: all ported ones) on ``device`` (CUDA
+    unless named) over a corpus of ``total`` bytes in ``chunk``-byte
+    chunks; print the script's lines and return {section: results}, each
+    result with an "ok" flag."""
+    sections = list(SECTIONS if sections is None else sections)
+    for s in sections:
+        if s in NOT_PORTED:
+            raise ValueError(f"section {s} times {NOT_PORTED[s]}, which the "
+                             f"port does not have yet")
+        if s not in SECTIONS:
+            raise ValueError(f"unknown section {s!r}; the sections are "
+                             f"{SECTIONS}")
+    dev = resolve_device(device)
+    print(f"device: {timing.describe(dev)}", flush=True)
+    corpus = make_corpus(total)
+    nch = len(corpus) // chunk
+    bufs = np.frombuffer(corpus[:nch * chunk], np.uint8).reshape(
+        nch, chunk).copy()
+    first = bufs[:NCHUNKS]
+    res = {}
+    if "1" in sections:
+        res["1"] = _probe(dev)
+    if "4" in sections:
+        res["4"] = _checksums(first, dev)
+    if "5" in sections:
+        res["5"] = _decode(first, dev)
+    if "tok" in sections:
+        res["tok"] = exp_tokenize_ceiling.ceiling_table(
+            device=dev, total=total, chunk=chunk, corpus=corpus)
+        for line in exp_tokenize_ceiling.format_table(res["tok"]):
+            print(f"[tok] {line}", flush=True)
+    if "overhead" in sections:
+        res["overhead"] = exp_launch_overhead.overhead_table(dev)
+        for line in exp_launch_overhead.format_table(res["overhead"]):
+            print(f"[overhead] {line}", flush=True)
+    return res
+
+
+def all_ok(res) -> bool:
+    """True if every "ok" flag in a result tree is true."""
+    if isinstance(res, dict):
+        return all(v if k == "ok" else all_ok(v) for k, v in res.items())
+    return True
+
+
+reset_launch_counts()
+
+if __name__ == "__main__":
+    args = sys.argv[1:]
+    sys.exit(0 if all_ok(main([a for a in args if a != "--cpu"] or None,
+                              "cpu" if "--cpu" in args else None)) else 1)

@@ -8,8 +8,9 @@ tensors take the plain versions and launch nothing, the decode wrapper
 (libdeflate_tpu_torch/decompress/decode.py) included, and the wrappers
 reject shapes and types their kernels do not take; without CUDA the
 entry points refuse to run unless asked for the CPU, and a missing nvcc
-fails the build of every kernel source; the port and chip_smoke.py
-import neither JAX nor the JAX package.  The CUDA kernels
+fails the build of every kernel source (and a header change rebuilds the
+sources that include it); the port and chip_smoke.py import neither JAX
+nor the JAX package, nor bench.py or scripts/.  The CUDA kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py.  Tolerance: exact.
 """
@@ -107,7 +108,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["dp_parse", "pack_groups",
-                                  "decode_chunks"])
+                                  "decode_chunks", "tokenize_chunks",
+                                  "launch_probes"])
 def test_missing_nvcc_fails_every_build(name, monkeypatch, tmp_path):
     assert name in _build.KERNEL_SOURCES
     assert (_build.SRC_DIR / f"{name}.cu").is_file()
@@ -117,6 +119,48 @@ def test_missing_nvcc_fails_every_build(name, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load(name)
+
+
+def test_header_change_rebuilds_its_includers(monkeypatch, tmp_path):
+    """Built libraries newer than every .cu but older than
+    inflate_common.cuh: exactly K3's and K4's sources are rebuilt."""
+    import os
+    import shutil
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    build = tmp_path / "kernels"
+    build.mkdir()
+    t = 1_700_000_000
+    for name in _build.KERNEL_SOURCES:
+        os.utime(src / f"{name}.cu", (t - 10, t - 10))
+        (build / f"lib{name}.so").write_bytes(b"")
+        os.utime(build / f"lib{name}.so", (t, t))
+    os.utime(src / "inflate_common.cuh", (t + 10, t + 10))
+    built = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            out = Path(cmd[cmd.index("-o") + 1])
+            out.write_bytes(b"")
+            built.append(Path(cmd[-1]).stem)
+
+        def communicate(self):
+            return "", None
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    logs = _build.build()
+    assert sorted(built) == sorted(logs) == ["decode_chunks",
+                                             "tokenize_chunks"]
+    assert _build.build() == {}
 
 
 def _decode_inputs():
@@ -201,14 +245,15 @@ def test_port_imports_no_jax(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "libdeflate_tpu"), \
-                f"{path.name} imports {name}"
+            assert top not in ("jax", "jaxlib", "libdeflate_tpu", "bench",
+                               "scripts"), f"{path.name} imports {name}"
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, libdeflate_tpu_torch, chip_smoke; "
+            "import libdeflate_tpu_torch.experiments.exp_device_roundup; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'libdeflate_tpu')]; "
+            "('jax', 'jaxlib', 'libdeflate_tpu', 'bench', 'scripts')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -1,0 +1,112 @@
+"""The port's device measurement path as a whole, on the CPU.
+
+libdeflate_tpu_torch/experiments/exp_device_roundup.py::main with
+device="cpu" at a small size (8 chunks of 64 KiB): every ported section
+(1, 4, 5, tok, overhead) runs through the plain versions and every result is
+right; sections 2 and 3 (compress tiers not ported) raise.  The corpus recipe
+(experiments/corpus.py) against bench.make_corpus with the same text, the
+per-class streams against the corpus spans of
+scripts/exp_tokenize_ceiling.py::class_streams, and the port's K4 on a whole
+class against the script's tokenize_chunks in interpret mode.  The CLI
+entries of the ceiling and overhead scripts run with --cpu.
+
+Tolerance: exact.
+"""
+
+import glob
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import bench
+from libdeflate_tpu_torch.decompress.decode import pack_streams
+from libdeflate_tpu_torch.experiments import corpus as pc
+from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
+from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
+from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
+from scripts import exp_tokenize_ceiling as ref
+
+TOTAL, CHUNK = 8 << 16, 1 << 16
+
+
+@pytest.fixture(scope="module")
+def roundup():
+    for mod in (rd, lo, tk):
+        mod.reset_launch_counts()
+    return rd.main(device="cpu", total=TOTAL, chunk=CHUNK)
+
+
+def test_roundup_runs_every_ported_section_right(roundup):
+    assert list(roundup) == list(rd.SECTIONS)
+    assert rd.all_ok(roundup)
+    assert sorted(roundup["1"]) == list(rd.PROBE_STEPS)
+    assert sorted(roundup["4"]) == ["adler32", "crc32"]
+    assert sorted(roundup["tok"]) == sorted(tk.CLASSES)
+    for row in roundup["tok"].values():
+        assert list(row) == [*tk.VARIANTS, "dec"]
+    assert sorted(roundup["overhead"]["grid"]) == list(lo.STEP_COUNTS)
+    # on the CPU nothing launches and no device time is claimed
+    assert roundup["1"][1]["cuda_ms"] is None
+    assert tk.tokenize_chunks.launches == 0
+    assert lo.grid_add_one.launches == lo.loop_add_one.launches == 0
+    assert rd.grid_copy.launches == 0
+
+
+def test_roundup_sizes(roundup):
+    assert roundup["tok"]["mixed"]["tok1"]["bytes"] == TOTAL
+    assert roundup["tok"]["runs"]["dec"]["bytes"] == TOTAL // 8
+    assert roundup["5"]["ok"] and roundup["4"]["crc32"]["ok"]
+
+
+@pytest.mark.parametrize("section", ["2", "3", "7"])
+def test_sections_not_ported_raise(section):
+    with pytest.raises(ValueError):
+        rd.main([section], device="cpu", total=TOTAL, chunk=CHUNK)
+
+
+def test_corpus_recipe_matches_bench(monkeypatch, tmp_path):
+    """With the same text (bench's fallback text, used when its glob of
+    reference files finds none), the port's corpus is bench.make_corpus
+    byte for byte."""
+    monkeypatch.setattr(glob, "glob", lambda *a, **k: [])
+    (tmp_path / "SURVEY.md").write_bytes(b"fallback text " * 1000)
+    (tmp_path / "PERF_NOTES.md").write_bytes(b"")
+    assert pc.make_corpus(1 << 20, tmp_path) == bench.make_corpus(1)
+
+
+@pytest.mark.parametrize("cls", pc.CLASSES)
+def test_class_streams_cut_the_spans(cls):
+    corpus = pc.make_corpus(TOTAL)
+    chunks, streams = pc.class_streams(cls, TOTAL, CHUNK, corpus)
+    u = TOTAL // 8
+    lo_, hi = {"text": (0, 2), "skew": (2, 4), "recs": (4, 6),
+               "rand": (6, 7), "runs": (7, 8), "mixed": (0, 8)}[cls]
+    assert b"".join(chunks) == corpus[lo_ * u:hi * u]
+    assert all(len(c) == CHUNK for c in chunks)
+    for c, s in zip(chunks, streams):
+        co = zlib.compressobj(6, zlib.DEFLATED, -15)
+        assert s == co.compress(c) + co.flush()
+
+
+def test_a_whole_class_matches_the_script():
+    chunks, streams = pc.class_streams("mixed", TOTAL, CHUNK)
+    comp, clen = pack_streams(streams)
+    olen = np.array([len(c) for c in chunks], np.int32)
+    want = ref.tokenize_chunks(jnp.asarray(comp), jnp.asarray(clen),
+                               jnp.asarray(olen), interpret=True)
+    got = tk.tokenize_chunks(comp, clen, olen, device="cpu")
+    for w, g in zip(want, got):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert got[0].tolist() == [0] * len(chunks)
+    assert got[1].tolist() == olen.tolist()
+
+
+def test_cli_entries_on_the_cpu(capsys):
+    assert lo.main(["--cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "plain versions" in out and "grid= 256" in out
+    assert tk.main(["--cpu", "--cls", "runs", "tok1"]) == 0
+    out = capsys.readouterr().out
+    assert "runs" in out and "tok1=" in out and "K3 dec=" in out
