@@ -26,13 +26,21 @@ two paths through their entry points:
   Before it, K4 is held against its plain version in all six
   configurations (the 16 zlib-6 chunks, Z_FIXED, the damaged and run-on
   sets), its store variants are checked in the SASS for their token
-  stores, and K5-K7 against x + 1 and x.clone().
+  stores, and K5-K7 against x + 1 and x.clone() (K6 at 1 to 1000 tiles).
 
-It times each kernel beside its plain version: K1-K4 by CUDA events
-around back-to-back calls, K5-K7 (a few microseconds each, less than
-their wrappers' host time) by replaying 200 calls from a CUDA graph.  Any failure raises and
-the script exits non-zero; without a CUDA device it exits non-zero at
-once.
+K2 is held against its plain version on random, main-path (the text,
+rand and runs parts of the corpus, B = 4, 2 and 1; chunks that turn
+from dense to sparse data inside them) and crafted inputs (every group
+on one start word, start words near the end, sparse start words, a run
+of 40 groups a word before sparse ones);
+torch.profiler checks that its wrapper runs its kernel and no other
+device op.  It times each kernel beside its plain version: K1, K3 and K4
+by CUDA events around back-to-back calls, K2 and K5-K7 (a few
+microseconds each, less than their wrappers' host time) by replaying 200
+calls from a CUDA graph, K2 also as its bare launch and on the rand,
+runs and dense-then-sparse inputs beside index_add_.  Any failure raises
+and the script exits non-zero; without a CUDA device it exits non-zero
+at once.
 
 The last lines are a JSON object describing the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -58,6 +66,7 @@ DAMAGED_CHUNK = 1 << 16
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, NVIDIA data sheet
 DP_OPS_PER_RUNG = 16             # int32 compares/selects/adds per rung, dp_parse.cu
+LOOP_TILE_COUNTS = (1, 7, 133, 256, 1000)  # K6 checks; 256 is its main shape
 
 
 def card_line() -> str:
@@ -142,6 +151,77 @@ def pack_random_inputs(dev, B=4, m=CHUNK // 128, seed=1):
                                  torch.as_tensor(offs, device=dev),
                                  capw=pd.DYN_CAPW)
     return sbuf, gw, nwords
+
+
+def crafted_pack_inputs(gw: np.ndarray, nwords: int, capw1: int, dev,
+                        seed: int):
+    """(sbuf, gw, nwords) for given non-decreasing start words gw [B, m]:
+    every bit of every word that some group's window [gw, gw + capw1)
+    reaches below nwords goes to one random such group, or (half the
+    time) to none, so the groups' bits are disjoint and nothing lies at
+    or past nwords."""
+    rng = np.random.default_rng(seed)
+    B, m = gw.shape
+    sbuf = np.zeros((B, m, capw1), np.int64)
+    bits = np.int64(1) << np.arange(32, dtype=np.int64)
+    for b in range(B):
+        words = np.unique((gw[b][:, None] + np.arange(capw1)).reshape(-1))
+        for w in words[words < nwords]:
+            lo = np.searchsorted(gw[b], w - capw1 + 1)
+            hi = np.searchsorted(gw[b], w, side="right")
+            pick = rng.integers(lo - (hi - lo), hi, 32)
+            use = pick >= lo
+            np.bitwise_or.at(sbuf[b], (pick[use], w - gw[b][pick[use]]),
+                             bits[use])
+    return (torch.as_tensor(sbuf, device=dev), torch.as_tensor(gw, device=dev),
+            nwords)
+
+
+def dense_then_sparse_chunks(chunks: np.ndarray) -> dict:
+    """Two batches of four 1 MiB chunks that change corpus class inside
+    them, so that a run of dense groups (a few bits each) is followed by
+    sparse ones.  Half and half: the zero half of the runs part then
+    text, zeros then random bytes, text and "abcdefgh" runs alternating
+    every 64 KiB, text then zeros (the reverse).  Mostly dense: 15/16
+    zeros then text, 31/32 zeros then random bytes, 15/16 "abcdefgh"
+    then text, 63/64 zeros with 8 KiB of text in the last 16 KiB.  Text
+    is part 0 of the corpus, rand 6u, runs 7u (u = len(chunks) / 8)."""
+    u = len(chunks) // 8
+    text, rand, zeros, abc = (chunks[0], chunks[6 * u], chunks[7 * u],
+                              chunks[8 * u - 1])
+    half, cat = CHUNK // 2, np.concatenate
+    seg = (np.arange(CHUNK) // (1 << 16)) % 2 == 1
+    return {
+        "half dense then sparse": np.stack([
+            cat([zeros[:half], text[half:]]), cat([zeros[:half], rand[half:]]),
+            np.where(seg, abc, text), cat([text[:half], zeros[half:]])]),
+        "mostly dense then sparse": np.stack([
+            cat([zeros[:-CHUNK // 16], text[:CHUNK // 16]]),
+            cat([zeros[:-CHUNK // 32], rand[:CHUNK // 32]]),
+            cat([abc[:-CHUNK // 16], text[:CHUNK // 16]]),
+            cat([zeros[:-CHUNK // 64], text[:CHUNK // 128],
+                 zeros[:CHUNK // 128]])])}
+
+
+def index_add_call(sbuf, gw, nwords):
+    """K2's library yardstick: a function making one index_add_ that adds
+    every group word at its target, as group_place does (into an
+    accumulator that is not cleared between calls: a measure of time)."""
+    B, _, capw1 = sbuf.shape
+    dev = sbuf.device
+    tgt = torch.clamp(gw[..., None] + torch.arange(capw1, device=dev),
+                      max=nwords - 1)
+    tgt = (tgt + nwords * torch.arange(B, device=dev)[:, None, None]
+           ).reshape(-1)
+    acc = torch.zeros(B * nwords, dtype=torch.int64, device=dev)
+    flat = sbuf.reshape(-1)
+    return lambda: acc.index_add_(0, tgt, flat)
+
+
+def max_shared_start(gw: torch.Tensor) -> int:
+    """The most groups of one chunk that share a start word."""
+    return max(int(torch.unique_consecutive(row, return_counts=True)[1].max())
+               for row in gw.cpu())
 
 
 def zlib6(raw: bytes, strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
@@ -241,6 +321,26 @@ def run_on_stream(bits: int, n: int) -> bytes:
     return acc.to_bytes((nacc + 7) // 8, "little")
 
 
+def device_ops(fn) -> list[tuple[str, int, float]]:
+    """(name, calls, device microseconds) of every op that took device
+    time in one fn() call, by torch.profiler's key_averages(); an empty
+    list if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((ev.key, ev.count, float(us)))
+    return rows
+
+
 def time_best(fn, passes: int = 3) -> float:
     """Best host-clock seconds of fn() over passes, each ending in
     torch.cuda.synchronize()."""
@@ -261,6 +361,7 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from libdeflate_tpu_torch import _build
+    from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
@@ -311,15 +412,58 @@ def main() -> int:
           flush=True)
 
     # ---- K2: the pack kernel against its plain version -----------------
-    rand_pack = pack_random_inputs(dev)
-    err_pack = require_equal("pack_groups (random)",
-                             [pk.pack_groups(*rand_pack)],
-                             [pp.group_place(*rand_pack)])
-    err_pack = max(err_pack, require_equal(
-        "pack_groups (main path)", [pk.pack_groups(*real_pack)],
-        [pp.group_place(*real_pack)]))
-    print("K2 pack_groups: equal to its plain version (random, main path)",
-          flush=True)
+    # the main path's inputs of the rand and runs parts of the corpus
+    # (experiments/corpus.py: rand 6u-7u, runs 7u-8u, u an eighth), the
+    # runs part's groups a few bits each; and crafted start words
+    u = nchunks // 8
+    nw1 = pd.dyn_nwords(CHUNK)
+    rng = np.random.default_rng(5)
+    pack_sets = {
+        "random": pack_random_inputs(dev),
+        "main path": real_pack,
+        "main path, rand class": main_path_kernel_inputs(
+            torch.as_tensor(chunks[6 * u:7 * u].copy(), device=dev),
+            lengths[:u])[2],
+        "main path, runs class": main_path_kernel_inputs(
+            torch.as_tensor(chunks[7 * u:8 * u].copy(), device=dev),
+            lengths[:u])[2],
+        "main path, B = 1": main_path_kernel_inputs(batches[0][:1],
+                                                    lengths[:1])[2],
+        **{f"main path, {name}": main_path_kernel_inputs(
+            torch.as_tensor(arr, device=dev), lengths)[2]
+           for name, arr in dense_then_sparse_chunks(chunks).items()},
+        "one start word per chunk": crafted_pack_inputs(
+            np.array([[1000] * 8192, [0] * 8192]), nw1, pd.DYN_CAPW + 1,
+            dev, 6),
+        "start words within 46 of nwords": crafted_pack_inputs(
+            np.sort(rng.integers(nw1 - 46, nw1, (2, 700))), nw1,
+            pd.DYN_CAPW + 1, dev, 7),
+        "sparse start words": crafted_pack_inputs(
+            np.sort(rng.integers(0, nw1, (2, 200))), nw1, pd.DYN_CAPW + 1,
+            dev, 8),
+        # the tile after 4000 groups on 100 words ORs ~1800 of their rows
+        "40 groups a word, then one every 20 words": crafted_pack_inputs(
+            np.tile(np.concatenate([np.arange(4000) // 40,
+                                    100 + 20 * np.arange(4192)]), (2, 1)),
+            nw1, pd.DYN_CAPW + 1, dev, 9),
+    }
+    err_pack = 0
+    for name, args in pack_sets.items():
+        want = pp.group_place(*args)
+        err_pack = max(err_pack, require_equal(
+            f"pack_groups ({name})", [pk.pack_groups(*args)], [want]))
+        print(f"K2 pack_groups ({name}, sbuf {list(args[0].shape)}, up to "
+              f"{max_shared_start(args[1])} groups on one start word): "
+              f"equal to the plain version", flush=True)
+    # the wrapper runs its kernel once and no other device op (a memset
+    # or a copy would show as an entry of its own)
+    ops = device_ops(lambda: pk.pack_groups(*real_pack))
+    print(f"K2 wrapper, device ops of one call (torch.profiler): "
+          f"{json.dumps(ops)}", flush=True)
+    if len(ops) != 1 or "pack_gather_kernel" not in ops[0][0] \
+            or ops[0][1] != 1:
+        raise AssertionError("pack_groups: the profiler did not see the "
+                             "wrapper run its kernel once and nothing else")
 
     # ---- literal cost tables: CUDA against the CPU --------------------
     for b in batches:
@@ -515,19 +659,28 @@ def main() -> int:
                                         require_equal(
             f"grid_add_one ({n} steps)", [lo.grid_add_one(x)],
             [lo.add_one_plain(x)]))
-    x_loop = torch.randint(-1 << 31, (1 << 31) - 1,
-                           (lo.LOOP_TILES * lo.ROWS, lo.LANES),
-                           dtype=torch.int32, device=dev, generator=gen)
-    err_probe["loop_add_one"] = require_equal(
-        "loop_add_one", [lo.loop_add_one(x_loop)], [lo.add_one_plain(x_loop)])
+    # K6's persistent wave of one block per SM: fewer tiles than SMs, a
+    # ragged last pass, and both ends of int32 (2**31 - 1 wraps)
+    for ntiles in LOOP_TILE_COUNTS:
+        x = torch.randint(-1 << 31, (1 << 31) - 1,
+                          (ntiles * lo.ROWS, lo.LANES), dtype=torch.int32,
+                          device=dev, generator=gen)
+        x.view(-1)[::97] = (1 << 31) - 1
+        x.view(-1)[1::101] = -1 << 31
+        err_probe["loop_add_one"] = max(err_probe["loop_add_one"],
+                                        require_equal(
+            f"loop_add_one ({ntiles} tiles)", [lo.loop_add_one(x)],
+            [lo.add_one_plain(x)]))
+        if ntiles == lo.LOOP_TILES:
+            x_loop = x
     x_tile = torch.randn(rd.TILE, device=dev, generator=gen)
     for steps in rd.PROBE_STEPS:
         err_probe["grid_copy"] = max(err_probe["grid_copy"], require_equal(
             f"grid_copy ({steps} steps)", [rd.grid_copy(x_tile, steps)],
             [rd.copy_plain(x_tile)]))
     print(f"K5 grid_add_one, K6 loop_add_one, K7 grid_copy: equal to x + 1 "
-          f"and x.clone() at {lo.STEP_COUNTS}, {lo.LOOP_TILES} tiles and "
-          f"{rd.PROBE_STEPS} steps", flush=True)
+          f"and x.clone() at {lo.STEP_COUNTS} steps, {LOOP_TILE_COUNTS} tiles "
+          f"and {rd.PROBE_STEPS} steps", flush=True)
 
     # ---- the measurement main path, through its entry point ------------
     for mod in (pk, dd, tk, lo, rd):
@@ -566,14 +719,18 @@ def main() -> int:
     dp_ops = feasible_rungs * lanes * DP_OPS_PER_RUNG
     dp_bytes = BATCH * CHUNK * (5 * 4 + 4) + BATCH * 259 * 4
     sbuf, gw, nwords = real_pack
-    pack_bytes = sbuf.numel() * 4 + gw.numel() * 4 + BATCH * nwords * 4
-    tgt = torch.clamp(gw[..., None] + torch.arange(sbuf.shape[2],
-                                                   device=dev),
-                      max=nwords - 1)
-    tgt = (tgt + nwords * torch.arange(BATCH, device=dev)[:, None, None]
-           ).reshape(-1)
-    flat = sbuf.reshape(-1)
-    acc = torch.zeros(BATCH * nwords, dtype=torch.int64, device=dev)
+    # the int64 interface: sbuf and gw read once, the output written once
+    pack_bytes = 8 * (sbuf.numel() + gw.numel() + BATCH * nwords)
+    pack_out = torch.empty(BATCH, nwords, dtype=torch.int64, device=dev)
+    # K2 on the other main-path inputs, beside its yardstick
+    for name in ("main path, rand class", "main path, runs class",
+                 "main path, half dense then sparse",
+                 "main path, mostly dense then sparse",
+                 "40 groups a word, then one every 20 words"):
+        args = pack_sets[name]
+        times = {"wrapper_ms": graph_ms(lambda: pk.pack_groups(*args), 200),
+                 "index_add_ms": graph_ms(index_add_call(*args), 200)}
+        print(f"K2 ({name}, graph replay): {json.dumps(times)}", flush=True)
     kernels = [
         {"name": "dp_parse", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/dp_parse.cu",
@@ -591,11 +748,13 @@ def main() -> int:
          "source": "libdeflate_tpu_torch/csrc/pack_groups.cu",
          "replaces": "libdeflate_tpu/compress/pallas_kernels.py:313",
          "launches": launches["pack_groups"], "max_abs_err": err_pack,
-         "ms": cuda_ms(lambda: pk.pack_groups(*real_pack), 50),
-         "plain_ms": cuda_ms(lambda: pp.group_place(*real_pack), 50),
+         "ms": graph_ms(lambda: pk.pack_groups(*real_pack), 200),
+         "kernel_ms": graph_ms(lambda: pk.pack_groups_into(sbuf, gw,
+                                                           pack_out), 200),
+         "plain_ms": graph_ms(lambda: pp.group_place(*real_pack), 200),
          "bound_ms": 1e3 * pack_bytes / H100_BYTES_PER_S,
          "bound_by": "bytes",
-         "library_ms": cuda_ms(lambda: acc.index_add_(0, tgt, flat), 50)},
+         "library_ms": graph_ms(index_add_call(*real_pack), 200)},
         {"name": "decode_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
          "replaces": "libdeflate_tpu/decompress/pallas_decode.py:941",

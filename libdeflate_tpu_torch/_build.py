@@ -8,7 +8,8 @@ The sources are ``csrc/dp_parse.cu`` (K1), ``csrc/pack_groups.cu`` (K2),
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so``
 at the repository root on first use (or when the source or a header it
 includes is newer), then loaded with ``ctypes``.  A missing ``nvcc`` or a
-failed build raises.
+failed build raises.  ``kernel`` hands a wrapper one C launch function
+with its ctypes signature, set once when the function is first asked for.
 """
 
 from __future__ import annotations
@@ -27,6 +28,12 @@ KERNEL_SOURCES = ("dp_parse", "pack_groups", "decode_chunks",
                   "tokenize_chunks", "launch_probes")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], object] = {}
+
+# ctypes types of the launch functions' arguments: device pointers and
+# the stream as void*, sizes and flags as int
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
 
 
 def nvcc_path() -> str:
@@ -94,3 +101,17 @@ def load(name: str) -> ctypes.CDLL:
         build((name,))
         lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
+
+
+def kernel(name: str, fn_name: str, argtypes):
+    """The C function ``fn_name`` of ``csrc/<name>.cu`` (built and loaded
+    if needed) with ``argtypes`` and an int result, the CUDA error of the
+    launch.  The signature is set on the first call only; later calls
+    return the same function object."""
+    fn = _functions.get((name, fn_name))
+    if fn is None:
+        fn = getattr(load(name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name, fn_name] = fn
+    return fn

@@ -177,42 +177,51 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
     lc = x["lc"].to(torch.int32).contiguous()
     out = torch.empty(S, lanes, dtype=torch.int32, device=cost_lit.device)
     lc_rows = min(B, 31 // lpc + 2)
-    lib = _build.load("dp_parse")
-    fn = lib.dp_parse_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.kernel("dp_parse", "dp_parse_launch",
+                       [_build.PTR] * 7 + [_build.INT] * 4 + [_build.PTR])
     _check(fn(_ptr(wl), _ptr(wa), _ptr(wb), _ptr(wc), _ptr(wd), _ptr(lc),
               _ptr(out), S, lanes, lpc, lc_rows, _stream()), "dp_parse")
     dp_parse.launches += 1
     return _split_choice(from_i32(out).T.reshape(B, n_pad))
 
 
+def pack_groups_into(sbuf: torch.Tensor, gw: torch.Tensor,
+                     out: torch.Tensor) -> None:
+    """The bare launch of the pack kernel on CUDA tensors: sbuf int64
+    [B, m, capw+1], gw int64 [B, m], out int64 [B, nwords], all
+    contiguous; every word of out is written.  Counts nothing:
+    ``pack_groups`` is the wrapper."""
+    B, m, capw1 = sbuf.shape
+    P, I = _build.PTR, _build.INT
+    fn = _build.kernel("pack_groups", "pack_groups_launch",
+                       [P, P, P, I, I, I, I, P])
+    _check(fn(_ptr(sbuf), _ptr(gw), _ptr(out), B, m, capw1, out.shape[1],
+              _stream()), "pack_groups")
+
+
 def pack_groups(sbuf: torch.Tensor, gw: torch.Tensor,
                 nwords: int) -> torch.Tensor:
     """Place group buffers at their start words (``pack_groups_pallas``):
-    sbuf [B, m, capw+1] 32-bit words (int64), gw [B, m] non-decreasing
-    start words -> int64 words [B, nwords].  The groups' bits are
-    disjoint, so OR and add agree.  CUDA kernel for CUDA tensors, the
-    plain version (``group_place``) for CPU tensors."""
+    sbuf [B, m, capw+1] 32-bit words (int64), gw [B, m] start words,
+    non-decreasing within each chunk -> int64 words [B, nwords].  The
+    groups' bits are disjoint, so OR and add agree.  CUDA kernel for CUDA
+    tensors (contiguous int64, read as they are: the wrapper allocates the
+    output and launches, nothing else), the plain version
+    (``group_place``) for CPU tensors."""
     B, m, capw1 = sbuf.shape
     if gw.shape != (B, m):
         raise ValueError("pack_groups: gw must have shape [B, m]")
     if sbuf.device.type == "cpu":
         return group_place(sbuf, gw, nwords)
     _require_cuda((sbuf, gw), "pack_groups")
-    sb = to_i32(sbuf).contiguous()
-    g = gw.to(torch.int32).contiguous()
-    out = torch.zeros(B, nwords, dtype=torch.int32, device=sbuf.device)
-    lib = _build.load("pack_groups")
-    fn = lib.pack_groups_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _check(fn(_ptr(sb), _ptr(g), _ptr(out), B, m, capw1, nwords, _stream()),
-           "pack_groups")
+    if sbuf.dtype != torch.int64 or gw.dtype != torch.int64 \
+            or not (sbuf.is_contiguous() and gw.is_contiguous()):
+        raise ValueError("pack_groups: sbuf and gw must be contiguous int64 "
+                         "on CUDA")
+    out = torch.empty(B, nwords, dtype=torch.int64, device=sbuf.device)
+    pack_groups_into(sbuf, gw, out)
     pack_groups.launches += 1
-    return from_i32(out)
+    return out
 
 
 reset_launch_counts()

@@ -5,8 +5,9 @@
 //   x + 1 over int32 [n_steps * rows, 128], one (rows, 128) block per grid
 //   step.  Here one CUDA block per tile, one thread per element.
 // - K6 scripts/exp_pallas_overhead.py::main's g (kernel loop_kernel): the
-//   same x + 1 as ONE grid step that loops over the (8, 128) tiles.  Here
-//   one block that loops over the tiles.
+//   same x + 1 as ONE grid step that loops over the (8, 128) tiles.  One
+//   grid step is the whole TensorCore, so here it is one persistent wave:
+//   a block per SM, each looping over tiles blockIdx.x, + gridDim.x, ...
 // - K7 scripts/exp_device_roundup.py section 1 (kernel empty_kernel): an
 //   identity copy of a float32 [128, 128] tile whose index map sends every
 //   grid step to block (0, 0).  Here `steps` blocks that each copy the same
@@ -20,8 +21,14 @@
 // What bounds them on this card: bytes, a few kilobytes to 2 MiB read and
 // written once (under a microsecond at 3.35 TB/s); in practice the fixed
 // cost of a launch and of scheduling blocks, which is what they measure.
-// Design: the simplest kernels that do the work, so that their time is
-// the overhead: a thread per element of a tile, no tiling tricks.
+// Design: K5 and K7 are the simplest kernels that do the work, so that
+// their time is the overhead: a thread per element of a tile.  K6 must
+// not be latency-bound on one SM (a single block waits for one DRAM
+// round trip per 4 KB tile): its threads move 16 bytes each (an int4 of a
+// tile), and each block issues the loads of up to kLoopAhead of its tiles
+// before it stores any, so a wave over 256 tiles has all its loads in
+// flight at once.  The grid is the SM count (capped at the tile count),
+// read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,6 +36,8 @@
 namespace {
 
 constexpr int kLanes = 128;
+constexpr int kLoopThreads = 256;  // int4s in a (8, 128) int32 tile
+constexpr int kLoopAhead = 4;      // tiles a block loads before storing
 
 __global__ void add_one_grid_kernel(const int* __restrict__ x,
                                     int* __restrict__ o, int tile) {
@@ -37,13 +46,30 @@ __global__ void add_one_grid_kernel(const int* __restrict__ x,
     o[base + i] = x[base + i] + 1;
 }
 
-__global__ void add_one_loop_kernel(const int* __restrict__ x,
-                                    int* __restrict__ o, int ntiles,
-                                    int tile) {
-  for (int k = 0; k < ntiles; ++k) {
-    const size_t base = (size_t)k * tile;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x)
-      o[base + i] = x[base + i] + 1;
+__device__ __forceinline__ int4 add_one4(int4 v) {
+  // wrapping int32 x + 1, in unsigned arithmetic (signed overflow is UB)
+  return make_int4((int)((unsigned)v.x + 1u), (int)((unsigned)v.y + 1u),
+                   (int)((unsigned)v.z + 1u), (int)((unsigned)v.w + 1u));
+}
+
+// Tiles of kLoopThreads int4s, one a thread; block b loops over tiles b,
+// b + gridDim.x, ..., kLoopAhead of them per pass, all loads of a pass
+// before its stores.
+__global__ void __launch_bounds__(kLoopThreads)
+add_one_loop_kernel(const int4* __restrict__ x, int4* __restrict__ o,
+                    int ntiles) {
+  const int i = threadIdx.x;
+  const int stride = gridDim.x;
+  for (int t = blockIdx.x; t < ntiles; t += kLoopAhead * stride) {
+    int4 v[kLoopAhead];
+#pragma unroll
+    for (int k = 0; k < kLoopAhead; ++k)
+      if (t + k * stride < ntiles)
+        v[k] = x[(size_t)(t + k * stride) * kLoopThreads + i];
+#pragma unroll
+    for (int k = 0; k < kLoopAhead; ++k)
+      if (t + k * stride < ntiles)
+        o[(size_t)(t + k * stride) * kLoopThreads + i] = add_one4(v[k]);
   }
 }
 
@@ -66,12 +92,23 @@ extern "C" int grid_add_one_launch(const int* x, int* o, int n_steps,
   return (int)cudaGetLastError();
 }
 
-// K6: x, o int32 [ntiles * rows][128]; one block loops over the tiles.
+// K6: x, o int32 [ntiles * 8][128], 16-byte aligned; a persistent wave
+// of min(SMs, ntiles) blocks loops over the (8, 128) tiles.
 extern "C" int loop_add_one_launch(const int* x, int* o, int ntiles,
-                                   int rows, void* stream) {
-  const int tile = rows * kLanes;
-  add_one_loop_kernel<<<1, threads_for(tile), 0, (cudaStream_t)stream>>>(
-      x, o, ntiles, tile);
+                                   void* stream) {
+  static int sms = 0;  // the device's SM count, read on the first call
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = ntiles < sms ? ntiles : sms;
+  if (blocks > 0)
+    add_one_loop_kernel<<<blocks, kLoopThreads, 0, (cudaStream_t)stream>>>(
+        (const int4*)x, (int4*)o, ntiles);
   return (int)cudaGetLastError();
 }
 

@@ -377,12 +377,9 @@ def decompress_chunks_words(comp_words, comp_len, out_len, out_bytes: int,
     out = torch.zeros(B, out_bytes, dtype=torch.uint8, device=dev)
     res = torch.empty(3, B, dtype=torch.int32, device=dev)
     W_pad = -(-W // 1024) * 1024
-    fn = _build.load("decode_chunks").decode_chunks_launch
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
+    P, I = _build.PTR, _build.INT
+    fn = _build.kernel("decode_chunks", "decode_chunks_launch",
+                       [P, I, I, I, P, P, I, P, P, I, P, P, P, P])
     p = ctypes.c_void_p
     err = fn(p(words.data_ptr()), B, W, W_pad, p(comp_len.data_ptr()),
              p(out_len.data_ptr()), int(known_size), p(consts.data_ptr()),

@@ -6,7 +6,9 @@ per-grid-step overhead:
 - ``grid_add_one`` (K5) is ``make_grid_fn`` (lines 31-41): x + 1 over int32
   [n_steps * rows, 128], one CUDA block per (rows, 128) tile;
 - ``loop_add_one`` (K6) is ``main``'s ``g`` (54-66): the same x + 1 as one
-  block that loops over the (8, 128) tiles;
+  grid step that loops over the (8, 128) tiles.  One grid step is the
+  whole TPU core, so here it is one persistent wave of a block per SM,
+  each block looping over every SM-count-th tile;
 - ``main`` times both as the script does (best of 5 on the host clock
   after a warm-up, each pass ending in a sync) at 1, 8, 64 and 256 steps
   and 256 tiles, and ``overhead_table`` adds CUDA-event times of
@@ -63,10 +65,9 @@ def launch_probe(name: str, fn_name: str, x: torch.Tensor,
     signature: input and output pointers, ``ints``, the stream) into a new
     output like x; raise if the launch fails."""
     out = torch.empty_like(x)
-    fn = getattr(_build.load("launch_probes"), fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.kernel("launch_probes", fn_name,
+                       [_build.PTR] * 2 + [_build.INT] * len(ints)
+                       + [_build.PTR])
     err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
              *ints, ctypes.c_void_p(torch.cuda.current_stream(
                  x.device).cuda_stream))
@@ -93,12 +94,14 @@ def grid_add_one(x: torch.Tensor, rows: int = ROWS) -> torch.Tensor:
 
 
 def loop_add_one(x: torch.Tensor) -> torch.Tensor:
-    """x + 1 by one block that loops over the (8, 128) tiles of x."""
+    """x + 1 by one persistent wave (a block per SM) whose blocks loop
+    over the (8, 128) tiles of x, 16 bytes a thread."""
     ntiles = _check(x, ROWS)
     if x.device.type == "cpu":
         return add_one_plain(x)
-    out = launch_probe("loop_add_one", "loop_add_one_launch", x, ntiles,
-                       ROWS)
+    if x.data_ptr() % 16:
+        raise ValueError("loop_add_one: x must be 16-byte aligned")
+    out = launch_probe("loop_add_one", "loop_add_one_launch", x, ntiles)
     loop_add_one.launches += 1
     return out
 

@@ -233,11 +233,9 @@ def tokenize_chunks(comp_words, comp_len, out_len, unroll: int = 1,
                          f"{dev}")
     consts = torch.as_tensor(CONSTS, device=dev)
     res = torch.empty(3, B, dtype=torch.int32, device=dev)
-    fn = _build.load("tokenize_chunks").tokenize_chunks_launch
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
+    P, I = _build.PTR, _build.INT
+    fn = _build.kernel("tokenize_chunks", "tokenize_chunks_launch",
+                       [P, I, I, I, P, P, P, I, I, P, P, P, P])
     p = ctypes.c_void_p
     err = fn(p(words.data_ptr()), B, W, -(-W // 1024) * 1024,
              p(comp_len.data_ptr()), p(out_len.data_ptr()),

@@ -3,19 +3,23 @@
 libdeflate_tpu_torch/compress/kernels.py against
 libdeflate_tpu/compress/tpu_pipeline.py::_group_place (the pack kernel's
 plain version, on the generator of
-tests/test_pallas_kernels.py::test_pack_kernel_matches_scatter); CPU
+tests/test_pallas_kernels.py::test_pack_kernel_matches_scatter, and on
+crafted start words: all of a chunk's groups on one word, start words
+within 46 of nwords, sparse ones; B = 1 and 4); CPU
 tensors take the plain versions and launch nothing, the decode wrapper
 (libdeflate_tpu_torch/decompress/decode.py) included, and the wrappers
 reject shapes and types their kernels do not take; without CUDA the
 entry points refuse to run unless asked for the CPU, and a missing nvcc
 fails the build of every kernel source (and a header change rebuilds the
-sources that include it); the port and chip_smoke.py import neither JAX
+sources that include it); a launch function's ctypes signature is set
+once, on its first use; the port and chip_smoke.py import neither JAX
 nor the JAX package, nor bench.py or scripts/.  The CUDA kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py.  Tolerance: exact.
 """
 
 import ast
+import ctypes
 import subprocess
 import sys
 import zlib
@@ -58,6 +62,35 @@ def test_pack_plain_matches_group_place(seed, groups):
     got = kernels.pack_groups(sbuf, gw, nwords)
     assert np.array_equal(got[0].numpy(), want.astype(np.int64))
     assert kernels.pack_groups.launches == 0
+
+
+def _crafted_pack(case, B, m=300, nwords=3000):
+    """Start words the gather kernel finds hard, each chunk's bits spread
+    over the groups whose windows reach them (chip_smoke's generator)."""
+    from chip_smoke import crafted_pack_inputs
+    rng = np.random.default_rng(B)
+    if case == "one start word":
+        gw = np.repeat(rng.integers(0, nwords - 46, (B, 1)), m, 1)
+    elif case == "near nwords":
+        gw = np.sort(rng.integers(nwords - 46, nwords, (B, m)), 1)
+    else:                                       # sparse, gaps of ~10 rows
+        gw = np.sort(rng.integers(0, nwords, (B, m)), 1)
+    return crafted_pack_inputs(gw, nwords, 46, torch.device("cpu"), B)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("case", ["one start word", "near nwords", "sparse"])
+def test_pack_plain_matches_group_place_on_crafted_start_words(case, B):
+    sbuf, gw, nwords = _crafted_pack(case, B)
+    kernels.reset_launch_counts()
+    got = kernels.pack_groups(sbuf, gw, nwords)
+    assert got.shape == (B, nwords) and kernels.pack_groups.launches == 0
+    for b in range(B):
+        want = tp._group_place(jnp.asarray(sbuf[b].numpy().astype(np.uint32)),
+                               jnp.asarray(gw[b].numpy().astype(np.int32)),
+                               nwords)
+        assert np.array_equal(got[b].numpy(),
+                              np.asarray(want).astype(np.int64))
 
 
 def test_cpu_wrappers_take_plain_versions_and_launch_nothing():
@@ -119,6 +152,65 @@ def test_missing_nvcc_fails_every_build(name, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load(name)
+
+
+class _StandInFunction:
+    """A library function that records its calls and every assignment of
+    its ctypes signature."""
+
+    def __init__(self):
+        self.sets, self.calls = [], 0
+
+    def __setattr__(self, key, value):
+        if key in ("argtypes", "restype"):
+            self.sets.append(key)
+        object.__setattr__(self, key, value)
+
+    def __call__(self, *args):
+        self.calls += 1
+        return 0
+
+
+def _stand_in_library(monkeypatch, fn_name):
+    fn = _StandInFunction()
+    lib = type("Lib", (), {fn_name: fn})()
+    loads = []
+    monkeypatch.setattr(_build, "_functions", {})
+    monkeypatch.setattr(_build, "load", lambda n: loads.append(n) or lib)
+    return fn, loads
+
+
+@pytest.mark.parametrize("name,fn_name", [
+    ("dp_parse", "dp_parse_launch"),
+    ("pack_groups", "pack_groups_launch"),
+    ("decode_chunks", "decode_chunks_launch"),
+    ("tokenize_chunks", "tokenize_chunks_launch"),
+    ("launch_probes", "grid_add_one_launch"),
+    ("launch_probes", "loop_add_one_launch"),
+])
+def test_kernel_signature_is_set_once(name, fn_name, monkeypatch):
+    """The second kernel() call returns the same function without loading
+    the library or setting the function's ctypes signature again."""
+    fn, loads = _stand_in_library(monkeypatch, fn_name)
+    sig = [_build.PTR, _build.INT, _build.PTR]
+    assert _build.kernel(name, fn_name, sig) is fn
+    assert _build.kernel(name, fn_name, sig) is fn
+    assert fn.sets == ["argtypes", "restype"] and loads == [name]
+    assert fn.argtypes == sig and fn.restype is ctypes.c_int
+
+
+def test_pack_launch_sets_its_signature_once(monkeypatch):
+    """Two bare launches of the pack kernel through its wrapper's launch
+    helper: two calls, one signature."""
+    fn, _ = _stand_in_library(monkeypatch, "pack_groups_launch")
+    monkeypatch.setattr(kernels, "_stream", lambda: ctypes.c_void_p(0))
+    sbuf = torch.zeros(2, 3, 46, dtype=torch.int64)
+    gw = torch.zeros(2, 3, dtype=torch.int64)
+    out = torch.empty(2, 50, dtype=torch.int64)
+    for _ in range(2):
+        kernels.pack_groups_into(sbuf, gw, out)
+    assert fn.calls == 2 and fn.sets == ["argtypes", "restype"]
+    assert len(fn.argtypes) == 8
 
 
 def test_header_change_rebuilds_its_includers(monkeypatch, tmp_path):

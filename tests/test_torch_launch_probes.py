@@ -8,7 +8,9 @@ grid, lines 27-41; ``loop_kernel`` in one step, lines 55-66) and of
 scripts/exp_device_roundup.py section 1 (``empty_kernel``, every step
 mapped to block (0, 0), lines 62-75), run with ``interpret=True``.
 ``loop_kernel`` and ``empty_kernel`` are nested in their scripts' ``main``,
-so they are restated here as written there.
+so they are restated here as written there.  ``loop_add_one`` is also
+held against numpy's wrapping ``x + 1`` at tile counts other than 256
+(``loop_kernel`` is fixed at 256).
 
 Tolerance: exact.
 """
@@ -87,6 +89,21 @@ def test_loop_add_one_matches_pallas():
     lo.reset_launch_counts()
     got = lo.loop_add_one(torch.from_numpy(x))
     assert np.array_equal(got.numpy(), want)
+    assert lo.loop_add_one.launches == 0
+
+
+@pytest.mark.parametrize("ntiles", [1, 7, 133, 1000])
+def test_loop_add_one_wraps_at_other_tile_counts(ntiles):
+    """The tile counts the persistent wave finds hard (fewer tiles than
+    SMs, a ragged last pass), both ends of int32 included: x + 1 wraps."""
+    x = _ints((ntiles * lo.ROWS, lo.LANES), ntiles)
+    x.reshape(-1)[::97] = np.iinfo(np.int32).max
+    x.reshape(-1)[1::101] = np.iinfo(np.int32).min
+    lo.reset_launch_counts()
+    got = lo.loop_add_one(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), x + np.int32(1))
+    assert got.numpy().reshape(-1)[0] == np.iinfo(np.int32).min
     assert lo.loop_add_one.launches == 0
 
 
