@@ -25,8 +25,15 @@ two paths through their entry points:
   K3's decode of the same streams) and the grid and loop probes (K5, K6).
   Before it, K4 is held against its plain version in all six
   configurations (the 16 zlib-6 chunks, Z_FIXED, the damaged and run-on
-  sets), its store variants are checked in the SASS for their token
-  stores, and K5-K7 against x + 1 and x.clone() (K6 at 1 to 1000 tiles).
+  sets, and the crafted sets of ``experiments/crafted_streams.py`` that
+  the CPU tests hold against the JAX package), its store variants are
+  checked in the SASS for their token stores, and K5-K7 against x + 1
+  and x.clone() (K6 at 1 to 1000 tiles; K7 at 1 to 2**20 floats, a view
+  one float into its buffer, more blocks than 16-byte pieces).  K4's
+  chain is set beside its floor: the plain version's table lookups of
+  the chunk with the most tokens times the card's dependent
+  shared-memory load latency, and K4's clock64() cycles per chunk in the
+  table setups and the token loop.
 
 K2 is held against its plain version on random, main-path (the text,
 rand and runs parts of the corpus, B = 4, 2 and 1; chunks that turn
@@ -67,6 +74,7 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, NVIDIA data sheet
 DP_OPS_PER_RUNG = 16             # int32 compares/selects/adds per rung, dp_parse.cu
 LOOP_TILE_COUNTS = (1, 7, 133, 256, 1000)  # K6 checks; 256 is its main shape
+COPY_SIZES = (1, 3, 4097, 16385, 1 << 20)  # K7 checks beside its 128 x 128 tile
 
 
 def card_line() -> str:
@@ -256,71 +264,6 @@ def damaged_streams(chunks, seed=7):
     return out
 
 
-def run_on_stream(bits: int, n: int) -> bytes:
-    """A final dynamic block without EOB: 2**bits - 1 literals from "a"
-    (or "b" for bits > 1) and EOB, all codewords `bits` long, then n times
-    the last literal.  The all-zero codeword is a literal, so decoding runs
-    on through the zero padding until the guard, out_len or the 32 KiB
-    boundary stops it, and where it stops depends on the staging base and
-    the burst budget."""
-    first = ord("a") if bits == 1 else ord("b")
-    lit = list(range(first, first + (1 << bits) - 1))
-    lens = [0] * 258                      # 257 litlen + 1 offset length
-    for sym in lit + [256]:
-        lens[sym] = bits
-    items = []                            # (precode symbol, extra, nbits)
-    i = 0
-    while i < len(lens):
-        run = 1
-        while lens[i] == 0 and i + run < len(lens) and lens[i + run] == 0:
-            run += 1
-        if lens[i] == 0 and run >= 11:
-            run = min(run, 138)
-            items.append((18, run - 11, 7))
-        elif lens[i] == 0 and run >= 3:
-            items.append((17, run - 3, 3))
-        else:
-            run = 1
-            items.append((lens[i], 0, 0))
-        i += run
-    # a complete precode over the 3 or 4 symbols used, canonical codes
-    pre = sorted({sym for sym, _, _ in items})
-    plen = {sym: 1 if len(pre) == 3 and k == 0 else 2
-            for k, sym in enumerate(pre)}
-    pcode, code = {}, 0
-    for ln in (1, 2):
-        for sym in pre:
-            if plen[sym] == ln:
-                pcode[sym] = code
-                code += 1
-        code <<= 1
-    perm = [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15]
-    num_pre = max(perm.index(sym) for sym in pre) + 1
-    acc, nacc = 0, 0
-
-    def put(value, nbits):
-        nonlocal acc, nacc
-        acc |= value << nacc
-        nacc += nbits
-
-    def put_code(code, nbits):            # canonical codes go MSB first
-        put(int(f"{code:0{nbits}b}"[::-1], 2), nbits)
-
-    put(1, 1)
-    put(2, 2)
-    put(0, 5)
-    put(0, 5)
-    put(num_pre - 4, 4)
-    for k in range(num_pre):
-        put(plen.get(perm[k], 0), 3)
-    for sym, extra, nbits in items:
-        put_code(pcode[sym], plen[sym])
-        put(extra, nbits)
-    for _ in range(n):
-        put_code(len(lit) - 1, bits)
-    return acc.to_bytes((nacc + 7) // 8, "little")
-
-
 def device_ops(fn) -> list[tuple[str, int, float]]:
     """(name, calls, device microseconds) of every op that took device
     time in one fn() call, by torch.profiler's key_averages(); an empty
@@ -366,6 +309,7 @@ def main() -> int:
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.experiments import crafted_streams as cs
     from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
     from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
     from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
@@ -551,7 +495,7 @@ def main() -> int:
              [CHUNK] * len(lean), True),
             ("Z_FIXED", *dd.pack_streams(fixed, pad_w), [CHUNK], True)]
     d_comp, d_clen = dd.pack_streams(damaged, pad_w)
-    run_on = [run_on_stream(bits, n) for bits in (1, 3)
+    run_on = [cs.run_on_stream(bits, n) for bits in (1, 3)
               for n in (1, 106, 113, 4000)]
     r_comp, r_clen = dd.pack_streams(run_on, pad_w)
     for known in (True, False):
@@ -627,8 +571,11 @@ def main() -> int:
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
     tok_plain_s = {}
-    for name, comp, clen, olen, _ in [st for st in sets if st[4]
-                                      and not st[0].startswith("lean")]:
+    tok_sets = [(name, comp, clen, olen) for name, comp, clen, olen, known
+                in sets if known and not name.startswith("lean")]
+    tok_sets += [(f"crafted: {name}", *rows) for name, rows in
+                 cs.crafted_sets(cs.repo_text(root)).items()]
+    for name, comp, clen, olen in tok_sets:
         args = (comp.view(np.int32), clen, np.array(olen, np.int32))
         t0 = time.perf_counter()
         want = tk.tokenize_chunks(*args, device="cpu")
@@ -648,6 +595,25 @@ def main() -> int:
         raise AssertionError(f"a token-store variant lost its stores: {sts}")
     print(f"K4 SASS shared-memory stores (STS) per variant: "
           f"{json.dumps(sts)}", flush=True)
+    # the chain's floor: the table lookups of the chunk with the most
+    # tokens, each waiting one dependent shared-memory load
+    chain = tk.chain_counts(z_comp.view(np.int32), z_clen,
+                            np.full(nchunks, CHUNK, np.int32))
+    top = int(chain[0].argmax())
+    lat = tk.shared_load_latency()
+    chain_floor_ms = int(chain[1, top]) * lat["ns"] / 1e6
+    cyc = tk.phase_cycles(z_words, z_clen_d, full).cpu().numpy()
+    loop_cyc = cyc[:, 0] - cyc[:, 1]
+    print(f"K4 chain (zlib-6, 16 chunks): chunk {top} has the most tokens, "
+          f"{int(chain[0, top])}, and {int(chain[1, top])} table lookups; "
+          f"a dependent shared-memory load takes {lat['cycles']:.3f} cycles, "
+          f"{lat['ns']:.4f} ns: chain floor {chain_floor_ms:.6f} ms",
+          flush=True)
+    print(f"K4 clock64() cycles per chunk (tok1): in all "
+          f"{cyc[:, 0].tolist()}, table setups {cyc[:, 1].tolist()}; chunk "
+          f"{top}: {loop_cyc[top] / chain[1, top]:.3f} cycles per lookup in "
+          f"the token loop, table setups "
+          f"{cyc[top, 1] / cyc[top, 0]:.6f} of its cycles", flush=True)
 
     # ---- K5-K7: the launch probes against their plain versions ---------
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -678,9 +644,21 @@ def main() -> int:
         err_probe["grid_copy"] = max(err_probe["grid_copy"], require_equal(
             f"grid_copy ({steps} steps)", [rd.grid_copy(x_tile, steps)],
             [rd.copy_plain(x_tile)]))
+    # K7's edges: tails of 1-3 floats, a view one float (4 bytes) into its
+    # buffer, more blocks than 16-byte pieces
+    copy_buf = torch.randn((1 << 20) + 1, device=dev, generator=gen)
+    for n, steps, off in ([(n, steps, off) for n in COPY_SIZES
+                           for steps in rd.PROBE_STEPS for off in (0, 1)]
+                          + [(3, 64, 0), (4097, 2000, 1), (16384, 5000, 0),
+                             (16384, 5000, 1)]):
+        x = copy_buf[off:off + n]
+        err_probe["grid_copy"] = max(err_probe["grid_copy"], require_equal(
+            f"grid_copy ({n} floats, {steps} steps, offset {off})",
+            [rd.grid_copy(x, steps)], [rd.copy_plain(x)]))
     print(f"K5 grid_add_one, K6 loop_add_one, K7 grid_copy: equal to x + 1 "
           f"and x.clone() at {lo.STEP_COUNTS} steps, {LOOP_TILE_COUNTS} tiles "
-          f"and {rd.PROBE_STEPS} steps", flush=True)
+          f"and {rd.PROBE_STEPS} steps; K7 also at {COPY_SIZES} floats, "
+          f"offsets 0 and 1 float, and 2000-5000 blocks", flush=True)
 
     # ---- the measurement main path, through its entry point ------------
     for mod in (pk, dd, tk, lo, rd):
@@ -776,6 +754,8 @@ def main() -> int:
          "bound_ms": 1e3 * (int(z_clen.sum()) + nchunks * 3 * 4)
          / H100_BYTES_PER_S,
          "bound_by": "bytes",
+         "chain_lookups": int(chain[1, top]),
+         "chain_floor_ms": chain_floor_ms,
          "library_ms": None},
     ]
     x_grid = torch.zeros(lo.STEP_COUNTS[-1] * lo.ROWS, lo.LANES,

@@ -10,10 +10,9 @@
 //   a block per SM, each looping over tiles blockIdx.x, + gridDim.x, ...
 // - K7 scripts/exp_device_roundup.py section 1 (kernel empty_kernel): an
 //   identity copy of a float32 [128, 128] tile whose index map sends every
-//   grid step to block (0, 0).  Here `steps` blocks that each copy the same
-//   tile to the one output.  Those writes race, but every block writes the
-//   same value to each element, so the result is the tile whichever block
-//   writes last: the race is benign.
+//   grid step to block (0, 0), so Pallas moves the tile across HBM once
+//   each way whatever the step count.  Here `steps` blocks that split the
+//   tile between them: each element read once and written once.
 // Plain versions: x + 1 and x.clone(), in
 // libdeflate_tpu_torch/experiments/exp_launch_overhead.py and
 // exp_device_roundup.py.
@@ -21,14 +20,18 @@
 // What bounds them on this card: bytes, a few kilobytes to 2 MiB read and
 // written once (under a microsecond at 3.35 TB/s); in practice the fixed
 // cost of a launch and of scheduling blocks, which is what they measure.
-// Design: K5 and K7 are the simplest kernels that do the work, so that
-// their time is the overhead: a thread per element of a tile.  K6 must
-// not be latency-bound on one SM (a single block waits for one DRAM
-// round trip per 4 KB tile): its threads move 16 bytes each (an int4 of a
-// tile), and each block issues the loads of up to kLoopAhead of its tiles
-// before it stores any, so a wave over 256 tiles has all its loads in
-// flight at once.  The grid is the SM count (capped at the tile count),
-// read once.
+// Design: K5 is the simplest kernel that does the work, so that its time
+// is the overhead: a thread per element of a tile.  K6 must not be
+// latency-bound on one SM (a single block waits for one DRAM round trip
+// per 4 KB tile): its threads move 16 bytes each (an int4 of a tile), and
+// each block issues the loads of up to kLoopAhead of its tiles before it
+// stores any, so a wave over 256 tiles has all its loads in flight at
+// once.  The grid is the SM count (capped at the tile count), read once.
+// K7's `steps` blocks take contiguous shares of the tile's 16-byte
+// pieces, a piece a thread per pass and up to kLoopAhead passes' loads
+// before their stores.  The pieces are aligned on x: up to 3 floats
+// before the first and after the last go through block 0 as scalars, and
+// where o is aligned differently from x each piece is stored as 4 floats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,7 +40,8 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kLoopThreads = 256;  // int4s in a (8, 128) int32 tile
-constexpr int kLoopAhead = 4;      // tiles a block loads before storing
+constexpr int kLoopAhead = 4;      // tiles (K6) or pieces (K7) loaded
+                                   // before their stores
 
 __global__ void add_one_grid_kernel(const int* __restrict__ x,
                                     int* __restrict__ o, int tile) {
@@ -73,9 +77,43 @@ add_one_loop_kernel(const int4* __restrict__ x, int4* __restrict__ o,
   }
 }
 
-__global__ void copy_same_tile_kernel(const float* __restrict__ x,
-                                      float* __restrict__ o, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = x[i];
+// x, o float [n]: floats [0, head) and [head + 4 * pieces, n) by block 0,
+// the float4 pieces of x + head by all, per_block to a block
+__global__ void __launch_bounds__(1024)
+grid_copy_kernel(const float* __restrict__ x, float* __restrict__ o, int n,
+                 int head, int pieces, int per_block, bool vec_store) {
+  const int i = threadIdx.x;
+  const int tail = n - head - 4 * pieces;
+  const bool ends = blockIdx.x == 0;
+  float hv = 0.f, tv = 0.f;
+  if (ends && i < head) hv = x[i];
+  if (ends && i < tail) tv = x[n - tail + i];
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  const int p0 = (int)min((long long)blockIdx.x * per_block, (long long)pieces);
+  const int p1 = min(p0 + per_block, pieces);
+  const int stride = blockDim.x;
+  for (int p = p0 + i; p < p1; p += kLoopAhead * stride) {
+    float4 v[kLoopAhead];
+#pragma unroll
+    for (int k = 0; k < kLoopAhead; ++k)
+      if (p + k * stride < p1) v[k] = xv[p + k * stride];
+#pragma unroll
+    for (int k = 0; k < kLoopAhead; ++k) {
+      const int q = p + k * stride;
+      if (q >= p1) continue;
+      if (vec_store) {
+        reinterpret_cast<float4*>(o + head)[q] = v[k];
+      } else {
+        float* d = o + head + 4 * q;
+        d[0] = v[k].x;
+        d[1] = v[k].y;
+        d[2] = v[k].z;
+        d[3] = v[k].w;
+      }
+    }
+  }
+  if (ends && i < head) o[i] = hv;
+  if (ends && i < tail) o[n - tail + i] = tv;
 }
 
 int threads_for(int tile) { return tile < 1024 ? tile : 1024; }
@@ -112,11 +150,18 @@ extern "C" int loop_add_one_launch(const int* x, int* o, int ntiles,
   return (int)cudaGetLastError();
 }
 
-// K7: x, o float32 [n]; `steps` blocks each copy all of x to o.
+// K7: x, o float32 [n], 4-byte aligned, 1 <= n; `steps` blocks copy x
+// to o, each element once.
 extern "C" int grid_copy_launch(const float* x, float* o, int n, int steps,
                                 void* stream) {
-  if (steps > 0)
-    copy_same_tile_kernel<<<steps, threads_for(n), 0,
-                            (cudaStream_t)stream>>>(x, o, n);
+  if (steps <= 0 || n <= 0) return (int)cudaGetLastError();
+  const int mis = (int)((uintptr_t)x & 15);
+  const int head = min((16 - mis) % 16 / 4, n);
+  const int pieces = (n - head) / 4;
+  const int per_block = (int)(((long long)pieces + steps - 1) / steps);
+  const int threads = min(max((per_block + 31) / 32 * 32, 32), 1024);
+  const bool vec_store = ((uintptr_t)(o + head) & 15) == 0;
+  grid_copy_kernel<<<steps, threads, 0, (cudaStream_t)stream>>>(
+      x, o, n, head, pieces, per_block, vec_store);
   return (int)cudaGetLastError();
 }

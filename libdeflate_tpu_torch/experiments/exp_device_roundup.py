@@ -4,9 +4,9 @@ Counterpart of ``scripts/exp_device_roundup.py``.  ``main(sections)`` runs,
 in order, with a warm-up before each timing and a sync ending each pass:
 
 - "1": the launch probe (K7, the script's lines 57-78): ``grid_copy`` of a
-  float32 [128, 128] tile with 1, 16 and 64 blocks that all copy the same
-  tile, ms per call and per block on the host clock, by CUDA events and
-  replayed from a CUDA graph;
+  float32 [128, 128] tile by 1, 16 and 64 blocks that split it, ms per
+  call and per block on the host clock, by CUDA events and replayed from a
+  CUDA graph;
 - "4": CRC-32 and Adler-32 of 8 corpus chunks (lines 122-136) through
   ``ops/checksums.py``, each equal to ``zlib``, in GB/s on the host clock
   and replayed from a CUDA graph (the card's time alone);
@@ -57,8 +57,9 @@ def copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def grid_copy(x: torch.Tensor, steps: int) -> torch.Tensor:
-    """x copied by ``steps`` blocks that each copy all of x (float32, at
-    most 1 << 20 elements) to the one output."""
+    """x (float32, contiguous, 1 to 1 << 20 elements, any 4-byte offset)
+    copied by ``steps`` blocks that split it, each element read and
+    written once."""
     if x.dtype != torch.float32 or not 1 <= x.numel() <= 1 << 20:
         raise ValueError(f"x must be float32 with 1 to {1 << 20} elements, "
                          f"got {x.dtype} {tuple(x.shape)}")

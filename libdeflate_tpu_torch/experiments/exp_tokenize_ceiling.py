@@ -13,6 +13,10 @@ token loop and the output writes and copies.
   ``tokenize_chunks_plain``.  Launches are counted in its ``launches``.
 - ``ceiling_table`` and ``main`` are the script's ``main`` (416-462): MB/s
   of output per corpus class and variant, with K3's rate beside each class.
+- What holds the chain, for ``PERF.md``: ``chain_counts`` (the plain
+  version's tokens and table lookups per chunk), ``shared_load_latency``
+  (the card's dependent shared-memory load) and ``phase_cycles`` (K4's
+  clock64() cycles per chunk, in all and in the table setups).
 
 The variants: tok1 the burst/item loop with the output deleted; tok2, tok4
 and tok8 unroll the burst (select-committed steps per loop test); tokst and
@@ -91,10 +95,11 @@ def _stored(dw, t, bb, op, acc, olen, base_max):
             BAD_DATA if bad else OK)
 
 
-def _huffman(dw, t, bb, btype, op, acc, olen, guard, base_max):
+def _huffman(dw, t, bb, btype, op, acc, olen, guard, base_max, chain):
     """A static or dynamic block (``do_huffman``): table setup, then the
-    group loop of a literal burst and one item.  Returns (t, bb, op, acc,
-    status)."""
+    group loop of a literal burst and one item.  Adds the block's tokens
+    and litlen/offset table lookups to chain[0] and chain[1].  Returns (t,
+    bb, op, acc, status)."""
     ll, of, t, bb, ok = read_tables(dw, t, bb, btype, base_max)
     if not ok:
         return t, bb, op, acc, BAD_DATA
@@ -105,7 +110,7 @@ def _huffman(dw, t, bb, btype, op, acc, olen, guard, base_max):
         # past the guard the iteration still runs, then the loop stops
         stt = BAD_DATA if tw > guard else OK
         bits_left = ((bb + STAGE_W - 1) << 5) - t
-        niter = min(max(bits_left - 64, 0) >> 4, max(olen - op, 0) >> 1)
+        niter = n0 = min(max(bits_left - 64, 0) >> 4, max(olen - op, 0) >> 1)
         w = dw[tw] >> (t & 31)
         e = ll[w & _LLM]
         while niter and not e & 0x3000:               # kind == K_LIT
@@ -118,9 +123,11 @@ def _huffman(dw, t, bb, btype, op, acc, olen, guard, base_max):
 
         w &= _M32
         kind = (e >> 12) & 3
+        looks = 2 + n0 - niter
         if kind == K_SUB:
             e = ll[(e >> 16) + ((w >> LTB) & _low_mask((e >> 8) & 15))]
             kind = (e >> 12) & 3
+            looks += 1
         consume = e & 0xFF
         t4 = t + consume
         # the offset lookup runs after every item
@@ -128,6 +135,9 @@ def _huffman(dw, t, bb, btype, op, acc, olen, guard, base_max):
         w2 = (dw[t4 >> 5] >> (t4 & 31)) & _M32
         if (oe >> 12) & 3 == K_SUB:
             oe = of[(oe >> 16) + ((w2 >> OTB) & _low_mask((oe >> 8) & 15))]
+            looks += 1
+        chain[0] += 1 + n0 - niter
+        chain[1] += looks
         ocons = oe & 0xFF
         ocl = (oe >> 8) & 15
         dist = (oe >> 16) + ((w2 >> ocl) & _low_mask(ocons - ocl))
@@ -152,8 +162,12 @@ def _huffman(dw, t, bb, btype, op, acc, olen, guard, base_max):
             return t, bb, op, acc, stt
 
 
-def _tokenize_row(words: np.ndarray, W_pad: int, clen: int, olen: int):
-    """Tokenize one chunk: words uint32[W] -> (status, op, acc)."""
+def _tokenize_row(words: np.ndarray, W_pad: int, clen: int, olen: int,
+                  chain=None):
+    """Tokenize one chunk: words uint32[W] -> (status, op, acc).  chain, a
+    list [tokens, lookups], gets the chunk's tokens and litlen/offset table
+    lookups added."""
+    chain = [0, 0] if chain is None else chain
     in_words = (clen + 3) >> 2
     if clen < 0 or in_words + STAGE_W > words.shape[0]:
         return BAD_DATA, 0, 0
@@ -174,11 +188,12 @@ def _tokenize_row(words: np.ndarray, W_pad: int, clen: int, olen: int):
         if btype == 0:
             t, bb, op, acc, stat = _stored(dw, t, bb, op, acc, olen,
                                            base_max)
+            chain[0] += 1
         elif btype == 3:
             stat = BAD_DATA
         else:
             t, bb, op, acc, stat = _huffman(dw, t, bb, btype, op, acc, olen,
-                                            guard, base_max)
+                                            guard, base_max, chain)
         if stat != OK:
             status = stat
             break
@@ -204,6 +219,27 @@ def tokenize_chunks_plain(comp_words, comp_len, out_len):
     return tuple(torch.from_numpy(res.view(np.int32)))
 
 
+def chain_counts(comp_words, comp_len, out_len) -> np.ndarray:
+    """int64 [2, B]: per chunk the tokens (burst literals, items, stored
+    blocks) and the litlen and offset table lookups (subtable probes
+    included; the precode lookups of the table setups not) of K4's token
+    chain, counted by its plain version.  Each lookup waits for the one
+    before it, so lookups times one shared-memory load latency is the
+    floor of any one-thread-per-chunk chain."""
+    words, comp_len, out_len = prepare_words(comp_words, comp_len, out_len,
+                                             torch.device("cpu"))
+    B, W = words.shape
+    W_pad = -(-W // 1024) * 1024
+    rows = words.numpy().view(np.uint32)
+    res = np.zeros((2, B), np.int64)
+    for k, (clen, olen) in enumerate(zip(comp_len.tolist(),
+                                         out_len.tolist())):
+        chain = [0, 0]
+        _tokenize_row(rows[k], W_pad, clen, olen, chain)
+        res[:, k] = chain
+    return res
+
+
 def tokenize_chunks(comp_words, comp_len, out_len, unroll: int = 1,
                     store_tokens: bool = False, device=None):
     """Tokenize B raw-DEFLATE chunks without writing output (K4).
@@ -225,28 +261,68 @@ def tokenize_chunks(comp_words, comp_len, out_len, unroll: int = 1,
     dev = resolve_device(device)
     words, comp_len, out_len = prepare_words(comp_words, comp_len, out_len,
                                              dev)
-    B, W = words.shape
     if dev.type == "cpu":
         return tokenize_chunks_plain(words, comp_len, out_len)
     if dev.type != "cuda":
         raise ValueError(f"tokenize_chunks runs on CUDA or the CPU, not "
                          f"{dev}")
+    res = _launch(words, comp_len, out_len, unroll, store_tokens, None)
+    tokenize_chunks.launches += 1
+    return res[0], res[1], res[2]
+
+
+def _launch(words, comp_len, out_len, unroll, store_tokens, cycles):
+    """Launch K4 on prepared CUDA tensors; cycles, int64 [B, 2] or None,
+    receives each chunk's clock64() cycles in all and in its table
+    setups.  Returns the int32 [3, B] results."""
+    B, W = words.shape
+    dev = words.device
     consts = torch.as_tensor(CONSTS, device=dev)
     res = torch.empty(3, B, dtype=torch.int32, device=dev)
     P, I = _build.PTR, _build.INT
     fn = _build.kernel("tokenize_chunks", "tokenize_chunks_launch",
-                       [P, I, I, I, P, P, P, I, I, P, P, P, P])
+                       [P, I, I, I, P, P, P, I, I, P, P, P, P, P])
     p = ctypes.c_void_p
     err = fn(p(words.data_ptr()), B, W, -(-W // 1024) * 1024,
              p(comp_len.data_ptr()), p(out_len.data_ptr()),
              p(consts.data_ptr()), unroll, int(bool(store_tokens)),
              p(res[0].data_ptr()), p(res[1].data_ptr()), p(res[2].data_ptr()),
+             p(None if cycles is None else cycles.data_ptr()),
              p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"tokenize_chunks kernel failed to launch: CUDA "
                            f"error {err}")
-    tokenize_chunks.launches += 1
-    return res[0], res[1], res[2]
+    return res
+
+
+def phase_cycles(comp_words, comp_len, out_len, unroll: int = 1,
+                 store_tokens: bool = False) -> torch.Tensor:
+    """int64 [B, 2]: K4's clock64() cycles per chunk on the card, in all
+    and in the table setups (the rest is the token loop), from one launch
+    that is not counted in ``tokenize_chunks.launches``."""
+    dev = resolve_device(None)
+    words, comp_len, out_len = prepare_words(comp_words, comp_len, out_len,
+                                             dev)
+    cycles = torch.zeros(words.shape[0], 2, dtype=torch.int64, device=dev)
+    _launch(words, comp_len, out_len, unroll, store_tokens, cycles)
+    return cycles
+
+
+def shared_load_latency(steps: int = 1 << 16) -> dict:
+    """The card's latency of one shared-memory load that waits for the one
+    before it: {"cycles", "ns"} per load, from ``steps`` loads of a
+    pointer chase on one thread (clock64() and %globaltimer)."""
+    dev = resolve_device(None)
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    fn = _build.kernel("tokenize_chunks", "shared_chase_launch",
+                       [_build.INT, _build.PTR, _build.PTR])
+    err = fn(steps, ctypes.c_void_p(out.data_ptr()),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"shared_chase kernel failed to launch: CUDA "
+                           f"error {err}")
+    cyc, ns, _ = out.tolist()
+    return {"cycles": cyc / steps, "ns": ns / steps}
 
 
 def sass_store_counts() -> dict[str, int]:

@@ -143,3 +143,30 @@ def test_grid_copy_rejects_bad_inputs():
         rd.grid_copy(torch.zeros(4, 4), 0)
     with pytest.raises(ValueError):
         rd.grid_copy(torch.zeros(8, 8).T, 1)
+
+
+@pytest.mark.parametrize("n,steps,offset", [
+    (1, 1, 0), (3, 64, 1), (4097, 2000, 0), (16385, 16, 1),
+    (1 << 20, 64, 0), (1 << 20, 1, 1), (rd.TILE[0] * rd.TILE[1], 5000, 1)])
+def test_grid_copy_contract(n, steps, offset):
+    """The sizes chip_smoke.py holds the kernel to on the card: a tail
+    that is not a multiple of 4 floats, a view one float into its buffer,
+    more blocks than 16-byte pieces.  On the CPU, a copy of x."""
+    buf = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        n + 1).astype(np.float32))
+    x = buf[offset:offset + n]
+    assert x.is_contiguous() and x.storage_offset() == offset
+    rd.reset_launch_counts()
+    got = rd.grid_copy(x, steps)
+    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
+    assert rd.grid_copy.launches == 0
+
+
+@pytest.mark.parametrize("case", ["empty", "too many", "int32",
+                                  "steps below 1"])
+def test_grid_copy_refuses(case):
+    x = {"empty": torch.zeros(0), "too many": torch.zeros((1 << 20) + 1),
+         "int32": torch.zeros(16, dtype=torch.int32)}.get(case,
+                                                          torch.zeros(16))
+    with pytest.raises(ValueError):
+        rd.grid_copy(x, -1 if case == "steps below 1" else 1)

@@ -5,61 +5,43 @@ libdeflate_tpu_torch/experiments/exp_tokenize_ceiling.py::tokenize_chunks
 scripts/exp_tokenize_ceiling.py::tokenize_chunks run in interpret mode, for
 unroll 1 and 4 and for store_tokens on (the configurations give the same
 outputs).  Inputs: zlib level-6 text (this repository's SURVEY.md and
-PERF_NOTES.md), a Z_FIXED stream, stored blocks, deep-codeword subtables, the
-zlib-lax incomplete codes (tests/test_incomplete_codes.craft_dynamic_stream),
-seeded damaged streams (bit flips, a byte overwrite, truncations), blocks
-that run on through the zero padding, out_len one off, and stored blocks
-whose LEN passes the data or the padded row (where the reference reads past
-its row, the port's choice is pinned to what interpret mode gives).
+PERF_NOTES.md), a Z_FIXED stream, seeded damaged streams (bit flips, a byte
+overwrite, truncations), blocks that run on through the zero padding, and
+the crafted sets of libdeflate_tpu_torch/experiments/crafted_streams.py,
+which chip_smoke.py also runs on the card: stored blocks whose LEN passes
+the data or the padded row (where the reference reads past its row, the
+port's choice is pinned to what interpret mode gives) or lands at a
+staging-window or ring-segment edge, deep-codeword subtables, the zlib-lax
+incomplete codes, out_len one off, literal bursts across staging-base
+moves, and run-on blocks that read the row's last word and past it.  The
+crafter there is held byte-equal to tests/test_incomplete_codes's.
 
 Tolerance: exact in status, op and acc (acc compared modulo 2**32, as the
 bit pattern of an int32).  One batch shape (B = 2, W = 12288 words) is used,
 since each interpret-mode shape and configuration costs seconds of compile.
 """
 
-import struct
 import zlib
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from libdeflate_tpu_torch.experiments import crafted_streams as cs
 from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
 from scripts import exp_tokenize_ceiling as ref
-from tests.test_incomplete_codes import craft_dynamic_stream
+from tests import test_incomplete_codes as jax_crafter
 
-REPO = Path(__file__).resolve().parents[1]
-TEXT = ((REPO / "SURVEY.md").read_bytes()
-        + (REPO / "PERF_NOTES.md").read_bytes())
-B, W = 2, 12288
-FILLER = b"\x03\x00"                     # an empty static final block
+TEXT = cs.repo_text()
+B, W = cs.B, cs.W
 CFGS = [(1, False), (4, False), (1, True)]
+_z = cs.zlib_stream
 
 
-def _z(raw, level=6, strategy=zlib.Z_DEFAULT_STRATEGY):
-    c = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
-    return c.compress(raw) + c.flush()
-
-
-def _stored(length, data, final=True):
-    return bytes([int(final)]) + struct.pack("<HH", length,
-                                             length ^ 0xFFFF) + data
-
-
-def _both(streams, out_lens, cfg):
-    """Both versions on streams padded to the B x W batch; returns the
-    port's (status, op, acc) as numpy arrays."""
-    streams = list(streams) + [FILLER] * (B - len(streams))
-    out_lens = np.asarray(list(out_lens) + [0] * (B - len(out_lens)),
-                          np.int32)
-    comp = np.zeros((B, W), np.uint32)
-    clen = np.zeros(B, np.int32)
-    for k, s in enumerate(streams):
-        comp[k, : -(-len(s) // 4)] = np.frombuffer(s + b"\0" * (-len(s) % 4),
-                                                   np.uint32)
-        clen[k] = len(s)
+def _both_rows(comp, clen, out_lens, cfg):
+    """Both versions on one B x W batch; returns the port's (status, op,
+    acc) as numpy arrays."""
     unroll, store = cfg
     want = ref.tokenize_chunks(jnp.asarray(comp), jnp.asarray(clen),
                                jnp.asarray(out_lens), unroll=unroll,
@@ -70,6 +52,11 @@ def _both(streams, out_lens, cfg):
         assert g.dtype == torch.int32 and g.shape == (B,)
         assert np.array_equal(g.numpy(), np.asarray(w)), (name, cfg)
     return tuple(g.numpy() for g in got)
+
+
+def _both(streams, out_lens, cfg):
+    """Both versions on streams padded to the B x W batch."""
+    return _both_rows(*cs.pack_rows(streams, out_lens), cfg)
 
 
 @pytest.mark.parametrize("cfg", CFGS)
@@ -94,44 +81,16 @@ def test_stored_and_deep_subtables(cfg):
     assert list(st) == [0, 0] and list(op) == [len(stored), len(deep)]
 
 
-def _deep_stream():
-    """A crafted dynamic block whose litlen code reaches 15 bits and whose
-    offset code reaches 11 (subtables in both tables), with paired 2-bit
-    literals, 78 bytes of output."""
-    ll = np.zeros(288, np.int64)
-    ll[[ord("a"), ord("b")]] = 2
-    ll[256], ll[257] = 3, 4
-    ll[258:274] = 8
-    free = np.flatnonzero(ll == 0)
-    deep = [15, 15, 14, 13, 12, 11, 10] + [9] * 127
-    ll[free[:len(deep)]] = deep
-    of = {k: k + 1 for k in range(11)} | {11: 11}
-    lits = [("lit", s) for s in (ord("a"), ord("b"), *free[:7], ord("a"))]
-    body = lits * 6 + [("match", 257, 0, 0, 0, 0, 0),      # 3 at 1
-                       ("match", 258, 0, 0, 11, 4, 3),     # 4 at 52
-                       ("match", 260, 0, 0, 10, 4, 5),     # 6 at 38
-                       ("match", 259, 0, 0, 9, 3, 2),      # 5 at 27
-                       ("eob",)]
-    lens = {int(s): int(n) for s, n in enumerate(ll) if n}
-    return craft_dynamic_stream(lens, of, body)
-
-
 @pytest.mark.parametrize("cfg", CFGS)
 def test_crafted_deep_subtables(cfg):
-    s = _deep_stream()
-    assert len(zlib.decompress(s, -15)) == 78
-    st, op, _ = _both([s, s], [78, 77], cfg)
+    assert len(zlib.decompress(cs.deep_stream(), -15)) == 78
+    st, op, _ = _both_rows(*cs.deep_subtables(), cfg)
     assert list(st) == [0, 1] and op[0] == 78
 
 
 @pytest.mark.parametrize("cfg", CFGS)
 def test_incomplete_codes(cfg):
-    s1 = craft_dynamic_stream({ord("a"): 1, 256: 1}, {},
-                              [("lit", ord("a"))] * 3 + [("eob",)])
-    s2 = craft_dynamic_stream(
-        {ord("x"): 1, 256: 2, 257: 2}, {0: 1},
-        [("lit", ord("x")), ("match", 257, 0, 0, 0, 0, 0), ("eob",)])
-    st, op, _ = _both([s1, s2], [3, 4], cfg)
+    st, op, _ = _both_rows(*cs.incomplete_codes(), cfg)
     assert list(st) == [0, 0] and list(op) == [3, 4]
 
 
@@ -175,10 +134,7 @@ def test_run_on_through_zero_padding(bits, cfg):
     """Blocks without EOB whose all-zero codeword is a literal: the token
     loop runs on through the padding until the guard or out_len stops it,
     so op depends on the staging base and the burst budget."""
-    syms = "a" if bits == 1 else "bcdefgh"
-    lens = {ord(ch): bits for ch in syms} | {256: bits}
-    streams = [craft_dynamic_stream(lens, {}, [("lit", ord(syms[-1]))] * n)
-               for n in (1, 106, 113, 4000)]
+    streams = [cs.run_on_stream(bits, n) for n in (1, 106, 113, 4000)]
     _both(streams[:2], [81920, 69632], cfg)
     _both(streams[2:], [70001, 1 << 20], cfg)
 
@@ -186,8 +142,7 @@ def test_run_on_through_zero_padding(bits, cfg):
 @pytest.mark.parametrize("cfg", CFGS)
 def test_out_len_one_off(cfg):
     raw = (TEXT * 2)[5000:25000]
-    s = _z(raw)
-    st, op, _ = _both([s, s], [len(raw) - 1, len(raw) + 1], cfg)
+    st, op, _ = _both_rows(*cs.out_len_one_off(TEXT), cfg)
     assert list(st) == [1, 0] and op[1] == len(raw)
 
 
@@ -195,9 +150,7 @@ def test_out_len_one_off(cfg):
 def test_stored_len_past_the_data(cfg):
     """A stored block is one token: LEN past the 100 data bytes is
     accepted (no staging bound), the cursor jumping past the data."""
-    data = bytes(range(100))
-    st, op, acc = _both([_stored(5000, data), _stored(60000, data)],
-                        [65536, 65536], cfg)
+    st, op, acc = _both_rows(*cs.stored_past_the_data(), cfg)
     assert list(st) == [0, 0] and list(op) == [5000, 60000]
     assert list(acc) == [5000, 60000]
 
@@ -208,10 +161,82 @@ def test_stored_len_past_the_padded_row(cfg):
     row (4 * W bytes): the next header lies past the row.  Interpret mode
     reads the row's last word there (a zero stored header: BAD); the port
     calls a header past the row BAD.  Both keep op and acc."""
-    data = bytes(range(100))
-    st, op, acc = _both([_stored(60000, data, False),
-                         _stored(40000, data, False)], [65536, 65536], cfg)
+    st, op, acc = _both_rows(*cs.stored_past_the_padded_row(), cfg)
     assert list(st) == [1, 1] and list(op) == [60000, 40000]
+
+
+@pytest.mark.parametrize("cfg", CFGS)
+@pytest.mark.parametrize("edge", ["window", "segment"])
+def test_stored_jump_to_an_edge(edge, cfg):
+    """A stored block's LEN puts the next header exactly at word 2048 (the
+    first staging window's edge) and one byte after it, or at word 2560 (a
+    512-word edge) and one byte before it; a Z_FIXED block follows."""
+    rows = (cs.stored_to_the_window_edge(TEXT) if edge == "window" else
+            cs.stored_to_a_segment_edge(TEXT))
+    st, op, _ = _both_rows(*rows, cfg)
+    assert list(st) == [0, 0] and np.array_equal(op, rows[2])
+
+
+@pytest.mark.parametrize("cfg", CFGS)
+def test_bursts_across_staging_moves(cfg):
+    """Literal-only streams of ~40 KB: the bursts cross several moves of
+    the staging base, and each budget ends inside a window."""
+    comp, clen, olen = cs.bursts_across_staging_moves(TEXT)
+    assert (clen > 38000).all() and (clen <= 4 * (W - 2048)).all()
+    st, op, _ = _both_rows(comp, clen, olen, cfg)
+    assert list(st) == [0, 0] and np.array_equal(op, olen)
+
+
+@pytest.mark.parametrize("cfg", CFGS)
+def test_run_on_into_the_last_word(cfg):
+    """Run-on blocks that decode the zero padding up to word W_pad - 1,
+    which holds set bits, and read past the row (where the port reads
+    that word again): the 1-bit code's EOB is the word's top bit."""
+    comp, clen, olen = cs.run_on_into_the_last_word()
+    st, op, _ = _both_rows(comp, clen, olen, cfg)
+    assert st[0] == 0 and op[0] > 40900 + 2000 * 32
+
+
+def test_crafter_matches_the_jax_tests():
+    """The port's crafter gives the JAX tests' crafter's bytes."""
+    deep = cs.deep_stream()
+    assert len(deep) > 100
+    cases = [({ord("a"): 1, 256: 1}, {}, [("lit", ord("a"))] * 3
+              + [("eob",)], True),
+             ({ord("x"): 1, 256: 2, 257: 2}, {0: 1},
+              [("lit", ord("x")), ("match", 257, 0, 0, 0, 0, 0), ("eob",)],
+              False),
+             ({ord(ch): 3 for ch in "bcdefgh"} | {256: 3}, {},
+              [("lit", ord("h"))] * 113, True)]
+    for ll, of, body, final in cases:
+        assert cs.craft_dynamic_stream(ll, of, body, final) == \
+            jax_crafter.craft_dynamic_stream(ll, of, body, final)
+    for pm in ([0] * 19, [5] + [0] * 18, list(range(19))):
+        assert np.array_equal(
+            cs.package_merge_lengths(np.array(pm), 7),
+            jax_crafter.package_merge_lengths(np.array(pm), 7))
+
+
+def test_chain_counts():
+    """The plain version's count of K4's chain: a stored block is one
+    token and no lookup; each item adds its offset lookup; the counts
+    leave the results alone."""
+    rows = cs.stored_past_the_data()
+    assert tk.chain_counts(*rows).tolist() == [[1, 1], [0, 0]]
+    rows = cs.incomplete_codes()
+    assert tk.chain_counts(*rows).tolist() == [[3, 3], [5, 5]]
+    comp, clen, olen = cs.bursts_across_staging_moves(TEXT)
+    tokens, lookups = tk.chain_counts(comp, clen, olen)
+    assert (lookups > tokens).all() and (tokens <= olen).all()
+    before = tk.tokenize_chunks(comp, clen, olen, device="cpu")
+    tk.chain_counts(comp, clen, olen)
+    after = tk.tokenize_chunks(comp, clen, olen, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tk.phase_cycles(comp, clen, olen)
+        with pytest.raises(RuntimeError):
+            tk.shared_load_latency()
 
 
 def test_outside_the_input_contract():
