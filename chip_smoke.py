@@ -40,8 +40,8 @@ rand and runs parts of the corpus, B = 4, 2 and 1; chunks that turn
 from dense to sparse data inside them) and crafted inputs (every group
 on one start word, start words near the end, sparse start words, a run
 of 40 groups a word before sparse ones);
-torch.profiler checks that its wrapper runs its kernel and no other
-device op.  It times each kernel beside its plain version: K1, K3 and K4
+the nodes of a CUDA graph captured around one wrapper call show that it
+runs its kernel and no other device op.  It times each kernel beside its plain version: K1, K3 and K4
 by CUDA events around back-to-back calls, K2 and K5-K7 (a few
 microseconds each, less than their wrappers' host time) by replaying 200
 calls from a CUDA graph, K2 also as its bare launch and on the rand,
@@ -264,24 +264,44 @@ def damaged_streams(chunks, seed=7):
     return out
 
 
-def device_ops(fn) -> list[tuple[str, int, float]]:
-    """(name, calls, device microseconds) of every op that took device
-    time in one fn() call, by torch.profiler's key_averages(); an empty
-    list if the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType (cuda.h)
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+                    "wait_event", "event_record", "ext_semas_signal",
+                    "ext_semas_wait", "mem_alloc", "mem_free",
+                    "batch_mem_op", "conditional")
+
+
+def graph_node_types(fn) -> list[str]:
+    """The type of every node of a CUDA graph captured around one fn()
+    call, read back through the driver API: each device op fn issues
+    (a kernel, a memset, a copy) is one node.  Unlike a profiler trace,
+    capture records every op or fails."""
+    import ctypes
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
         fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((ev.key, ev.count, float(us)))
-    return rows
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    types = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
+              "cuGraphNodeGetType")
+        types.append(GRAPH_NODE_TYPES[t.value]
+                     if 0 <= t.value < len(GRAPH_NODE_TYPES) else str(t.value))
+    g.reset()
+    return types
 
 
 def time_best(fn, passes: int = 3) -> float:
@@ -318,7 +338,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    print(f"card: {card}", flush=True)
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
@@ -400,14 +421,22 @@ def main() -> int:
               f"{max_shared_start(args[1])} groups on one start word): "
               f"equal to the plain version", flush=True)
     # the wrapper runs its kernel once and no other device op (a memset
-    # or a copy would show as an entry of its own)
-    ops = device_ops(lambda: pk.pack_groups(*real_pack))
-    print(f"K2 wrapper, device ops of one call (torch.profiler): "
-          f"{json.dumps(ops)}", flush=True)
-    if len(ops) != 1 or "pack_gather_kernel" not in ops[0][0] \
-            or ops[0][1] != 1:
-        raise AssertionError("pack_groups: the profiler did not see the "
-                             "wrapper run its kernel once and nothing else")
+    # or a copy would be a graph node of its own)
+    # first on two torch ops whose nodes are known: a fill kernel and a
+    # device-to-device copy
+    a = torch.empty(4096, dtype=torch.int64, device=dev)
+    b = torch.empty_like(a)
+    known = sorted(graph_node_types(lambda: (a.zero_(), b.copy_(a))))
+    if known != ["kernel", "memcpy"]:
+        raise AssertionError(f"graph nodes of zero_ and copy_: {known}")
+    before = pk.pack_groups.launches
+    ops = graph_node_types(lambda: pk.pack_groups(*real_pack))
+    print(f"K2 wrapper, device ops of one call (CUDA graph nodes): "
+          f"{json.dumps(ops)}; zero_ and copy_ give {json.dumps(known)}",
+          flush=True)
+    if ops != ["kernel"] or pk.pack_groups.launches - before != 2:
+        raise AssertionError("pack_groups: one call's graph is not its one "
+                             "kernel launch and nothing else")
 
     # ---- literal cost tables: CUDA against the CPU --------------------
     for b in batches:
