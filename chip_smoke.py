@@ -17,7 +17,13 @@ two paths through their entry points:
   there, and zlib level-6 streams of the same 16 chunks, each set decoded
   in one known-size ``decompress_chunks_words`` call of B = 16; the zlib
   set also through the unknown-size ``decompress_chunks``.  Every chunk
-  must equal the corpus;
+  must equal the corpus.  Before it, K3 is held against its plain version
+  on the zlib-6, lean, Z_FIXED, damaged and run-on sets and on the K3
+  sets of ``experiments/crafted_streams.py`` in both size modes (matches
+  of every short distance, distance 32768, items across 32 KiB
+  boundaries, long stored blocks, stored jumps to ring edges, output past
+  out_bytes, failures in the middle of a window), and its chain is set
+  beside its floor (the plain version's lookups under K3's own loop);
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
@@ -519,24 +525,36 @@ def main() -> int:
             for i in PART_CHUNKS]
     fixed = [zlib6(chunks[0].tobytes(), zlib.Z_FIXED)]
     damaged = damaged_streams(chunks)
-    sets = [("zlib-6, 16 chunks", z_comp, z_clen, [CHUNK] * nchunks, True),
+    # (name, comp, comp_len, out_len, known_size, out_bytes)
+    sets = [("zlib-6, 16 chunks", z_comp, z_clen, [CHUNK] * nchunks, True,
+             CHUNK),
             ("lean, one chunk per part", *dd.pack_streams(lean, pad_w),
-             [CHUNK] * len(lean), True),
-            ("Z_FIXED", *dd.pack_streams(fixed, pad_w), [CHUNK], True)]
+             [CHUNK] * len(lean), True, CHUNK),
+            ("Z_FIXED", *dd.pack_streams(fixed, pad_w), [CHUNK], True, CHUNK)]
     d_comp, d_clen = dd.pack_streams(damaged, pad_w)
     run_on = [cs.run_on_stream(bits, n) for bits in (1, 3)
               for n in (1, 106, 113, 4000)]
     r_comp, r_clen = dd.pack_streams(run_on, pad_w)
     for known in (True, False):
         sets.append((f"damaged, known_size={known}", d_comp, d_clen,
-                     [DAMAGED_CHUNK] * len(damaged), known))
+                     [DAMAGED_CHUNK] * len(damaged), known, DAMAGED_CHUNK))
         sets.append((f"run-on, known_size={known}", r_comp, r_clen,
-                     [70001, 69632, 81920, 66000] * 2, known))
+                     [70001, 69632, 81920, 66000] * 2, known, 81920))
+    # K3's crafted sets, the CPU tests' B = 4 x 12288-word batches; in
+    # unknown-size mode 4 bytes wider a row, so that rows 1-3 start off a
+    # 16-byte boundary and the window's flush takes its 4-byte stores
+    for name, (streams, out_lens, caps) in cs.decode_sets(
+            cs.repo_text(root)).items():
+        for known, lens, width in ((True, out_lens, cs.DEC_OUT_BYTES),
+                                   (False, caps, cs.DEC_OUT_BYTES + 4)):
+            comp, clen, olen = cs.pack_rows(streams, lens, rows=cs.DEC_B)
+            sets.append((f"crafted K3: {name}, known_size={known}", comp,
+                         clen, olen.tolist(), known, width))
     err_dec = 0
     plain_s = {}
-    for name, comp, clen, olen, known in sets:
+    for name, comp, clen, olen, known, out_bytes in sets:
         args = (comp.view(np.int32), clen, np.array(olen, np.int32),
-                max(olen))
+                out_bytes)
         got = dd.decompress_chunks_words(*args, known_size=known)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -600,8 +618,8 @@ def main() -> int:
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
     tok_plain_s = {}
-    tok_sets = [(name, comp, clen, olen) for name, comp, clen, olen, known
-                in sets if known and not name.startswith("lean")]
+    tok_sets = [(name, comp, clen, olen) for name, comp, clen, olen, known, _
+                in sets if known and not name.startswith(("lean", "crafted"))]
     tok_sets += [(f"crafted: {name}", *rows) for name, rows in
                  cs.crafted_sets(cs.repo_text(root)).items()]
     for name, comp, clen, olen in tok_sets:
@@ -643,6 +661,16 @@ def main() -> int:
           f"{top}: {loop_cyc[top] / chain[1, top]:.3f} cycles per lookup in "
           f"the token loop, table setups "
           f"{cyc[top, 1] / cyc[top, 0]:.6f} of its cycles", flush=True)
+    # K3's chain under its own loop: its burst budget stops short of each
+    # 32 KiB boundary, and only a match looks up an offset
+    chain3 = dd.chain_counts(z_comp.view(np.int32), z_clen,
+                             np.full(nchunks, CHUNK, np.int32))
+    top3 = int(chain3[0].argmax())
+    chain3_floor_ms = int(chain3[1, top3]) * lat["ns"] / 1e6
+    print(f"K3 chain (zlib-6, 16 chunks): chunk {top3} has the most tokens, "
+          f"{int(chain3[0, top3])}, and {int(chain3[1, top3])} table lookups "
+          f"under K3's loop: chain floor {chain3_floor_ms:.6f} ms at "
+          f"{lat['ns']:.4f} ns a lookup", flush=True)
 
     # ---- K5-K7: the launch probes against their plain versions ---------
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -772,6 +800,8 @@ def main() -> int:
          "bound_ms": 1e3 * (int(z_clen.sum()) + nchunks * CHUNK)
          / H100_BYTES_PER_S,
          "bound_by": "bytes",
+         "chain_lookups": int(chain3[1, top3]),
+         "chain_floor_ms": chain3_floor_ms,
          "library_ms": None},
         {"name": "tokenize_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/tokenize_chunks.cu",

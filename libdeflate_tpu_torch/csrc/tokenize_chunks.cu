@@ -25,7 +25,7 @@
 // the serial chain of table probes, each symbol's position depending on
 // the previous one: one shared-memory load latency per lookup at best.
 //
-// Design: one warp per chunk (inflate_common.cuh's second reader).  The
+// Design: one warp per chunk (inflate_common.cuh's reader, K3's too).  The
 // row is staged into a 16 KiB shared-memory ring by cp.async, segments
 // copied ahead of the cursor by all 32 lanes; a stored block's jump
 // restages from the segment it lands in.  The bits come from a 64-bit

@@ -18,10 +18,13 @@ including the bookkeeping of its input staging window: the window base
 moves only when ``(t >> 5) + margin - base >= STAGE_W``, to
 ``min(t >> 5, W_pad - STAGE_W)`` rounded down to 1024 words, and it sets
 the literal-burst budget, the stored-copy bound and so where a damaged
-stream stops.  What the port does not keep is the reference's 64 KiB
-output ring with its 32 KiB flushes: output goes straight to ``out``, and
-bytes at and past a chunk's ``out_len`` are zeros (the reference leaves
-stale ring words there, and skips the final flush on a failure).
+stream stops.  The kernel keeps the reference's 64 KiB output ring in
+shared memory, flushed to ``out`` each time the output crosses a 32 KiB
+boundary; unlike the reference it also flushes the rest on a failure, so
+``out`` holds every decoded byte below a chunk's ``out_len`` on a failure
+too, and bytes at and past ``out_len`` are zeros (the reference leaves
+stale ring words there).  ``chain_counts`` counts the plain version's
+table lookups, the floor of the kernel's dependent chain.
 
 Where the reference's behaviour is undefined the port chooses, and both
 versions agree:
@@ -161,9 +164,11 @@ def read_tables(dw, t, bb, btype, base_max):
     return ll, of, t, bb, True
 
 
-def _huffman(dw, out, t, bb, btype, olen, guard, base_max):
+def _huffman(dw, out, t, bb, btype, olen, guard, base_max, chain=None):
     """One static or dynamic block (``do_huffman``) from the bit after its
-    header: table setup, then the group loop.  Returns (t, bb, status)."""
+    header: table setup, then the group loop.  chain, a list [tokens,
+    lookups] or None, gets the block's tokens and litlen/offset table
+    lookups added.  Returns (t, bb, status)."""
     ll, of, t, bb, ok = read_tables(dw, t, bb, btype, base_max)
     if not ok:
         return t, bb, BAD_DATA
@@ -180,7 +185,8 @@ def _huffman(dw, out, t, bb, btype, olen, guard, base_max):
         op = len(out)
         bits_left = ((bb + STAGE_W - 1) << 5) - t
         room = min(FLUSHB - (op & (FLUSHB - 1)), olen - op)
-        niter = min(max(bits_left - 64, 0) >> 4, max(room - 8, 0) >> 1)
+        niter = n0 = min(max(bits_left - 64, 0) >> 4,
+                         max(room - 8, 0) >> 1)
         w = dw[tw] >> (t & 31)
         e = ll[w & _LLM]
         while niter and not e & 0x3000:               # kind == K_LIT
@@ -196,6 +202,9 @@ def _huffman(dw, out, t, bb, btype, olen, guard, base_max):
             niter -= 1
 
         kind = (e >> 12) & 3
+        if chain is not None:
+            chain[0] += 1 + n0 - niter
+            chain[1] += 1 + n0 - niter + (kind == K_SUB)
         if kind == K_SUB:
             e = ll[(e >> 16) + ((w >> LTB) & ((1 << ((e >> 8) & 15)) - 1))]
             kind = (e >> 12) & 3
@@ -219,6 +228,8 @@ def _huffman(dw, out, t, bb, btype, olen, guard, base_max):
             length = (e >> 16) + ((w >> cl) & ((1 << (consume - cl)) - 1))
             oe = of[(w >> consume) & _OFM]
             w2 = dw[t4 >> 5] >> (t4 & 31)
+            if chain is not None:
+                chain[1] += 1 + ((oe >> 12) & 3 == K_SUB)
             if (oe >> 12) & 3 == K_SUB:
                 oe = of[(oe >> 16)
                         + ((w2 >> OTB) & ((1 << ((oe >> 8) & 15)) - 1))]
@@ -254,9 +265,10 @@ def row_pairs(words: np.ndarray, W_pad: int):
 
 
 def _decode_row(words: np.ndarray, W_pad: int, clen: int, olen: int,
-                strict: bool):
+                strict: bool, chain=None):
     """Decode one chunk: words uint32[W] -> (bytearray, status, out_len,
-    consumed)."""
+    consumed).  chain, a list [tokens, lookups] or None, gets the chunk's
+    tokens and litlen/offset table lookups added."""
     in_words = (clen + 3) >> 2
     if clen < 0 or in_words + STAGE_W > words.shape[0]:
         return bytearray(), BAD_DATA, 0, 0
@@ -278,11 +290,13 @@ def _decode_row(words: np.ndarray, W_pad: int, clen: int, olen: int,
         btype = (hdr >> 1) & 3
         if btype == 0:
             t, bb, stat = _stored(dw, rowb, out, t, bb, olen, base_max)
+            if chain is not None:
+                chain[0] += 1
         elif btype == 3:
             stat = BAD_DATA
         else:
             t, bb, stat = _huffman(dw, out, t, bb, btype, olen, guard,
-                                   base_max)
+                                   base_max, chain)
         if stat != OK:
             status = stat
             break
@@ -316,6 +330,30 @@ def decode_chunks_plain(comp_words, comp_len, out_len, out_bytes: int,
         res[:, k] = (st, op, cons)
     status, out_lens, consumed = torch.from_numpy(res)
     return torch.from_numpy(out), status, out_lens, consumed
+
+
+def chain_counts(comp_words, comp_len, out_len) -> np.ndarray:
+    """int64 [2, B]: per chunk the tokens (burst literals, items, stored
+    blocks) and the litlen and offset table lookups (subtable probes
+    included; the precode lookups of the table setups not) of K3's token
+    loop, counted by its plain version: K3's burst budget, which stops 8
+    bytes short of each 32 KiB boundary, and an offset lookup for each
+    match only.  Each lookup waits for the one before it, so the lookups
+    of the chunk with the most tokens times one shared-memory load latency
+    is the floor of a decode that runs each chunk's chain on one thread or
+    one warp."""
+    words, comp_len, out_len = prepare_words(comp_words, comp_len, out_len,
+                                             torch.device("cpu"))
+    B, W = words.shape
+    W_pad = -(-W // 1024) * 1024
+    rows = words.numpy().view(np.uint32)
+    res = np.zeros((2, B), np.int64)
+    for k, (clen, olen) in enumerate(zip(comp_len.tolist(),
+                                         out_len.tolist())):
+        chain = [0, 0]
+        _decode_row(rows[k], W_pad, clen, olen, True, chain)
+        res[:, k] = chain
+    return res
 
 
 def prepare_words(comp_words, comp_len, out_len, dev: torch.device):

@@ -1,12 +1,15 @@
-"""Crafted raw-DEFLATE inputs for K4 (and K3): the streams whose bits,
-staging-base moves and reads past the row a decoder's reader must get
-exactly right.
+"""Crafted raw-DEFLATE inputs for K4 and K3: the streams whose bits,
+staging-base moves, reads past the row and LZ-window edges a decoder must
+get exactly right.
 
-The CPU tests (``tests/test_torch_tokenize.py``) hold K4's plain version
-against interpret-mode Pallas on these sets, and ``chip_smoke.py`` holds
-the CUDA kernel against the plain version on the same sets.  Every set is
-one batch of B = 2 rows of W = 12288 words (the tests' one interpret-mode
-shape): ``(comp uint32 [B, W], comp_len int32 [B], out_len int32 [B])``.
+The CPU tests hold the plain versions against interpret-mode Pallas on
+these sets (``tests/test_torch_tokenize.py`` K4's,
+``tests/test_torch_decode_crafted.py`` K3's), and ``chip_smoke.py`` holds
+the CUDA kernels against the plain versions on the same sets.
+
+K4's sets (``crafted_sets``) are each one batch of B = 2 rows of W = 12288
+words (the tests' one interpret-mode shape): ``(comp uint32 [B, W],
+comp_len int32 [B], out_len int32 [B])``.
 
 - stored blocks whose LEN passes the data, or jumps the cursor past the
   padded row (the next header lies past it);
@@ -22,9 +25,20 @@ shape): ``(comp uint32 [B, W], comp_len int32 [B], out_len int32 [B])``.
   zero padding up to the row's last word W_pad - 1, which holds set bits:
   reads past the row read that word again.
 
+K3's sets (``decode_sets``) are up to DEC_B = 4 streams each, with their
+out_lens and their unknown-size capacities, packed by ``pack_rows`` into
+4 rows of W words and decoded into 81920 bytes a row: matches of every
+distance 1-40 at lengths 3, 31, 32, 33 and 258; distance 32768 into the
+half flushed before; items across 32 KiB boundaries; stored blocks longer
+than the 16 KiB input ring and onto its segment edges; stored LEN past the
+data; output past out_bytes; failures in the middle of a window.  They are
+token lists encoded by ``blocks_stream``, whose dynamic blocks take the
+package-merge code lengths of their tokens.
+
 ``craft_dynamic_stream`` authors a dynamic block from explicit code
 lengths; it is this package's copy of the JAX tests' crafter
-(``tests/test_incomplete_codes.py``), byte for byte.
+(``tests/test_incomplete_codes.py``), byte for byte, through the bit
+writer that also joins ``blocks_stream``'s blocks.
 """
 
 from __future__ import annotations
@@ -35,9 +49,13 @@ from pathlib import Path
 
 import numpy as np
 
+from ..decompress.tables import LEN_BASE, LEN_EXTRA, OFF_BASE, OFF_EXTRA
 from .corpus import REPO
 
 B, W = 2, 12288
+# K3's sets: the words batch of tests/test_torch_decode.py, B = 4 rows of
+# W = 12288 words decoded into 81920 bytes a row
+DEC_B, DEC_OUT_BYTES = 4, 81920
 FILLER = b"\x03\x00"                     # an empty static final block
 PRECODE_PERM = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14,
                 1, 15)
@@ -151,13 +169,40 @@ def package_merge_lengths(freqs: np.ndarray, max_len: int) -> np.ndarray:
     return lens
 
 
-def craft_dynamic_stream(litlen_lens: dict[int, int],
-                         offset_lens: dict[int, int], body,
-                         bfinal: bool = True) -> bytes:
+class BitWriter:
+    """DEFLATE's LSB-first bit order: put(value, nbits) appends the low
+    nbits of value; align() pads with zeros to a byte boundary; whole bytes
+    move out of the accumulator as they fill."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.acc, self.n = 0, 0
+
+    def put(self, value, nbits):
+        self.acc |= int(value) << self.n
+        self.n += int(nbits)
+        if self.n >= 64:
+            k = self.n >> 3
+            self.out += (self.acc & ((1 << 8 * k) - 1)).to_bytes(k, "little")
+            self.acc >>= 8 * k
+            self.n -= 8 * k
+
+    def align(self):
+        self.n = -(-self.n // 8) * 8
+
+    def bytes(self) -> bytes:
+        return bytes(self.out) + self.acc.to_bytes((self.n + 7) // 8,
+                                                   "little")
+
+
+def put_dynamic_block(bw: BitWriter, litlen_lens: dict[int, int],
+                      offset_lens: dict[int, int], body,
+                      bfinal: bool = True) -> None:
     """One dynamic-Huffman block from explicit code lengths (symbol ->
-    length, all others 0: incomplete codes allowed).  body is a list of
-    ("lit", sym), ("match", len_sym, len_extra_bits, len_extra_val,
-    off_sym, off_extra_bits, off_extra_val) and ("eob",) items."""
+    length, all others 0: incomplete codes allowed), appended to bw.  body
+    is a list of ("lit", sym), ("match", len_sym, len_extra_bits,
+    len_extra_val, off_sym, off_extra_bits, off_extra_val) and ("eob",)
+    items."""
     num_litlen = max(257, max(litlen_lens) + 1 if litlen_lens else 0)
     num_offset = max(1, max(offset_lens) + 1 if offset_lens else 0)
     ll = np.zeros(num_litlen, np.int64)
@@ -177,13 +222,7 @@ def craft_dynamic_stream(litlen_lens: dict[int, int],
     while num_explicit > 4 and pre_lens[PRECODE_PERM[num_explicit - 1]] == 0:
         num_explicit -= 1
 
-    acc, nacc = 0, 0
-
-    def put(value, nbits):
-        nonlocal acc, nacc
-        acc |= int(value) << nacc
-        nacc += int(nbits)
-
+    put = bw.put
     put(int(bfinal), 1)
     put(2, 2)                              # BTYPE: dynamic
     put(num_litlen - 257, 5)
@@ -205,7 +244,16 @@ def craft_dynamic_stream(litlen_lens: dict[int, int],
             put(lxv, lxb)
             put(of_codes[os_], of[os_])
             put(oxv, oxb)
-    return acc.to_bytes((nacc + 7) // 8, "little")
+
+
+def craft_dynamic_stream(litlen_lens: dict[int, int],
+                         offset_lens: dict[int, int], body,
+                         bfinal: bool = True) -> bytes:
+    """One dynamic-Huffman block (``put_dynamic_block``) as a stream of
+    its own, zero-padded to a byte."""
+    bw = BitWriter()
+    put_dynamic_block(bw, litlen_lens, offset_lens, body, bfinal)
+    return bw.bytes()
 
 
 def deep_stream() -> bytes:
@@ -243,15 +291,15 @@ def run_on_stream(bits: int, n: int, bfinal: bool = True) -> bytes:
 
 # ---- the sets ------------------------------------------------------------
 
-def pack_rows(streams, out_lens, comp_lens=None, last_words=None):
-    """(comp, comp_len, out_len) of one B x W batch: each stream in its
+def pack_rows(streams, out_lens, comp_lens=None, last_words=None, rows=B):
+    """(comp, comp_len, out_len) of one rows x W batch: each stream in its
     row, zero-padded, FILLER rows after them.  comp_lens, if given,
     replaces the stream lengths; last_words, if given, is written to each
     row's last word (W_pad - 1, since W is a multiple of 1024)."""
-    streams = list(streams) + [FILLER] * (B - len(streams))
-    olen = np.asarray(list(out_lens) + [0] * (B - len(out_lens)), np.int32)
-    comp = np.zeros((B, W), np.uint32)
-    clen = np.zeros(B, np.int32)
+    streams = list(streams) + [FILLER] * (rows - len(streams))
+    olen = np.asarray(list(out_lens) + [0] * (rows - len(out_lens)), np.int32)
+    comp = np.zeros((rows, W), np.uint32)
+    clen = np.zeros(rows, np.int32)
     for k, s in enumerate(streams):
         comp[k, : -(-len(s) // 4)] = np.frombuffer(s + b"\0" * (-len(s) % 4),
                                                    np.uint32)
@@ -377,4 +425,249 @@ def crafted_sets(text: bytes) -> dict:
         "out_len one off": out_len_one_off(text),
         "bursts across staging moves": bursts_across_staging_moves(text),
         "run-on into the last word": run_on_into_the_last_word(),
+    }
+
+
+# ---- K3's sets: output through the LZ window ------------------------------
+#
+# Token lists: ("lit", byte), ("match", length, dist), ("sym", litlen
+# symbol without extra bits; 286 and 287 are invalid) and ("bad offset",
+# length), a match whose offset symbol is 30 (invalid).  Each set is
+# {name: (streams, out_lens for known-size mode, capacities for
+# unknown-size mode)}, at most DEC_B streams, every stream at most the
+# 40960 bytes a W = 12288 row allows.
+
+def put_token_block(bw: BitWriter, tokens, bfinal: bool = True) -> None:
+    """tokens, then the EOB, as one dynamic block whose code lengths are
+    the package-merge lengths (at most 15 bits) of the tokens' symbol
+    counts."""
+    body = []
+    ll_freq = np.zeros(288, np.int64)
+    of_freq = np.zeros(32, np.int64)
+    for tok in tokens:
+        if tok[0] in ("lit", "sym"):
+            body.append(("lit", tok[1]))
+            ll_freq[tok[1]] += 1
+            continue
+        li = int(np.searchsorted(LEN_BASE, tok[1], side="right")) - 1
+        if tok[0] == "match":
+            oi = int(np.searchsorted(OFF_BASE, tok[2], side="right")) - 1
+            oxb, oxv = int(OFF_EXTRA[oi]), tok[2] - int(OFF_BASE[oi])
+        else:
+            oi, oxb, oxv = 30, 0, 0
+        body.append(("match", 257 + li, int(LEN_EXTRA[li]),
+                     tok[1] - int(LEN_BASE[li]), oi, oxb, oxv))
+        ll_freq[257 + li] += 1
+        of_freq[oi] += 1
+    body.append(("eob",))
+    ll_freq[256] += 1
+    ll = package_merge_lengths(ll_freq, 15)
+    of = package_merge_lengths(of_freq, 15)
+    put_dynamic_block(bw, {int(k): int(v) for k, v in enumerate(ll) if v},
+                      {int(k): int(v) for k, v in enumerate(of) if v}, body,
+                      bfinal)
+
+
+def put_stored(bw: BitWriter, data: bytes, bfinal: bool = True,
+               length: int | None = None) -> None:
+    """A stored block of data whose LEN is length (default len(data))."""
+    ln = len(data) if length is None else length
+    bw.put(int(bfinal), 1)
+    bw.put(0, 2)
+    bw.align()
+    bw.put(ln, 16)
+    bw.put(ln ^ 0xFFFF, 16)
+    bw.put(int.from_bytes(data, "little"), 8 * len(data))
+
+
+def blocks_stream(*blocks) -> bytes:
+    """Blocks joined bit to bit, the last one final: ("tokens", tokens) or
+    ("stored", data[, length])."""
+    bw = BitWriter()
+    for i, blk in enumerate(blocks):
+        final = i == len(blocks) - 1
+        if blk[0] == "tokens":
+            put_token_block(bw, blk[1], final)
+        else:
+            put_stored(bw, blk[1], final, *blk[2:])
+    return bw.bytes()
+
+
+def tokens_out(tokens) -> int:
+    """The output bytes of valid tokens."""
+    return sum(1 if t[0] == "lit" else t[1] for t in tokens)
+
+
+def _lits(rng, n: int, alphabet: int = 256):
+    return [("lit", int(v)) for v in rng.integers(0, alphabet, n)]
+
+
+def _fill(op: int, target: int, dists):
+    """Matches (and at most two literals) that take the output from op to
+    exactly target, their distances cycling through dists (each <= op)."""
+    toks, k = [], 0
+    while op < target:
+        r = target - op
+        if r < 3:
+            toks += [("lit", 0x5A)] * r
+            break
+        n = min(258, r)
+        if 0 < r - n < 3:
+            n = r - 3
+        toks.append(("match", n, dists[k % len(dists)]))
+        k += 1
+        op += n
+    return toks
+
+
+def every_distance(seed: int = 31):
+    """Matches of every distance 1-40 at lengths 3, 31, 32, 33 and 258 (a
+    literal before each), from output byte 40 and from byte 20007."""
+    rng = np.random.default_rng(seed)
+    body = []
+    for d in range(1, 41):
+        for n in (3, 31, 32, 33, 258):
+            body += _lits(rng, 1) + [("match", n, d)]
+    a = _lits(rng, 40) + body
+    b = _lits(rng, 300) + _fill(300, 20007, (300, 299, 7, 123)) + body
+    return ([blocks_stream(("tokens", t)) for t in (a, b)],
+            [tokens_out(a), tokens_out(b)], [DEC_OUT_BYTES] * 2)
+
+
+def window_distance(seed: int = 32):
+    """Matches at distance 32768 (and 32767, 32000, 16385) whose sources
+    lie in the half flushed before: one at op = 32768 exactly (source byte
+    0), then on to ~70000 bytes; and from op = 40000 on past the ring's
+    wrap at 65536."""
+    rng = np.random.default_rng(seed)
+    streams, lens = [], []
+    for head, start, end in ((1000, 32768, 70000), (2000, 40000, 76000)):
+        toks = _lits(rng, head) + _fill(head, start, (head, head - 1))
+        op = start
+        dists = (32768, 32767, 32000, 16385)
+        k = 0
+        while op < end:
+            n = 258 if k % 3 else int(rng.integers(3, 259))
+            toks.append(("match", n, dists[k % len(dists)]))
+            op += n
+            if k % 5 == 0:
+                toks += _lits(rng, 2)
+                op += 2
+            k += 1
+        streams.append(blocks_stream(("tokens", toks)))
+        lens.append(tokens_out(toks))
+    return streams, lens, [DEC_OUT_BYTES] * 2
+
+
+def straddling_items(seed: int = 33):
+    """Items across the 32 KiB boundaries: the output brought to k bytes
+    short of 32768 (k = 1, 7, 8), then a 258-byte match, a 31-byte match
+    at distance 1 and the same short of 65536; and 70000 literals of a
+    two-letter alphabet, paired in the table, whose single and paired
+    literal items cross both boundaries."""
+    rng = np.random.default_rng(seed)
+    streams, lens = [], []
+    for k in (1, 7, 8):
+        toks = _lits(rng, 500) + _fill(500, 32768 - k, (500, 333))
+        toks += [("match", 258, 77)] + _lits(rng, 3) + [("match", 31, 1)]
+        toks += _fill(tokens_out(toks), 65536 - k, (32768, 4000))
+        toks += [("match", 258, 32768)] + _lits(rng, 5)
+        streams.append(blocks_stream(("tokens", toks)))
+        lens.append(tokens_out(toks))
+    toks = [("lit", 97 + int(v)) for v in rng.integers(0, 2, 70000)]
+    streams.append(blocks_stream(("tokens", toks)))
+    lens.append(70000)
+    return streams, lens, [DEC_OUT_BYTES] * 4
+
+
+def stored_longer_than_the_ring(seed: int = 34):
+    """Stored blocks longer than the 16 KiB input ring, whose copies cross
+    staging-base moves and 32 KiB output boundaries: 36000 bytes then
+    matches back into them; a Huffman block, 30000 stored bytes from an
+    odd bit, then matches; two stored blocks back to back (20000, 16385);
+    33000 bytes of matches, then 39000 stored bytes across 65536."""
+    rng = np.random.default_rng(seed)
+
+    def raw(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    back = [("match", 258, 32768), ("match", 200, 30001)] + _lits(rng, 3) \
+        + [("match", 40, 5)]
+    head = _lits(rng, 700) + _fill(700, 5001, (700, 3))
+    runs = _lits(rng, 64) + _fill(64, 33000, (64,))
+    blocks = [(("stored", raw(36000)), ("tokens", back)),
+              (("tokens", head), ("stored", raw(30000)), ("tokens", back)),
+              (("stored", raw(20000)), ("stored", raw(16385)),
+               ("tokens", back)),
+              (("tokens", runs), ("stored", raw(39000)))]
+    streams = [blocks_stream(*bl) for bl in blocks]
+    lens = [sum(len(b[1]) if b[0] == "stored" else tokens_out(b[1])
+                for b in bl) for bl in blocks]
+    return streams, lens, [DEC_OUT_BYTES] * 4
+
+
+def stored_to_ring_edges(text: bytes):
+    """Stored blocks that land the next (Z_FIXED) block's header one byte
+    before and at a 512-word ring segment edge (word 2560), at the ring's
+    wrap (word 4096) and one byte past word 4608."""
+    edges = (2560 * 32 - 8, 2560 * 32, 4096 * 32, 4608 * 32 + 8)
+    return ([_stored_then_fixed(e, text) for e in edges],
+            [(e - 40) // 8 + 3000 for e in edges], [DEC_OUT_BYTES] * 4)
+
+
+def stored_len_past_the_data(seed: int = 35):
+    """Stored LEN 5000 and 60000 over 100 data bytes, the copy reading the
+    zero padding until the staged window ends it; and LEN 60000 after
+    20000 bytes of a Huffman block, which fails in the middle of a
+    window."""
+    rng = np.random.default_rng(seed)
+    data = bytes(range(100))
+    toks = _lits(rng, 300) + _fill(300, 20000, (300, 17))
+    streams = [stored_block(5000, data), stored_block(60000, data),
+               blocks_stream(("tokens", toks), ("stored", data, 60000))]
+    return streams, [5000, 60000, 80000], [DEC_OUT_BYTES] * 3
+
+
+def past_out_bytes(seed: int = 36):
+    """Output past out_bytes (81920): 90000 and 81921 bytes with out_len
+    and capacity above it, and 90000 bytes against a capacity of 85000
+    (BAD_DATA when a match passes it)."""
+    rng = np.random.default_rng(seed)
+    streams, lens = [], []
+    for n in (90000, 81921, 90000):
+        toks = _lits(rng, 2000) + _fill(2000, n, (2000, 1999, 1000))
+        streams.append(blocks_stream(("tokens", toks)))
+        lens.append(n)
+    return streams, [90000, 81921, 85000], [100000, 100000, 85000]
+
+
+def failure_mid_window(seed: int = 37):
+    """A failure with the output in the middle of a window: a distance past
+    the output at 20000 bytes, the invalid litlen symbol 286 at 50000, the
+    invalid offset symbol 30 at 60001, and out_len 47000 under 90000
+    bytes of output."""
+    rng = np.random.default_rng(seed)
+    head = _lits(rng, 300)
+
+    def upto(n):
+        return head + _fill(300, n, (300, 211))
+    tails = ([("match", 10, 25000)] + _lits(rng, 5), [("sym", 286)],
+             [("bad offset", 10)], [])
+    ends = (20000, 50000, 60001, 90000)
+    streams = [blocks_stream(("tokens", upto(n) + t))
+               for n, t in zip(ends, tails)]
+    return streams, [80000, 80000, 80000, 47000], [DEC_OUT_BYTES] * 3 + [47000]
+
+
+def decode_sets(text: bytes) -> dict:
+    """Every K3 set: {name: (streams, out_lens, capacities)}."""
+    return {
+        "matches at distances 1-40": every_distance(),
+        "distance 32768 into the flushed half": window_distance(),
+        "items across 32 KiB boundaries": straddling_items(),
+        "stored blocks longer than the ring": stored_longer_than_the_ring(),
+        "stored jumps to ring edges": stored_to_ring_edges(text),
+        "stored LEN past the data": stored_len_past_the_data(),
+        "output past out_bytes": past_out_bytes(),
+        "failure in the middle of a window": failure_mid_window(),
     }
