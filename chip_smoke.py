@@ -41,17 +41,24 @@ two paths through their entry points:
   shared-memory load latency, and K4's clock64() cycles per chunk in the
   table setups and the token loop.
 
-K2 is held against its plain version on random, main-path (the text,
-rand and runs parts of the corpus, B = 4, 2 and 1; chunks that turn
-from dense to sparse data inside them) and crafted inputs (every group
-on one start word, start words near the end, sparse start words, a run
-of 40 groups a word before sparse ones);
+K1 is held against its plain version on random inputs at the main path's
+shape, the main path's own, per-chunk lc tables at S = 256, 15 lanes (a
+ragged warp), one chunk, a segment of 8704 positions (64-bit keys) and
+the crafted sets of ``experiments/crafted_dp.py`` (ties, caps exceeded,
+fields past their packed bits, lengths past 258, all-literal chunks);
 the nodes of a CUDA graph captured around one wrapper call show that it
-runs its kernel and no other device op.  It times each kernel beside its plain version: K1, K3 and K4
+runs its kernel and no other device op. K2 is held against its plain
+version on random, main-path (the text, rand and runs parts of the
+corpus, B = 4, 2 and 1; chunks that turn from dense to sparse data
+inside them) and crafted inputs (every group on one start word, start
+words near the end, sparse start words, a run of 40 groups a word before
+sparse ones); the nodes of a CUDA graph captured around one wrapper call
+show that it runs its kernel and no other device op. It times each
+kernel beside its plain version: K1 (also as its bare launch), K3 and K4
 by CUDA events around back-to-back calls, K2 and K5-K7 (a few
 microseconds each, less than their wrappers' host time) by replaying 200
 calls from a CUDA graph, K2 also as its bare launch and on the rand,
-runs and dense-then-sparse inputs beside index_add_.  Any failure raises
+runs and dense-then-sparse inputs beside index_add_. Any failure raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 at once.
 
@@ -77,8 +84,11 @@ CORPUS_MB = 16
 PART_CHUNKS = (0, 4, 8, 12, 15)  # one chunk of each corpus part
 DAMAGED_CHUNK = 1 << 16
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
-H100_FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, NVIDIA data sheet
-DP_OPS_PER_RUNG = 16             # int32 compares/selects/adds per rung, dp_parse.cu
+# integer adds and mins: 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper
+# architecture white paper)
+H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# what a feasible DP rung needs: cd + lc[f] + D[t+f] (two adds) and one min
+DP_OPS_PER_RUNG = 3
 LOOP_TILE_COUNTS = (1, 7, 133, 256, 1000)  # K6 checks; 256 is its main shape
 COPY_SIZES = (1, 3, 4097, 16385, 1 << 20)  # K7 checks beside its 128 x 128 tile
 
@@ -99,32 +109,6 @@ def require_equal(name: str, got, want) -> int:
                                  f"version ({diff} elements differ)")
     return max(int((g - w).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
-
-
-def dp_random_inputs(dev, B=4, n_pad=CHUNK, seed=0):
-    """The generator of the JAX package's DP kernel test
-    (tests/test_pallas_kernels.py::test_dp_kernel_matches_xla) at the
-    main path's 4 x 1 MiB shape."""
-    from libdeflate_tpu_torch.compress import optimal as po
-    rng = np.random.default_rng(seed)
-    cost_lit = rng.integers(16, 180, (B, n_pad))
-    lenA = rng.integers(0, 259, (B, n_pad))
-    dA = rng.integers(1, 32769, (B, n_pad))
-    lenB = np.minimum(rng.integers(0, 259, (B, n_pad)), lenA)
-    dB = rng.integers(1, 32769, (B, n_pad))
-    d3 = np.where(rng.random((B, n_pad)) < 0.5,
-                  rng.integers(1, 8193, (B, n_pad)), 0)
-    lenC = np.minimum(rng.integers(0, 259, (B, n_pad)), lenA)
-    dC = rng.integers(1, 32769, (B, n_pad))
-
-    def t(a):
-        return torch.as_tensor(a, device=dev)
-
-    lA, lB, lC = t(lenA), t(lenB), t(lenC)
-    dAt, dBt, dCt, d3t = t(dA), t(dB), t(dC), t(d3)
-    return (t(cost_lit), lA, dAt, po.dist_cost(dAt), lB, dBt,
-            po.dist_cost(dBt), lC, dCt, po.dist_cost(dCt), d3t,
-            po.dist_cost(d3t), t(po.SEED_LC_LEN))
 
 
 def main_path_kernel_inputs(bufs, lengths):
@@ -335,6 +319,7 @@ def main() -> int:
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.experiments import crafted_dp as cdp
     from libdeflate_tpu_torch.experiments import crafted_streams as cs
     from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
     from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
@@ -351,7 +336,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(logs) or 'up to date'})", flush=True)
     for name, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
         print(f"  {name}: {'; '.join(regs)}", flush=True)
 
     corpus = make_corpus(CORPUS_MB << 20, root)
@@ -364,23 +350,37 @@ def main() -> int:
     bfinal = torch.ones(BATCH, dtype=torch.bool, device=dev)
 
     # ---- K1: the DP kernel against its plain version -------------------
-    rand_dp = dp_random_inputs(dev)
+    rand_dp = cdp.random_inputs(dev)
     err_dp = require_equal("dp_parse (random)",
                            pk.dp_parse(*rand_dp, po.DP_SEG),
                            pk.dp_parse_plain(*rand_dp, po.DP_SEG))
     # the JAX test's own shape (S=256, B=2): one block spans both chunks,
     # each with its own lc table
-    small = dp_random_inputs(dev, B=2, n_pad=512)
+    small = cdp.random_inputs(dev, B=2, n_pad=512)
     lc2 = torch.stack([small[-1], torch.clamp(small[-1] - 40, min=1)])
-    err_dp = max(err_dp, require_equal(
-        "dp_parse (S=256, per-chunk lc)", pk.dp_parse(*small[:-1], lc2, 256),
-        pk.dp_parse_plain(*small[:-1], lc2, 256)))
+    dp_sets = {"S=256, per-chunk lc": (small[:-1] + (lc2,), 256)}
+    # 15 lanes (a ragged warp and block), one chunk, and a segment long
+    # enough for 64-bit keys (a lean chunk of 8704 bytes has S = n_pad)
+    dp_sets["B=3, n_pad=1280, S=256"] = (
+        cdp.random_inputs(dev, B=3, n_pad=1280, seed=4), 256)
+    dp_sets["B=1, S=1024"] = (cdp.random_inputs(dev, B=1, seed=5), 1024)
+    dp_sets["B=2, S=8704"] = (cdp.random_inputs(dev, B=2, n_pad=8704, seed=6),
+                              8704)
+    # the CPU tests' crafted sets (experiments/crafted_dp.py)
+    for name, (arrays, lc) in cdp.dp_sets().items():
+        dp_sets[f"crafted: {name}"] = (
+            tuple(torch.as_tensor(a, device=dev) for a in arrays)
+            + (torch.as_tensor(lc, device=dev),), cdp.DP_S)
+    for name, (args, S) in dp_sets.items():
+        err_dp = max(err_dp, require_equal(
+            f"dp_parse ({name})", pk.dp_parse(*args, S),
+            pk.dp_parse_plain(*args, S)))
     bp0, real_dp, real_pack = main_path_kernel_inputs(batches[0], lengths)
     err_dp = max(err_dp, require_equal(
         "dp_parse (main path)", pk.dp_parse(*real_dp, po.DP_SEG),
         pk.dp_parse_plain(*real_dp, po.DP_SEG)))
-    print("K1 dp_parse: equal to its plain version (random, main path)",
-          flush=True)
+    print(f"K1 dp_parse: equal to its plain version (random, main path, "
+          f"{', '.join(dp_sets)})", flush=True)
 
     # ---- K2: the pack kernel against its plain version -----------------
     # the main path's inputs of the rand and runs parts of the corpus
@@ -442,6 +442,14 @@ def main() -> int:
           flush=True)
     if ops != ["kernel"] or pk.pack_groups.launches - before != 2:
         raise AssertionError("pack_groups: one call's graph is not its one "
+                             "kernel launch and nothing else")
+    # and the DP's wrapper likewise
+    before = pk.dp_parse.launches
+    ops = graph_node_types(lambda: pk.dp_parse(*real_dp, po.DP_SEG))
+    print(f"K1 wrapper, device ops of one call (CUDA graph nodes): "
+          f"{json.dumps(ops)}", flush=True)
+    if ops != ["kernel"] or pk.dp_parse.launches - before != 2:
+        raise AssertionError("dp_parse: one call's graph is not its one "
                              "kernel launch and nothing else")
 
     # ---- literal cost tables: CUDA against the CPU --------------------
@@ -752,7 +760,12 @@ def main() -> int:
                              if t + f <= po.DP_SEG)
                          for t in range(po.DP_SEG))
     dp_ops = feasible_rungs * lanes * DP_OPS_PER_RUNG
-    dp_bytes = BATCH * CHUNK * (5 * 4 + 4) + BATCH * 259 * 4
+    # the int64 interface: twelve inputs and lc read once, span and dist
+    # written once
+    dp_bytes = (sum(a.numel() * a.element_size() for a in real_dp)
+                + 2 * 8 * BATCH * CHUNK)
+    dp_span = torch.empty(BATCH, CHUNK, dtype=torch.int64, device=dev)
+    dp_dist = torch.empty_like(dp_span)
     sbuf, gw, nwords = real_pack
     # the int64 interface: sbuf and gw read once, the output written once
     pack_bytes = 8 * (sbuf.numel() + gw.numel() + BATCH * nwords)
@@ -771,12 +784,14 @@ def main() -> int:
          "source": "libdeflate_tpu_torch/csrc/dp_parse.cu",
          "replaces": "libdeflate_tpu/compress/pallas_kernels.py:199",
          "launches": launches["dp_parse"], "max_abs_err": err_dp,
-         "ms": cuda_ms(lambda: pk.dp_parse(*real_dp, po.DP_SEG), 5),
+         "ms": cuda_ms(lambda: pk.dp_parse(*real_dp, po.DP_SEG), 20),
+         "kernel_ms": cuda_ms(lambda: pk.dp_parse_into(
+             real_dp[:12], real_dp[12], po.DP_SEG, dp_span, dp_dist), 20),
          "plain_ms": cuda_ms(lambda: pk.dp_parse_plain(*real_dp, po.DP_SEG),
                              1),
          "bound_ms": 1e3 * max(dp_bytes / H100_BYTES_PER_S,
-                               dp_ops / H100_FP32_OPS_PER_S),
-         "bound_by": ("operations" if dp_ops / H100_FP32_OPS_PER_S
+                               dp_ops / H100_INT32_OPS_PER_S),
+         "bound_by": ("operations" if dp_ops / H100_INT32_OPS_PER_S
                       > dp_bytes / H100_BYTES_PER_S else "bytes"),
          "library_ms": None},
         {"name": "pack_groups", "route": "cuda",
@@ -792,7 +807,7 @@ def main() -> int:
          "library_ms": graph_ms(index_add_call(*real_pack), 200)},
         {"name": "decode_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
-         "replaces": "libdeflate_tpu/decompress/pallas_decode.py:941",
+         "replaces": "libdeflate_tpu/decompress/pallas_decode.py:943",
          "launches": dec_launches, "max_abs_err": err_dec,
          "ms": cuda_ms(lambda: dd.decompress_chunks_words(
              z_words, z_clen_d, full, CHUNK), 3),

@@ -59,6 +59,17 @@ def sources(name: str) -> list[Path]:
                     re.findall(r'#include "([^"]+)"', src.read_text())]
 
 
+def compile_async(nvcc: str, src: Path, out: Path) -> subprocess.Popen:
+    """Start ``nvcc`` on one source for ``sm_90a`` into the shared
+    library ``out``; its output (``-Xptxas -v``) is the process's
+    stdout."""
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
+           str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names=KERNEL_SOURCES) -> dict[str, str]:
     """Compile every stale source, one ``nvcc`` each, all started
     together.  Returns the compiler's output (``-Xptxas -v``) per built
@@ -73,12 +84,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
                     d.stat().st_mtime for d in deps):
                 continue
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(deps[0])]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, so)
+            procs[name] = (compile_async(nvcc, deps[0], tmp), tmp, so)
         logs = {}
         for name, (proc, tmp, so) in procs.items():
             out, _ = proc.communicate()

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .bits import from_i32, to_i32
+from .bits import M32
 from .pipeline import MAX_LEN, group_place
 
 # every length 3..66, then half-band steps (tpu_optimal.LEN_LADDER_DENSE2);
@@ -40,22 +40,41 @@ def reset_launch_counts() -> None:
     pack_groups.launches = 0
 
 
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """x as int32 values (wrapped mod 2**32, as ``astype(int32)``), held
+    in int64."""
+    return ((x.to(torch.int64) + (1 << 31)) & M32) - (1 << 31)
+
+
 def _caps(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
           lc_len, B):
-    """The input caps of the kernel's packed layout
-    (``pallas_kernels.py:225-239``): literal cost <= 0xFF, offset costs
-    <= 0x3FF, lc <= 2**20, 14-bit d3 and 18-bit distances."""
-    i64 = torch.int64
+    """The kernel's fields, as ``dp_parse_pallas`` packs them into five
+    int32 words (``pallas_kernels.py:225-239``) and ``_dp_kernel`` reads
+    them back (``:128-139``): literal cost capped at 0xFF, offset costs
+    at 0x3FF, lc at 2**20, and nothing masked before packing, so a field
+    that overflows its bits spills into its neighbour (a distance of
+    2**18 or more into its length, a d3 of 2**14 or more into the literal
+    cost and the C offset cost).  Lengths come back as the words' signed
+    top 14 bits."""
     c = torch.clamp
-    lc = c(lc_len.to(i64), max=1 << 20)
+    lc = c(_i32(lc_len), max=1 << 20)
     if lc.dim() == 1:
         lc = lc.expand(B, _LC_ENTRIES)
+    cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3 = map(
+        _i32, (cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3,
+               cd3))
+    wl = _i32((c(cdC, max=0x3FF) << 22) | (c(cost_lit, max=0xFF) << 14)
+              | d3)
+    wa, wb, wd = (_i32((ln << 18) | d) for ln, d in
+                  ((lenA, dA), (lenB, dB), (lenC, dC)))
+    wc = _i32((c(cdA, max=0x3FF) << 20) | (c(cdB, max=0x3FF) << 10)
+              | c(cd3, max=0x3FF))
     return dict(
-        clit=c(cost_lit.to(i64), max=0xFF),
-        lA=lenA.to(i64), dA=dA.to(i64) & 0x3FFFF, cA=c(cdA.to(i64), max=0x3FF),
-        lB=lenB.to(i64), dB=dB.to(i64) & 0x3FFFF, cB=c(cdB.to(i64), max=0x3FF),
-        lC=lenC.to(i64), dC=dC.to(i64) & 0x3FFFF, cC=c(cdC.to(i64), max=0x3FF),
-        d3=d3.to(i64) & 0x3FFF, c3=c(cd3.to(i64), max=0x3FF), lc=lc)
+        clit=(wl >> 14) & 0xFF, d3=wl & 0x3FFF,
+        cC=((wl & M32) >> 22) & 0x3FF,
+        lA=wa >> 18, dA=wa & 0x3FFFF, lB=wb >> 18, dB=wb & 0x3FFFF,
+        lC=wd >> 18, dC=wd & 0x3FFFF,
+        cA=(wc >> 20) & 0x3FF, cB=(wc >> 10) & 0x3FF, c3=wc & 0x3FF, lc=lc)
 
 
 def _split_choice(choice: torch.Tensor):
@@ -148,12 +167,31 @@ def _require_cuda(tensors, what: str) -> None:
                          f"got {sorted(map(str, devs))}")
 
 
+def dp_parse_into(arrs, lc_len, S: int, span: torch.Tensor,
+                  dist: torch.Tensor) -> None:
+    """The bare launch of the DP kernel on CUDA tensors: the twelve
+    [B, n_pad] contiguous int64 arrays ``arrs``, lc_len contiguous int32
+    or int64 [259] or [B, 259] (non-negative), span and dist int64
+    [B, n_pad], every element written.  Counts nothing: ``dp_parse`` is
+    the wrapper."""
+    B, n_pad = arrs[0].shape
+    P, I = _build.PTR, _build.INT
+    fn = _build.kernel("dp_parse", "dp_parse_launch",
+                       [P] * 13 + [I, I, P, P, I, I, I, P])
+    _check(fn(*map(_ptr, arrs), _ptr(lc_len),
+              int(lc_len.dtype == torch.int64),
+              1 if lc_len.dim() == 1 else B, _ptr(span), _ptr(dist), S,
+              B * (n_pad // S), n_pad // S, _stream()), "dp_parse")
+
+
 def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
              lc_len, S: int):
     """Backwards min-cost DP (``dp_parse_pallas``): [B, n_pad] candidate
     and cost arrays plus the [259] or [B, 259] per-length match costs ->
-    (span, dist) int64 [B, n_pad].  CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    (span, dist) int64 [B, n_pad].  CUDA kernel for CUDA tensors
+    (contiguous int64 arrays, an int32 or int64 lc_len of non-negative
+    costs, read as they are: the wrapper allocates the outputs and
+    launches, nothing else), the plain version for CPU tensors."""
     arrs = (cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3)
     B, n_pad = cost_lit.shape
     if any(a.shape != (B, n_pad) for a in arrs) or n_pad % S:
@@ -162,27 +200,20 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
     if cost_lit.device.type == "cpu":
         return dp_parse_plain(*arrs, lc_len, S)
     _require_cuda(arrs + (lc_len,), "dp_parse")
-    lpc = n_pad // S
-    lanes = B * lpc
-    x = _caps(*arrs, lc_len, B)
-
-    def rows(v):                                    # [S, lanes] position-major
-        return to_i32(v.reshape(lanes, S).T.contiguous())
-
-    wl = rows((x["cC"] << 22) | (x["clit"] << 14) | x["d3"])
-    wa = rows((x["lA"] << 18) | x["dA"])
-    wb = rows((x["lB"] << 18) | x["dB"])
-    wd = rows((x["lC"] << 18) | x["dC"])
-    wc = rows((x["cA"] << 20) | (x["cB"] << 10) | x["c3"])
-    lc = x["lc"].to(torch.int32).contiguous()
-    out = torch.empty(S, lanes, dtype=torch.int32, device=cost_lit.device)
-    lc_rows = min(B, 31 // lpc + 2)
-    fn = _build.kernel("dp_parse", "dp_parse_launch",
-                       [_build.PTR] * 7 + [_build.INT] * 4 + [_build.PTR])
-    _check(fn(_ptr(wl), _ptr(wa), _ptr(wb), _ptr(wc), _ptr(wd), _ptr(lc),
-              _ptr(out), S, lanes, lpc, lc_rows, _stream()), "dp_parse")
-    dp_parse.launches += 1
-    return _split_choice(from_i32(out).T.reshape(B, n_pad))
+    if any(a.dtype != torch.int64 or not a.is_contiguous() for a in arrs):
+        raise ValueError("dp_parse: the [B, n_pad] arrays must be contiguous "
+                         "int64 on CUDA")
+    if lc_len.dtype not in (torch.int32, torch.int64) \
+            or not lc_len.is_contiguous() \
+            or lc_len.shape not in ((_LC_ENTRIES,), (B, _LC_ENTRIES)):
+        raise ValueError("dp_parse: lc_len must be a contiguous int32 or "
+                         "int64 [259] or [B, 259] table on CUDA")
+    span = torch.empty(B, n_pad, dtype=torch.int64, device=cost_lit.device)
+    dist = torch.empty_like(span)
+    if span.numel():
+        dp_parse_into(arrs, lc_len, S, span, dist)
+        dp_parse.launches += 1
+    return span, dist
 
 
 def pack_groups_into(sbuf: torch.Tensor, gw: torch.Tensor,

@@ -3,7 +3,7 @@
 //
 // Replaces libdeflate_tpu/compress/pallas_kernels.py::dp_parse_pallas
 // (kernel body _dp_kernel).  Plain version: dp_parse_plain in
-// libdeflate_tpu_torch/compress/kernels.py, which also lays the inputs out.
+// libdeflate_tpu_torch/compress/kernels.py.
 //
 // What it computes, per lane (one S-position segment of one chunk), for
 // t = S-1 down to 0, with D[S] = 0:
@@ -12,39 +12,91 @@
 //                   cheapest offset cost among A/B/C with len >= f
 //                   (and d3 at f = 3) + lc[f] + D[t+f],
 //               the tail edge of length S-t when it lies in 3..258 )
-// and writes the winning edge as span<<16 | dist.  Only a strictly lower
-// cost replaces the best so far, in the order literal, rungs, tail.
+// and the winning edge's span and dist.  Only a strictly lower cost
+// replaces the best so far, in the order literal, rungs ascending, tail,
+// and among A, B, C, d3 in that order.  The fields are read as the
+// reference reads them: the twelve inputs are wrapped to int32, packed
+// into its five overlapping words (pallas_kernels.py:225-238) and
+// unpacked (:128-139), so a field past its bits spills into the next; the
+// output keeps the reference's (span << 16 | dist) word split at bit 16,
+// so a dist of 65536 or more spills into span.
 //
-// What bounds it on this card: neither bytes nor arithmetic.  The input is
-// 5 packed words (20 bytes) per position and the output 4 bytes, about
-// 100 MB for a 4 x 1 MiB batch, some 30 us of HBM time; each step of a lane
-// is ~80 dependent compare/select chains on data the step before wrote, so
-// the kernel is bound by the latency of one thread's serial recurrence.
+// What bounds it on this card: bytes, then the serial recurrence.  The
+// work the function needs is 2 adds and 1 min per feasible rung, 317 M
+// rungs for the main path's 4 x 1 MiB batch at S = 1024: 0.057 ms at
+// 132 SMs x 64 INT32 lanes x 1.98 GHz.  Reading the caller's twelve int64
+// inputs once and writing span and dist as int64 once is 470 MB, 0.140 ms
+// at 3.35 TB/s.  Within a lane each step needs the step before, 1024
+// times; only the literal edge reads D[t+1], every rung reads D[t+3] or
+// later.
 //
-// Design: one thread per lane, 32 lanes (one warp) per block, so the main
-// path's 4096 lanes give 128 blocks, about one per SM.  The inputs arrive
-// position-major, [S][lanes], so a warp reads 32 consecutive words at each
-// t (coalesced); the next step's words are loaded before this step's
-// arithmetic.  The cost window D[t..t+258] lives in shared memory as
-// [512][32] int32 rows indexed (t+f) & 511, as the TPU kernel's scratch:
-// each thread owns one column, so a warp touches 32 consecutive banks and
-// no thread reads another's column (no barriers in the loop).  64 KiB of
-// window plus the lc rows of the chunks the block covers is dynamic shared
-// memory, above the 48 KiB default, so the launch raises the limit.  The
-// ladder is computed from the rung index and the rung loop is unrolled,
-// so every rung length is a compile-time constant.  Known limit for a
-// later change: one warp per SM leaves the SM's latency hiding unused.
+// Design:
+// - G = kGroup = 8 threads of one warp run each lane, so a warp holds
+//   4 lanes and the main path's 4096 lanes fill ~8 warps an SM, in
+//   blocks of kWarps = 4 warps (experiments/dp_variants.py times G = 4
+//   and 16, and 2 and 8 warps a block, beside it).  Thread g
+//   takes rungs g, g+G, g+2G, ... with each rung's length and its
+//   (lc[f] << 9 | order << 2) in registers (a lane's chunk is fixed).
+// - A candidate is one integer key, cost << 9 | order << 2 | which:
+//   order 0 is the literal, 1-80 the rungs, 81 the tail; which is 0-2
+//   for A/B/C and 3 for d3.  The first minimum of the reference is the
+//   minimum key, so each rung costs one add of three terms and one min,
+//   and the group reduces its keys with __shfl_xor_sync.
+// - Key range.  After the caps the literal cost is at most 255, and the
+//   literal edge is always feasible, so D[t] <= 255 * (S - t) and the
+//   winner's key is at most (255 * S) << 9 < 2^30 for S <= 8192.  An
+//   infeasible edge adds 2^31 (a cost-window slot past the segment end)
+//   or 2^30 (no candidate reaches f), so it never wins, and no sum passes
+//   2^32: for S <= kKey32MaxS the key is 32 bits.  A longer segment (the
+//   port's small odd-sized chunks, S = n_pad) takes 64-bit keys with
+//   2^63 and 2^62.
+// - The cheapest offset cost as a function of f is a step function with
+//   its steps at the three lengths: each position's record holds the
+//   lengths sorted (clamped to 2..259) and the three step values, built
+//   once when the position is staged, so a rung costs three compares and
+//   selects.
+// - The cost window D[t..t+258] lives in shared memory as a 512-slot
+//   ring a lane, D << 9 so that it adds to a key as it is; slots 0-257
+//   are mirrored at 512-769, so a rung reads slot (t & 511) + f without
+//   a wrap.  Slots past the segment end hold 2^31.  One thread of the
+//   group writes D[t]; a __syncwarp() a step orders it before the reads
+//   two steps later.  No __syncthreads() in the loop: warps are
+//   independent.
+// - The step is pipelined: at step t the group forms the rung and tail
+//   minimum of position t-1 (it reads D[t+2] and later) beside step t's
+//   min(literal, rung minimum of t), so the chain carried from step to
+//   step is the literal's add and one min.
+// - One launch on the caller's tensors.  Each warp stages its lanes'
+//   positions in tiles of 2G positions a lane: the twelve int64 inputs
+//   are loaded (coalesced, one tile ahead, into registers), packed and
+//   unpacked as the reference does, and stored as 32-byte records in a
+//   two-tile ring in shared memory; the winners' orders go to shared
+//   memory too, and a tile's span and dist are written as int64, 16
+//   consecutive positions a half-warp, once the tile is done.
+// - Threads of a ragged last warp run every step (a shuffle needs every
+//   thread its mask names); their loads and stores are masked.
+// What still bounds it: the rung work (three compares and selects, an
+// add of three terms and a min a rung) issued on the SM's INT32 lanes:
+// on an H100 the same kernel with one rung a thread takes ~0.64 of its
+// time, and without its input loads ~0.95 (experiments/dp_variants.py).
+// The lc costs are taken as non-negative (they are bit counts).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWin = 512;
-constexpr int kLanesPerBlock = 32;
 constexpr int kRungs = 80;
 constexpr int kMaxLen = 258;
 constexpr int kLcEntries = 259;
-constexpr int kBig = 1 << 28;
+constexpr int kWin = 512;          // ring slots a lane (>= 259, power of 2)
+constexpr int kMirror = 258;       // slots 0..257 mirrored at 512..769
+constexpr int kShift = 9;          // key = cost << 9 | order << 2 | which
+constexpr int kTailOrder = kRungs + 1;
+constexpr int kInputs = 12;
+constexpr int kGroup = 8;          // threads a lane
+constexpr int kWarps = 4;          // warps a block
+constexpr int kPos = 2;            // positions a thread stages a tile
+constexpr int kKey32MaxS = 8192;   // longest segment for 32-bit keys
 
 // LEN_LADDER_DENSE2: every length 3..66, then 74..130 step 8, 146..258
 // step 16.
@@ -55,116 +107,278 @@ static_assert(rung(63) == 66 && rung(64) == 74 && rung(71) == 130 &&
                   rung(72) == 146 && rung(kRungs - 1) == 258,
               "ladder");
 
-struct Cand {
-  int lA, dA, lB, dB, lC, dC, cA, cB, cC, clit, d3, c3;
+template <int G>
+struct Shape {
+  static_assert(G == 4 || G == 8 || G == 16, "group size");
+  static constexpr int kLanes = 32 / G;          // lanes a warp
+  static constexpr int kPer = kRungs / G;        // rungs a thread
+  static constexpr int kTile = kPos * 32 / kLanes;  // positions a tile
+  static constexpr int kRecs = 2 * kTile;        // record ring, positions
+  static constexpr int kStride = 800 + G;        // ring row: >= 770 slots,
+                                                 // lanes G banks apart
 };
 
-__device__ __forceinline__ Cand unpack(int wl, int wa, int wb, int wc,
-                                       int wd) {
-  Cand c;
-  c.clit = (wl >> 14) & 0xFF;
-  c.d3 = wl & 0x3FFF;
-  c.cC = (int)((unsigned)wl >> 22) & 0x3FF;
-  c.lA = wa >> 18;
-  c.dA = wa & 0x3FFFF;
-  c.lB = wb >> 18;
-  c.dB = wb & 0x3FFFF;
-  c.lC = wd >> 18;
-  c.dC = wd & 0x3FFFF;
-  c.cA = (wc >> 20) & 0x3FF;
-  c.cB = (wc >> 10) & 0x3FF;
-  c.c3 = wc & 0x3FF;
-  return c;
-}
+struct Inputs {
+  const long long* a[kInputs];
+};
 
-// cheapest offset cost among A/B/C whose length reaches f (A first, then
-// B and C only when strictly cheaper)
-__device__ __forceinline__ void pick(const Cand& c, int f, int& cd,
-                                     int& dsel) {
-  cd = c.lA >= f ? c.cA : kBig;
-  dsel = c.dA;
-  if (c.lB >= f && c.cB < cd) { cd = c.cB; dsel = c.dB; }
-  if (c.lC >= f && c.cC < cd) { cd = c.cC; dsel = c.dC; }
-}
+// One position's fields: lengths sorted (9 bits each), the offset-cost
+// step values (keys cost << 9 | which), then clit | c3 << 8 | d3 << 18
+// and the three distances.
+struct Rec {
+  uint4 steps;
+  uint4 rest;
+};
 
-__global__ void __launch_bounds__(kLanesPerBlock)
-dp_parse_kernel(const int* __restrict__ wl, const int* __restrict__ wa,
-                const int* __restrict__ wb, const int* __restrict__ wc,
-                const int* __restrict__ wd, const int* __restrict__ lc,
-                int* __restrict__ out, int S, int lanes, int lanes_per_chunk,
-                int lc_rows) {
-  extern __shared__ int smem[];
-  int* D = smem;                                   // [kWin][kLanesPerBlock]
-  int* lcs = smem + kWin * kLanesPerBlock;         // [lc_rows][259]
-  const int tid = threadIdx.x;
-  const int lane0 = blockIdx.x * kLanesPerBlock;
-  const int lane = lane0 + tid;
-  const int c0 = lane0 / lanes_per_chunk;
-  const int c1 = min(lane0 + kLanesPerBlock, lanes) - 1;
-  const int nrows = min(c1 / lanes_per_chunk - c0 + 1, lc_rows);
-  for (int i = tid; i < nrows * kLcEntries; i += kLanesPerBlock)
-    lcs[i] = lc[c0 * kLcEntries + i];
-  for (int r = 0; r < kWin; ++r) D[r * kLanesPerBlock + tid] = 0;
-  __syncthreads();
-  if (lane >= lanes) return;
-  const int* lcr = lcs + (lane / lanes_per_chunk - c0) * kLcEntries;
+template <int G, typename Key>
+struct WarpSmem {
+  Rec rec[Shape<G>::kRecs][Shape<G>::kLanes];
+  Key ring[Shape<G>::kLanes][Shape<G>::kStride];
+  Key tail[Shape<G>::kLanes][kLcEntries + 1];
+  unsigned short won[Shape<G>::kLanes][Shape<G>::kRecs];
+};
 
-  size_t idx = (size_t)(S - 1) * lanes + lane;
-  int nwl = wl[idx], nwa = wa[idx], nwb = wb[idx], nwc = wc[idx],
-      nwd = wd[idx];
-  for (int t = S - 1; t >= 0; --t) {
-    const Cand c = unpack(nwl, nwa, nwb, nwc, nwd);
-    const size_t here = idx;
-    if (t > 0) {  // prefetch the next step's words
-      idx -= lanes;
-      nwl = wl[idx]; nwa = wa[idx]; nwb = wb[idx]; nwc = wc[idx];
-      nwd = wd[idx];
-    }
-    int best = c.clit + D[((t + 1) & (kWin - 1)) * kLanesPerBlock + tid];
-    int bspan = 1, bdist = 0;
+__device__ __forceinline__ Rec make_rec(const long long (&v)[kInputs]) {
+  const int cl = (int)v[0], lA = (int)v[1], dA = (int)v[2], cA = (int)v[3],
+            lB = (int)v[4], dB = (int)v[5], cB = (int)v[6], lC = (int)v[7],
+            dC = (int)v[8], cC = (int)v[9], d3 = (int)v[10], c3 = (int)v[11];
+  // the reference's five words (pallas_kernels.py:225-238) ...
+  const unsigned wl = ((unsigned)min(cC, 0x3FF) << 22) |
+                      ((unsigned)min(cl, 0xFF) << 14) | (unsigned)d3;
+  const unsigned wa = ((unsigned)lA << 18) | (unsigned)dA;
+  const unsigned wb = ((unsigned)lB << 18) | (unsigned)dB;
+  const unsigned wd = ((unsigned)lC << 18) | (unsigned)dC;
+  const unsigned wc = ((unsigned)min(cA, 0x3FF) << 20) |
+                      ((unsigned)min(cB, 0x3FF) << 10) |
+                      (unsigned)min(c3, 0x3FF);
+  // ... and its fields as _dp_kernel reads them (:128-139)
+  int len[3] = {(int)wa >> 18, (int)wb >> 18, (int)wd >> 18};
+  unsigned key[3] = {((wc >> 20) & 0x3FF) << kShift,
+                     (((wc >> 10) & 0x3FF) << kShift) | 1,
+                     ((wl >> 22) & 0x3FF) << kShift | 2};
 #pragma unroll
-    for (int i = 0; i < kRungs; ++i) {
-      const int f = rung(i);
-      if (t + f > S) break;  // rungs ascend: the rest reach past the end
-      int cd, dsel;
-      pick(c, f, cd, dsel);
-      if (f == 3 && c.d3 > 0 && c.c3 < cd) { cd = c.c3; dsel = c.d3; }
-      const int cand =
-          cd + lcr[f] + D[((t + f) & (kWin - 1)) * kLanesPerBlock + tid];
-      if (cand < best) { best = cand; bspan = f; bdist = dsel; }
-    }
-    // tail edge: one match of length exactly S - t to the segment end
-    const int f_tail = S - t;
-    if (f_tail >= 3 && f_tail <= kMaxLen) {
-      int cd, dsel;
-      pick(c, f_tail, cd, dsel);
-      const int cand = cd + lcr[f_tail];
-      if (cand < best) { best = cand; bspan = f_tail; bdist = dsel; }
-    }
-    D[(t & (kWin - 1)) * kLanesPerBlock + tid] = best;
-    out[here] = (bspan << 16) | bdist;
+  for (int i = 0; i < 3; ++i) len[i] = min(max(len[i], 2), kMaxLen + 1);
+  // sort by length; the payload keys go along
+#define DP_SWAP(i, j)                                          \
+  if (len[j] < len[i]) {                                       \
+    const int l = len[i]; len[i] = len[j]; len[j] = l;         \
+    const unsigned k = key[i]; key[i] = key[j]; key[j] = k;    \
   }
+  DP_SWAP(0, 1) DP_SWAP(1, 2) DP_SWAP(0, 1)
+#undef DP_SWAP
+  // for f <= len[0] all three reach f, then the two longest, then one
+  const unsigned v3 = key[2], v2 = min(key[1], v3), v1 = min(key[0], v2);
+  Rec r;
+  r.steps = make_uint4(len[0] | len[1] << 9 | len[2] << 18, v1, v2, v3);
+  r.rest = make_uint4(((wl >> 14) & 0xFF) | (wc & 0x3FF) << 8 |
+                          (wl & 0x3FFF) << 18,
+                      wa & 0x3FFFF, wb & 0x3FFFF, wd & 0x3FFFF);
+  return r;
+}
+
+// the cheapest offset cost (as a key) of the matches that reach f
+template <typename Key>
+__device__ __forceinline__ Key step_cost(const uint4& s, int f) {
+  constexpr Key kNone = Key(1) << (8 * sizeof(Key) - 2);
+  Key cd = f <= (int)(s.x >> 18) ? (Key)s.w : kNone;
+  cd = f <= (int)((s.x >> 9) & 511) ? (Key)s.z : cd;
+  return f <= (int)(s.x & 511) ? (Key)s.y : cd;
+}
+
+template <int G, typename Key>
+__global__ void __launch_bounds__(32 * kWarps)
+dp_parse_kernel(Inputs in, const void* __restrict__ lc, int lc_is64,
+                int lc_rows, long long* __restrict__ span,
+                long long* __restrict__ dist, int S, int lanes, int lpc) {
+  using Sh = Shape<G>;
+  constexpr Key kPastEnd = Key(1) << (8 * sizeof(Key) - 1);
+  constexpr int kTile = Sh::kTile, kRecMask = Sh::kRecs - 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
+  WarpSmem<G, Key>& sm =
+      reinterpret_cast<WarpSmem<G, Key>*>(smem_raw)[warp];
+  const int li = tid / G, g = tid % G;
+  const int lane0 = (blockIdx.x * kWarps + warp) * Sh::kLanes;
+  const int lane = lane0 + li;
+  const size_t row =
+      (size_t)(lc_rows == 1 || lane >= lanes ? 0 : lane / lpc) * kLcEntries;
+  auto lc_key = [&](int f) -> Key {  // lc capped at 2^20, as a key
+    const int v = lc_is64 ? (int)((const long long*)lc)[row + f]
+                          : ((const int*)lc)[row + f];
+    return (Key)(unsigned)min(v, 1 << 20) << kShift;
+  };
+
+  // this thread's rungs: g, g+G, ...
+  int fk[Sh::kPer];
+  Key pre[Sh::kPer];
+#pragma unroll
+  for (int k = 0; k < Sh::kPer; ++k) {
+    const int i = g + G * k;
+    fk[k] = rung(i);
+    pre[k] = lc_key(fk[k]) | (Key)((i + 1) << 2);
+  }
+  for (int f = g; f <= kMaxLen; f += G)
+    sm.tail[li][f] = f >= 3 ? lc_key(f) | (Key)(kTailOrder << 2) : Key(0);
+  // D[S] = 0; the slots of positions past S hold kPastEnd
+  for (int s = g; s < kWin; s += G) {
+    const Key v = s == (S & (kWin - 1)) ? Key(0) : kPastEnd;
+    sm.ring[li][s] = v;
+    if (s < kMirror) sm.ring[li][s + kWin] = v;
+  }
+
+  // staging: element e = tid + 32 r is position (e % kTile) of a tile of
+  // lane lane0 + e / kTile
+  long long raw[kPos][kInputs];
+  auto load_tile = [&](int j) {
+#pragma unroll
+    for (int r = 0; r < kPos; ++r) {
+      const int e = tid + 32 * r, l = lane0 + e / kTile;
+      const int pos = j * kTile + e % kTile;
+      const bool ok = l < lanes && pos < S;
+      const size_t at = ok ? (size_t)l * S + pos : 0;
+#pragma unroll
+      for (int a = 0; a < kInputs; ++a)
+        raw[r][a] = ok ? __ldg(in.a[a] + at) : 0;
+    }
+  };
+  auto store_tile = [&](int j) {
+#pragma unroll
+    for (int r = 0; r < kPos; ++r) {
+      const int e = tid + 32 * r;
+      sm.rec[(j * kTile + e % kTile) & kRecMask][e / kTile] = make_rec(raw[r]);
+    }
+  };
+  auto write_tile = [&](int j) {
+#pragma unroll
+    for (int r = 0; r < kPos; ++r) {
+      const int e = tid + 32 * r, l = lane0 + e / kTile;
+      const int pos = j * kTile + e % kTile;
+      if (l >= lanes || pos >= S) continue;
+      const int slot = pos & kRecMask;
+      const unsigned w = sm.won[e / kTile][slot];
+      const uint4 rest = sm.rec[slot][e / kTile].rest;
+      const int order = w >> 2, which = w & 3;
+      unsigned sp, ds;
+      if (order == 0) {
+        sp = 1;
+        ds = 0;
+      } else {
+        sp = order <= kRungs ? rung(order - 1) : S - pos;
+        ds = which == 0 ? rest.y
+                        : which == 1 ? rest.z
+                                     : which == 2 ? rest.w : rest.x >> 18;
+      }
+      const size_t at = (size_t)l * S + pos;
+      span[at] = sp | ds >> 16;  // the reference's word split at bit 16
+      dist[at] = ds & 0xFFFF;
+    }
+  };
+
+  // the minimum key over position p's rungs and tail edge, in every
+  // thread of the group
+  auto rung_min = [&](int p) -> Key {
+    const Rec& rp = sm.rec[p & kRecMask][li];
+    const uint4 s = rp.steps;
+    const unsigned lit3 = rp.rest.x;
+    const Key* D = &sm.ring[li][p & (kWin - 1)];
+    const Key e0 = pre[0] + D[fk[0]];
+    Key m = e0 + step_cost<Key>(s, fk[0]);
+#pragma unroll
+    for (int k = 1; k < Sh::kPer; ++k)
+      m = min(m, pre[k] + D[fk[k]] + step_cost<Key>(s, fk[k]));
+    // d3 at f = 3 (thread 0's first rung), after A/B/C in a tie
+    const Key k3 = g == 0 && (lit3 >> 18) != 0
+                       ? (Key)((((lit3 >> 8) & 0x3FF) << kShift) | 3)
+                       : Key(1) << (8 * sizeof(Key) - 2);
+    m = min(m, e0 + k3);
+    const int ft = S - p;
+    if (ft >= 3 && ft <= kMaxLen)
+      m = min(m, sm.tail[li][ft] + step_cost<Key>(s, ft));
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+      m = min(m, (Key)__shfl_xor_sync(0xffffffffu, m, o));
+    return m;
+  };
+
+  const int jtop = (S - 1) / kTile;
+  load_tile(jtop);
+  store_tile(jtop);
+  if (jtop > 0) load_tile(jtop - 1);
+  __syncwarp();
+  Key dnext = 0;             // D[t+1] << 9
+  Key rcur = rung_min(S - 1);
+  for (int j = jtop; j >= 0; --j) {
+    if (j < jtop) write_tile(j + 1);
+    __syncwarp();
+    if (j > 0) {
+      store_tile(j - 1);
+      if (j > 1) load_tile(j - 2);
+    }
+    __syncwarp();
+    for (int t = min(S - 1, j * kTile + kTile - 1); t >= j * kTile; --t) {
+      const Key rnext = t > 0 ? rung_min(t - 1) : Key(0);
+      const Key lit = (Key)(sm.rec[t & kRecMask][li].rest.x & 0xFF) << kShift;
+      const Key key = min(lit + dnext, rcur);
+      dnext = key & ~(Key)((1 << kShift) - 1);
+      if (g == 0) {
+        const int s = t & (kWin - 1);
+        sm.ring[li][s] = dnext;
+        if (s < kMirror) sm.ring[li][s + kWin] = dnext;
+        sm.won[li][t & kRecMask] = (unsigned short)(key & ((1 << kShift) - 1));
+      }
+      rcur = rnext;
+      __syncwarp();
+    }
+  }
+  write_tile(0);
+}
+
+template <int G, typename Key>
+int launch(const Inputs& in, const void* lc, int lc_is64, int lc_rows,
+           long long* span, long long* dist, int S, int lanes, int lpc,
+           cudaStream_t stream) {
+  // the shared-memory limit, raised at the first launch on each device
+  static unsigned long long raised = 0;  // a bit per device
+  const int smem = (int)(kWarps * sizeof(WarpSmem<G, Key>));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !(raised >> dev & 1)) {
+    err = cudaFuncSetAttribute(dp_parse_kernel<G, Key>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) raised |= 1ull << dev;
+  }
+  const int per_block = kWarps * Shape<G>::kLanes;
+  dp_parse_kernel<G, Key><<<(lanes + per_block - 1) / per_block,
+                            32 * kWarps, smem, stream>>>(
+      in, lc, lc_is64, lc_rows, span, dist, S, lanes, lpc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Inputs: five packed int32 words per position, position-major [S][lanes]
-// (the layout of pallas_kernels.dp_parse_pallas's wl/wa/wb/wc/wd), lc
-// int32 [chunks][259]; out int32 [S][lanes] = span<<16 | dist.  Returns the
-// CUDA error of the launch (0 on success).
-extern "C" int dp_parse_launch(const int* wl, const int* wa, const int* wb,
-                               const int* wc, const int* wd, const int* lc,
-                               int* out, int S, int lanes,
-                               int lanes_per_chunk, int lc_rows,
-                               void* stream) {
-  const size_t smem =
-      sizeof(int) * ((size_t)kWin * kLanesPerBlock + (size_t)lc_rows * kLcEntries);
-  cudaError_t err = cudaFuncSetAttribute(
-      dp_parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (lanes + kLanesPerBlock - 1) / kLanesPerBlock;
-  dp_parse_kernel<<<blocks, kLanesPerBlock, smem, (cudaStream_t)stream>>>(
-      wl, wa, wb, wc, wd, lc, out, S, lanes, lanes_per_chunk, lc_rows);
-  return (int)cudaGetLastError();
+// Inputs: the twelve [B, n_pad] int64 arrays of dp_parse, contiguous
+// (lane l's positions are l*S .. l*S + S-1), lc the [lc_rows][259] match
+// costs (int32, or int64 if lc_is64; lc_rows 1 or B) with lc >= 0; span
+// and dist int64 [B, n_pad], every element written.  Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int dp_parse_launch(
+    const long long* cost_lit, const long long* lenA, const long long* dA,
+    const long long* cdA, const long long* lenB, const long long* dB,
+    const long long* cdB, const long long* lenC, const long long* dC,
+    const long long* cdC, const long long* d3, const long long* cd3,
+    const void* lc, int lc_is64, int lc_rows, long long* span,
+    long long* dist, int S, int lanes, int lpc, void* stream) {
+  const Inputs in = {{cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC,
+                      d3, cd3}};
+  if (lanes <= 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return S <= kKey32MaxS
+             ? launch<kGroup, unsigned>(in, lc, lc_is64, lc_rows, span, dist,
+                                        S, lanes, lpc, st)
+             : launch<kGroup, unsigned long long>(in, lc, lc_is64, lc_rows,
+                                                  span, dist, S, lanes, lpc,
+                                                  st);
 }
