@@ -13,6 +13,16 @@ two paths through their entry points:
   1 MiB chunks, 4 chunks per call, through ``compress_chunks_lean``; every
   chunk round-trips through zlib, and one chunk's CUDA output equals the
   CPU output;
+- greedy tiers: the same corpus and batches through
+  ``compress_chunks_static``, ``compress_chunks_dynamic``,
+  ``compress_chunks_dynamic2`` and ``compress_chunks_dynamic3``: one pack
+  launch (K2) a call and no DP, every chunk inflates through zlib, every
+  chunk's total_bits equals the JAX package's (pinned in
+  ``experiments/greedy_total_bits.json`` by
+  ``tests/pin_greedy_total_bits.py``), CUDA equals the CPU on chunk 0
+  and a 40000-byte tail chunk, K2 equals its plain version on each
+  tier's own inputs (capw + 1 = 38, 46, 62) and K3 decodes the dyn1 and
+  static streams back; GB/s, ratio and stage ms per tier;
 - decode: the compress path's own streams, left on the card and padded
   there, and zlib level-6 streams of the same 16 chunks, each set decoded
   in one known-size ``decompress_chunks_words`` call of B = 16; the zlib
@@ -27,7 +37,8 @@ two paths through their entry points:
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
-  8 zlib-6 chunks, the tokenize-only ceiling (K4 per corpus class beside
+  8 zlib-6 chunks, dyn1 and dyn2 over the corpus, the tokenize-only
+  ceiling (K4 per corpus class beside
   K3's decode of the same streams) and the grid and loop probes (K5, K6).
   Before it, K4 is held against its plain version in all six
   configurations (the 16 zlib-6 chunks, Z_FIXED, the damaged and run-on
@@ -91,6 +102,7 @@ H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 DP_OPS_PER_RUNG = 3
 LOOP_TILE_COUNTS = (1, 7, 133, 256, 1000)  # K6 checks; 256 is its main shape
 COPY_SIZES = (1, 3, 4097, 16385, 1 << 20)  # K7 checks beside its 128 x 128 tile
+GREEDY_BITS = "libdeflate_tpu_torch/experiments/greedy_total_bits.json"
 
 
 def card_line() -> str:
@@ -306,6 +318,43 @@ def time_best(fn, passes: int = 3) -> float:
     return best
 
 
+def stage_ms(entry, batches, lengths, bfinal) -> dict[str, float]:
+    """ms per pass over ``batches`` of each stage of a compress entry,
+    from CUDA events recorded at its ``on_stage`` marks."""
+    out: dict[str, float] = {}
+    for b in batches:
+        marks = []
+
+        def on_stage(name, marks=marks):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        entry(b, lengths, bfinal, on_stage=on_stage)
+        torch.cuda.synchronize()
+        for (name, ev), (_, nxt) in zip(marks, marks[1:]):
+            out[name] = out.get(name, 0.0) + ev.elapsed_time(nxt)
+    return out
+
+
+def greedy_pack_inputs(tier: str, bufs, lengths):
+    """The pack kernel's (sbuf, gw, nwords) for one batch of a greedy
+    tier, built by the stage functions its entry calls."""
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    options, refine = pd.TIERS.get(tier, ({}, 0))
+    bp, pos, cm, cl, eff, dist = pp.parse_chunk(bufs, lengths, **options)
+    if tier == "static":
+        val, nb = pp.static_items(bp, cm, cl, eff, dist)
+        offs = pp.exclusive_bit_offsets(nb)[0] + 3
+        return (*pp.group_premerge(val, nb, offs, capw=pp.GROUP_CAPW),
+                pp.static_nwords(bufs.shape[1]))
+    (val, nb, offs), _ = pd.emit_dynamic_pre(bp, cm, cl, eff, dist, refine)
+    return (*pp.group_premerge(val, nb, offs, capw=pd.DYN_CAPW_DEEP
+                               if refine else pd.DYN_CAPW),
+            pd.dyn_nwords(bufs.shape[1]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -466,19 +515,7 @@ def main() -> int:
     torch.cuda.synchronize()
     best = time_best(lambda: [po.compress_chunks_lean(b, lengths, bfinal)
                               for b in batches])
-    stage_ms: dict[str, float] = {}
-    for b in batches:
-        marks = []
-
-        def on_stage(name, marks=marks):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
-
-        po.compress_chunks_lean(b, lengths, bfinal, on_stage=on_stage)
-        torch.cuda.synchronize()
-        for (name, ev), (_, nxt) in zip(marks, marks[1:]):
-            stage_ms[name] = stage_ms.get(name, 0.0) + ev.elapsed_time(nxt)
+    lean_stages = stage_ms(po.compress_chunks_lean, batches, lengths, bfinal)
     launches = {"dp_parse": pk.dp_parse.launches,
                 "pack_groups": pk.pack_groups.launches}
     for name, count in launches.items():
@@ -503,7 +540,7 @@ def main() -> int:
           flush=True)
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     print("stage ms per 16 MiB pass (CUDA events): "
-          + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}),
+          + json.dumps({k: round(v, 3) for k, v in lean_stages.items()}),
           flush=True)
 
     # ---- the CPU against the card on one chunk -------------------------
@@ -521,13 +558,100 @@ def main() -> int:
     print("CPU agreement: chunk 0 and a 40000-byte tail chunk give the same "
           "words on the CPU", flush=True)
 
-    # ---- K3: the decoder against its plain version ---------------------
+    # ---- the greedy/lazy tiers: static, dyn1, dyn2, dyn3 --------------
+    # every chunk through zlib and equal to the JAX package's total_bits
+    # (pinned by tests/pin_greedy_total_bits.py), one pack launch a call
+    # and no DP, CUDA equal to the CPU on chunk 0 and the tail chunk, K2
+    # equal to group_place on each tier's own inputs, and the dyn1 and
+    # static streams back through K3
+    pinned = json.loads((root / GREEDY_BITS).read_text())["total_bits"]
+    tiers = {"static": pp.compress_chunks_static,
+             "dyn1": pd.compress_chunks_dynamic,
+             "dyn2": pd.compress_chunks_dynamic2,
+             "dyn3": pd.compress_chunks_dynamic3}
     pad_w = 2 * dd.STAGE_W
+    full = torch.full((nchunks,), CHUNK, dtype=torch.int32, device=dev)
+    corpus_d = torch.as_tensor(chunks.copy(), device=dev)
+    greedy = {}
+    for name, entry in tiers.items():
+        pk.reset_launch_counts()
+        dd.reset_launch_counts()
+        outs_t = [entry(b, lengths, bfinal) for b in batches]
+        torch.cuda.synchronize()
+        t_launch = {"pack_groups": pk.pack_groups.launches,
+                    "dp_parse": pk.dp_parse.launches}
+        if t_launch != {"pack_groups": len(batches), "dp_parse": 0} \
+                or dd.decompress_chunks_words.launches:
+            raise AssertionError(f"{name}: launches {t_launch}, not one "
+                                 f"pack_groups a call and nothing else")
+        words_t = torch.cat([w for w, _ in outs_t])
+        bits_t = torch.cat([t for _, t in outs_t])
+        if bits_t.tolist() != pinned[name]:
+            raise AssertionError(f"{name}: total_bits {bits_t.tolist()} "
+                                 f"differ from the JAX package's "
+                                 f"{pinned[name]}")
+        w_cpu_all = words_t.cpu()
+        for k in range(nchunks):
+            stream = pp.device_stream_to_bytes(w_cpu_all[k], bits_t[k])
+            if zlib.decompress(stream, -15) != chunks[k].tobytes():
+                raise AssertionError(f"{name}: chunk {k} does not inflate "
+                                     f"to its input")
+        best_t = time_best(lambda: [entry(b, lengths, bfinal)
+                                    for b in batches])
+        stages = stage_ms(entry, batches, lengths, bfinal)
+        ratio = int(((bits_t + 7) // 8).sum()) / len(corpus)
+        for args in ((chunks[:1], np.array([CHUNK]), np.array([True])),
+                     tail):
+            require_equal(f"{name}: CPU vs CUDA stream",
+                          entry(*args, device="cpu"),
+                          [x.cpu() for x in entry(*args)])
+        greedy[name] = {"gb_s": len(corpus) / best_t / 1e9, "s": best_t,
+                        "ratio": ratio, "launches": t_launch,
+                        "stage_ms": stages, "words": words_t,
+                        "total_bits": bits_t}
+        print(f"{name}: {len(corpus) / best_t / 1e9:.6f} GB/s (best of 3 "
+              f"passes over {len(corpus)} bytes, {best_t:.6f} s), ratio "
+              f"{ratio:.6f}; all 16 total_bits equal the JAX package's, "
+              f"every chunk inflates through zlib, CUDA equals CPU on "
+              f"chunk 0 and the tail chunk; launches {json.dumps(t_launch)} "
+              f"for {len(batches)} calls; stage ms per 16 MiB pass (CUDA "
+              f"events) "
+              f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
+              f"{card}", flush=True)
+    # K2 on each tier's own inputs: the text batch and the rand + runs one
+    pack_tiers = {}
+    for name in tiers:
+        for bi in (0, len(batches) - 1):
+            args = greedy_pack_inputs(name, batches[bi], lengths)
+            err_pack = max(err_pack, require_equal(
+                f"pack_groups ({name}, batch {bi})",
+                [pk.pack_groups(*args)], [pp.group_place(*args)]))
+            if bi == 0:
+                pack_tiers[name] = args
+        sbuf_t, gw_t, nw_t = pack_tiers[name]
+        print(f"K2 pack_groups ({name}, sbuf {list(sbuf_t.shape)}, up to "
+              f"{max_shared_start(args[1])} groups on one start word in the "
+              f"rand + runs batch): equal to the plain version on the text "
+              f"and the rand + runs batches", flush=True)
+    # K3 decodes the dyn1 and static streams back to the corpus
+    for name in ("dyn1", "static"):
+        w = greedy[name]["words"]
+        w = torch.cat([w, torch.zeros(nchunks, pad_w, dtype=w.dtype,
+                                      device=dev)], 1)
+        clen = ((greedy[name]["total_bits"] + 7) // 8).to(torch.int32)
+        out, st, ol, cons = dd.decompress_chunks_words(w, clen, full, CHUNK)
+        if not (bool((st == 0).all()) and bool((ol == CHUNK).all())
+                and bool((cons == clen).all()) and torch.equal(out, corpus_d)):
+            raise AssertionError(f"K3 does not decode the {name} streams "
+                                 f"back to the corpus")
+    print("K3 decode_chunks: the 16 dyn1 and the 16 static streams decode to "
+          "the corpus, status 0", flush=True)
+
+    # ---- K3: the decoder against its plain version ---------------------
     zstreams = [zlib6(chunks[i].tobytes()) for i in range(nchunks)]
     z_comp, z_clen = dd.pack_streams(zstreams, pad_w)
     z_words = torch.as_tensor(z_comp.view(np.int32), device=dev)
     z_clen_d = torch.as_tensor(z_clen, device=dev)
-    full = torch.full((nchunks,), CHUNK, dtype=torch.int32, device=dev)
     lean = [pp.device_stream_to_bytes(outs[i // BATCH][0][i % BATCH],
                                       outs[i // BATCH][1][i % BATCH])
             for i in PART_CHUNKS]
@@ -579,7 +703,6 @@ def main() -> int:
           flush=True)
 
     # ---- the decode main path, through the entry points ----------------
-    corpus_d = torch.as_tensor(chunks.copy(), device=dev)
     rt_words = torch.cat([o[0] for o in outs])
     rt_words = torch.cat([rt_words, torch.zeros(
         rt_words.shape[0], pad_w, dtype=torch.int32, device=dev)], 1)
@@ -732,7 +855,8 @@ def main() -> int:
     res = rd.main()
     if not rd.all_ok(res):
         raise AssertionError("measurement roundup: a result is wrong")
-    meas_launches = {"decode_chunks": dd.decompress_chunks_words.launches,
+    meas_launches = {"pack_groups": pk.pack_groups.launches,
+                     "decode_chunks": dd.decompress_chunks_words.launches,
                      "tokenize_chunks": tk.tokenize_chunks.launches,
                      "grid_add_one": lo.grid_add_one.launches,
                      "loop_add_one": lo.loop_add_one.launches,
@@ -741,9 +865,8 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"the measurement path never launched "
                                  f"{name}")
-    if pk.dp_parse.launches or pk.pack_groups.launches:
-        raise AssertionError("the measurement path launched a compress "
-                             "kernel")
+    if pk.dp_parse.launches:
+        raise AssertionError("the measurement path launched the DP kernel")
     print(f"measurement main path: every section right, "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     print(f"measurement main path launches: {json.dumps(meas_launches)}",
@@ -779,6 +902,18 @@ def main() -> int:
         times = {"wrapper_ms": graph_ms(lambda: pk.pack_groups(*args), 200),
                  "index_add_ms": graph_ms(index_add_call(*args), 200)}
         print(f"K2 ({name}, graph replay): {json.dumps(times)}", flush=True)
+    # K2 at the greedy tiers' widths (capw + 1 = 38, 46, 62), text batch
+    pack_tier_times = {}
+    for name, (sb, g, nw) in pack_tiers.items():
+        pack_tier_times[name] = {
+            "sbuf": list(sb.shape),
+            "launches": greedy[name]["launches"]["pack_groups"],
+            "ms": graph_ms(lambda: pk.pack_groups(sb, g, nw), 200),
+            "library_ms": graph_ms(index_add_call(sb, g, nw), 200),
+            "bound_ms": 1e3 * 8 * (sb.numel() + g.numel() + BATCH * nw)
+            / H100_BYTES_PER_S}
+        print(f"K2 ({name}, graph replay): "
+              f"{json.dumps(pack_tier_times[name])}; {card}", flush=True)
     kernels = [
         {"name": "dp_parse", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/dp_parse.cu",
@@ -804,7 +939,8 @@ def main() -> int:
          "plain_ms": graph_ms(lambda: pp.group_place(*real_pack), 200),
          "bound_ms": 1e3 * pack_bytes / H100_BYTES_PER_S,
          "bound_by": "bytes",
-         "library_ms": graph_ms(index_add_call(*real_pack), 200)},
+         "library_ms": graph_ms(index_add_call(*real_pack), 200),
+         "tiers": pack_tier_times},
         {"name": "decode_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
          "replaces": "libdeflate_tpu/decompress/pallas_decode.py:943",

@@ -12,17 +12,26 @@ JAX package.  Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``.
 """
 
-from .compress.optimal import compress_chunks_lean, from_numpy_batch
-from .compress.pipeline import device_stream_to_bytes
+from .compress.dynamic import (
+    compress_chunks_dynamic,
+    compress_chunks_dynamic2,
+    compress_chunks_dynamic3,
+)
+from .compress.optimal import compress_chunks_lean
+from .compress.pipeline import compress_chunks_static, device_stream_to_bytes
 from .decompress.decode import (
     decompress_chunks,
     decompress_chunks_host,
     decompress_chunks_words,
 )
-from .device import resolve_device
+from .device import from_numpy_batch, resolve_device
 
 __all__ = [
+    "compress_chunks_dynamic",
+    "compress_chunks_dynamic2",
+    "compress_chunks_dynamic3",
     "compress_chunks_lean",
+    "compress_chunks_static",
     "decompress_chunks",
     "decompress_chunks_host",
     "decompress_chunks_words",

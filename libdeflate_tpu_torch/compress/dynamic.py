@@ -1,28 +1,45 @@
-"""Dynamic-Huffman block emission for the lean path, on batched tensors.
+"""Dynamic-Huffman blocks and the dynamic compress tiers, on batched
+tensors.
 
-Counterpart of the emit subset of ``libdeflate_tpu/compress/tpu_dynamic.py``:
-the constants (lines 62-74), ``_rev_bits_np``, ``_static_packed_tables``
-and ``_header_consts`` (81-130), ``_build_code_lens`` and
-``_build_code_lens_pair`` (140-275, refine 0), ``_canonical_table``
-(277), the histogram ``_hist_matmul`` (303) and table translate
-``_tree_translate`` (325), ``_p19_fixed`` (403), ``_precode_rle_items``
-and ``_precode_rle_header`` (427-533), ``_dyn_nwords`` (688),
-``_emit_dynamic_pre`` (696) and ``_emit_dynamic_post`` (814).
+Counterpart of ``libdeflate_tpu/compress/tpu_dynamic.py`` without its
+multi-block emission: the constants (lines 62-74), ``_rev_bits_np``,
+``_static_packed_tables`` and ``_header_consts`` (81-130),
+``_build_code_lens`` and ``_build_code_lens_pair`` (140-275, with the
+refinement passes and 15-bit codes), ``_canonical_table`` (277), the
+histogram ``_hist_matmul`` (303) and table translate ``_tree_translate``
+(325), ``compress_chunk_dynamic`` and ``emit_dynamic_block`` (362-401),
+``_p19_fixed`` (403), ``_precode_rle_items`` and ``_precode_rle_header``
+(427-533), ``_dyn_nwords`` (688), ``_emit_dynamic_pre`` (696),
+``_emit_dynamic_post`` (814) and the entries
+``compress_chunks_dynamic{,2,3}`` (843-874) with their ``_pallas`` twins
+(880-932), which compute the same bits: in the port both are one path
+whose bit placement is the pack kernel on CUDA.
 
 The one-hot matmul histogram becomes ``torch.bincount``, the select-tree
 translate becomes indexing, and the duplicate-index ``.at[].add`` header
-and tail scatters become ``scatter_add_`` on int64 followed by a 32-bit
-mask.  The two sequential scans of the code-length build stay sequential
-loops over the symbols, batched over chunks.
+and tail scatters become ``scatter_add`` on int64 followed by a 32-bit
+mask.  The sequential scans of the code-length build stay sequential
+loops over the symbols and levels, batched over chunks.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
-from .bits import M32, bsr, length_slot, offset_slot, rev16
-from .pipeline import behind, exclusive_bit_offsets
+from ..device import from_numpy_batch
+from . import kernels
+from .bits import M32, bsr, length_slot, offset_slot, rev16, to_i32
+from .pipeline import (
+    add_bits,
+    behind,
+    commit_items,
+    exclusive_bit_offsets,
+    greedy_candidates,
+    group_premerge,
+)
 
 NSYM = 286
 NDIST = 30
@@ -31,6 +48,7 @@ DONT_CARE = NSYM_ALL
 MAX_CODE_LEN = 11
 MAX_CODE_LEN_DEEP = 15
 DYN_CAPW = (128 * MAX_CODE_LEN + 31) // 32 + 1        # 45
+DYN_CAPW_DEEP = (128 * MAX_CODE_LEN_DEEP + 31) // 32 + 1   # 61
 
 
 def _rev_bits_np(x: np.ndarray, nbits: np.ndarray) -> np.ndarray:
@@ -121,12 +139,12 @@ def batched_hist(sym: torch.Tensor, nclasses: int) -> torch.Tensor:
     return h.reshape(B, nclasses + 1)[:, :nclasses]
 
 
-def build_code_lens(hist: torch.Tensor):
-    """Kraft-exact length assignment, lengths <= 11, per row of hist
-    [R, nsym] (``_build_code_lens`` with refine 0).  Returns (lens
-    [R, nsym], ok [R])."""
+def build_code_lens(hist: torch.Tensor, refine_passes: int = 0,
+                    max_len: int = MAX_CODE_LEN):
+    """Kraft-exact length assignment, lengths <= max_len, per row of hist
+    [R, nsym] (``_build_code_lens``), then ``refine_passes`` budget-neutral
+    passes.  Returns (lens [R, nsym], ok [R])."""
     R, nsym = hist.shape
-    max_len = MAX_CODE_LEN
     dev = hist.device
     hist = hist.to(torch.int64)
     total = torch.clamp(hist.sum(1), min=1)
@@ -182,16 +200,34 @@ def build_code_lens(hist: torch.Tensor):
                         k + delta[:, None], k)
         r = torch.where(live, r - delta, r)
     lens = torch.where(k > 0, max_len - bsr(torch.clamp(k, min=1)), 0)
+
+    # budget-neutral refinement: at each level l = 2..max_len, shorten the
+    # most frequent symbol of length l and lengthen the least frequent of
+    # length l-1 when that saves bits; first index on ties (unique keys)
+    for _ in range(refine_passes):
+        for ln in range(2, max_len + 1):
+            at_l = used & (lens == ln)
+            at_lm1 = used & (lens == ln - 1)
+            a = torch.argmax(torch.where(at_l, hist, -1) * 512 + (511 - ar),
+                             dim=1, keepdim=True)
+            b = torch.argmin(torch.where(at_lm1, hist, 1 << 30) * 512 + ar,
+                             dim=1, keepdim=True)
+            good = (at_l.any(1, keepdim=True) & at_lm1.any(1, keepdim=True)
+                    & (hist.gather(1, a) > hist.gather(1, b)))
+            lens = (lens - (good & (ar == a)).long()
+                    + (good & (ar == b)).long())
     return lens, (r == 0) & (used.sum(1) >= 2)
 
 
-def build_code_lens_pair(hist_lit: torch.Tensor, hist_dist: torch.Tensor):
+def build_code_lens_pair(hist_lit: torch.Tensor, hist_dist: torch.Tensor,
+                         refine_passes: int = 0,
+                         max_len: int = MAX_CODE_LEN):
     """Both alphabets in one batched build (``_build_code_lens_pair``):
     the distance histogram is zero-padded to 286 symbols."""
     B = hist_lit.shape[0]
     h = torch.stack([hist_lit, torch.nn.functional.pad(
         hist_dist, (0, NSYM - NDIST))], 1).reshape(2 * B, NSYM)
-    lens, ok = build_code_lens(h)
+    lens, ok = build_code_lens(h, refine_passes, max_len)
     lens, ok = lens.reshape(B, 2, NSYM), ok.reshape(B, 2)
     return lens[:, 0], lens[:, 1, :NDIST], ok[:, 0], ok[:, 1]
 
@@ -277,18 +313,6 @@ def precode_rle_items(all_lens: torch.Tensor):
     return vals, bits, bits.sum(1)
 
 
-def _place_words(vals, offs, nwords: int) -> torch.Tensor:
-    """Add [B, k] items of < 32 bits at bit offsets offs into [B, nwords]
-    int64 words (32-bit masked); every word index must be < nwords."""
-    sb = offs & 31
-    w = offs >> 5
-    words = torch.zeros(vals.shape[0], nwords, dtype=torch.int64,
-                        device=vals.device)
-    words.scatter_add_(1, w, (vals << sb) & M32)
-    words.scatter_add_(1, w + 1, torch.where(sb > 0, vals >> (32 - sb), 0))
-    return words & M32
-
-
 def precode_rle_header(all_lens: torch.Tensor):
     """The RLE header items placed into words (``_precode_rle_header``).
     The buffer holds the longest possible header (339 items of <= 12
@@ -296,14 +320,17 @@ def precode_rle_header(all_lens: torch.Tensor):
     only when the header is shorter than the fixed layout."""
     vals, bits, total = precode_rle_items(all_lens)
     offs = torch.cumsum(bits, 1) - bits
-    return _place_words(vals, offs, 128), total
+    return add_bits(torch.zeros(vals.shape[0], 128, dtype=torch.int64,
+                                device=vals.device), vals, offs), total
 
 
-def emit_dynamic_pre(bp, commit_match, commit_lit, eff, dist):
+def emit_dynamic_pre(bp, commit_match, commit_lit, eff, dist,
+                     refine_passes: int = 0):
     """Symbol translation, code tables, emission columns, bit offsets and
     the 44 header words for [B, n_pad] commit arrays
-    (``_emit_dynamic_pre``, refine 0, 11-bit codes).  Returns
-    ((val, nb, offs), aux)."""
+    (``_emit_dynamic_pre``): 11-bit codes at refine 0, else 15-bit codes
+    and ``refine_passes`` refinement passes.  Returns ((val, nb, offs),
+    aux)."""
     B = bp.shape[0]
     dev = bp.device
     eff = eff.to(torch.int64)
@@ -327,8 +354,9 @@ def emit_dynamic_pre(bp, commit_match, commit_lit, eff, dist):
     hist_dist[:, 0] += (hist_dist[:, 0] == 0).to(torch.int64)
     hist_dist[:, 1] += (hist_dist[:, 1] == 0).to(torch.int64)
 
-    lit_lens, dist_lens, ok_l, ok_d = build_code_lens_pair(hist_lit,
-                                                           hist_dist)
+    max_len = MAX_CODE_LEN_DEEP if refine_passes else MAX_CODE_LEN
+    lit_lens, dist_lens, ok_l, ok_d = build_code_lens_pair(
+        hist_lit, hist_dist, refine_passes, max_len)
     t_lit = canonical_table(lit_lens)
     t_dist = canonical_table(dist_lens)
     all_lens = torch.cat([lit_lens, dist_lens], 1)
@@ -372,7 +400,8 @@ def emit_dynamic_pre(bp, commit_match, commit_lit, eff, dist):
                        rev16(all_lens) >> 12], 1)
     hoffs = torch.cat([_const(HDR_OFFS, dev),
                        LENS_OFF + 4 * torch.arange(NSYM_ALL, device=dev)])
-    hdr_words = _place_words(hvals, hoffs.expand(B, -1), 44)
+    hdr_words = add_bits(torch.zeros(B, 44, dtype=torch.int64, device=dev),
+                         hvals, hoffs.expand(B, -1))
     hdr_words = torch.where(use_rle[:, None], rle_words[:, :44], hdr_words)
     static_hdr = torch.zeros(44, dtype=torch.int64, device=dev)
     static_hdr[0] = 0b010
@@ -388,21 +417,94 @@ def emit_dynamic_post(words: torch.Tensor, aux, bfinal: torch.Tensor):
     packed [B, nwords] int64 words (``_emit_dynamic_post``); tail words
     past the end are dropped.  Returns (words int64, total_bits)."""
     hdr44, eob_code, eob_len, hdr_bits_n, body_bits = aux
-    B, nwords = words.shape
-    words = words.clone()
-    words[:, :44] += hdr44
+    words = torch.cat([words[:, :44] + hdr44, words[:, 44:]], 1)
     eob_off = body_bits + hdr_bits_n
     end = eob_off + eob_len
     pad_bits = (-(end + 3)) % 8
-    tail_vals = torch.stack([eob_code, bfinal.to(torch.int64),
-                             torch.full_like(eob_code, 0xFFFF0000)], 1)
-    tail_offs = torch.stack([eob_off, end, end + 3 + pad_bits], 1)
-    tsb = tail_offs & 31
-    tw = tail_offs >> 5
-    idx = torch.cat([tw, tw + 1], 1)
-    add = torch.cat([(tail_vals << tsb) & M32,
-                     torch.where(tsb > 0, tail_vals >> (32 - tsb), 0)], 1)
-    keep = idx < nwords
-    words.scatter_add_(1, torch.where(keep, idx, 0),
-                       torch.where(keep, add, 0))
-    return words & M32, end + 3 + pad_bits + 32
+    vals = torch.stack([eob_code, bfinal.to(torch.int64),
+                        torch.full_like(eob_code, 0xFFFF0000)], 1)
+    words = add_bits(words, vals,
+                     torch.stack([eob_off, end, end + 3 + pad_bits], 1))
+    return words, end + 3 + pad_bits + 32
+
+
+def emit_dynamic_block(bp, bfinal, commit_match, commit_lit, eff, dist,
+                       n: int, refine_passes: int = 0,
+                       mark: Callable[[str], None] = lambda name: None):
+    """Entropy-code and pack committed items into one byte-aligned
+    fragment a chunk (``emit_dynamic_block``): ``emit_dynamic_pre``, the
+    group premerge, the pack kernel (``group_place`` on the CPU) and
+    ``emit_dynamic_post``, with a ``mark`` at each stage.  Returns (words
+    int32 [B, W], total_bits int64 [B])."""
+    mark("emit_pre")
+    (val, nb, offs), aux = emit_dynamic_pre(bp, commit_match, commit_lit,
+                                            eff, dist, refine_passes)
+    mark("premerge")
+    sbuf, gw = group_premerge(val, nb, offs, capw=DYN_CAPW_DEEP
+                              if refine_passes else DYN_CAPW)
+    mark("pack")
+    words = kernels.pack_groups(sbuf, gw, dyn_nwords(n))
+    mark("post")
+    words, total_bits = emit_dynamic_post(words, aux, bfinal)
+    return to_i32(words), total_bits
+
+
+# each dynamic tier's parser options (``greedy_candidates``) and
+# refinement passes, as compress_chunk_dynamic{,2,3} set them: the quality
+# tiers add the rescue pass, 64 KiB segments, the A/B chain extension, 16
+# refinement passes and 15-bit codes
+TIERS = {
+    "dyn1": (dict(lazy=True, depth=6, wide_window=True), 0),
+    "dyn2": (dict(lazy=True, two_pass=True, depth=6, wide_ext=True), 16),
+    "dyn3": (dict(lazy=True, two_pass=True, depth=12, hash3=True,
+                  wide_ext=True), 16),
+}
+
+
+def _compress_greedy(tier, bufs, lengths, bfinal, device, on_stage):
+    """``compress_chunk_dynamic`` over a batch, for one of ``TIERS``."""
+    options, refine_passes = TIERS[tier]
+    mark = on_stage or (lambda name: None)
+    bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
+    mark("candidates")
+    bp, pos, span, is_match, dist, fsm_seg = greedy_candidates(
+        bufs, lengths, **options)
+    mark("commit")
+    cm, cl, eff = commit_items(span, is_match, dist, pos, lengths, fsm_seg)
+    out = emit_dynamic_block(bp, bfinal, cm, cl, eff, dist, bufs.shape[1],
+                             refine_passes, mark)
+    mark("end")
+    return out
+
+
+def compress_chunks_dynamic(bufs, lengths, bfinal, device=None,
+                            on_stage: Callable[[str], None] | None = None):
+    """Single-pass dynamic tier, dyn1 (``compress_chunks_dynamic`` and,
+    with the same bits, ``compress_chunks_dynamic_pallas``): depth-6 lazy
+    parse over 128 KiB segments, 11-bit codes.  uint8[B, N], int[B],
+    bool[B] -> (words int32[B, W] holding the uint32 bit patterns,
+    total_bits int64[B]); each chunk one dynamic or static block plus an
+    empty stored block carrying BFINAL.  Runs on CUDA unless ``device``
+    names another device; ``on_stage(name)`` marks each stage's start
+    and the end."""
+    return _compress_greedy("dyn1", bufs, lengths, bfinal, device,
+                            on_stage)
+
+
+def compress_chunks_dynamic2(bufs, lengths, bfinal, device=None,
+                             on_stage: Callable[[str], None] | None = None):
+    """Two-pass dynamic tier, dyn2 (``compress_chunks_dynamic2`` and
+    ``_dynamic2_pallas``): as ``compress_chunks_dynamic`` with the rescue
+    pass, 64 KiB segments, the A/B chain extension, 16 refinement passes
+    and 15-bit codes."""
+    return _compress_greedy("dyn2", bufs, lengths, bfinal, device,
+                            on_stage)
+
+
+def compress_chunks_dynamic3(bufs, lengths, bfinal, device=None,
+                             on_stage: Callable[[str], None] | None = None):
+    """Deep-probe dynamic tier, dyn3 (``compress_chunks_dynamic3`` and
+    ``_dynamic3_pallas``): as ``compress_chunks_dynamic2`` with depth 12
+    and len-3 matches (``hash3_matchfind``)."""
+    return _compress_greedy("dyn3", bufs, lengths, bfinal, device,
+                            on_stage)

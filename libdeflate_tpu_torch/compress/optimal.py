@@ -21,17 +21,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import as_tensor, resolve_device
+from ..device import from_numpy_batch
 from . import kernels
-from .bits import bsr, to_i32
-from .dynamic import (
-    DYN_CAPW,
-    batched_hist,
-    dyn_nwords,
-    emit_dynamic_post,
-    emit_dynamic_pre,
-)
-from .pipeline import greedy_commit_merge, group_premerge, parse_candidates_lean
+from .bits import bsr
+from .dynamic import batched_hist, emit_dynamic_block
+from .pipeline import commit_items, parse_candidates_lean
 
 DP_SEG = 1024
 BIT = 16
@@ -56,23 +50,6 @@ def _seed_lc_len() -> np.ndarray:
 
 
 SEED_LC_LEN = _seed_lc_len()
-
-
-def from_numpy_batch(bufs, lengths, bfinal, device=None):
-    """The JAX entry's inputs (uint8[B, N], int32[B], bool[B], as numpy
-    arrays or tensors) as tensors on ``device`` (CUDA when None)."""
-    dev = resolve_device(device)
-    bufs = as_tensor(bufs, np.uint8)
-    lengths = as_tensor(lengths, np.int64)
-    bfinal = as_tensor(bfinal, bool)
-    if bufs.dtype != torch.uint8 or bufs.dim() != 2:
-        raise ValueError(f"bufs must be uint8[B, N], got {bufs.dtype} "
-                         f"{tuple(bufs.shape)}")
-    B = bufs.shape[0]
-    if lengths.shape != (B,) or bfinal.shape != (B,):
-        raise ValueError("lengths and bfinal must have shape [B]")
-    return (bufs.to(dev).contiguous(), lengths.to(dev, torch.int64),
-            bfinal.to(dev, torch.bool))
 
 
 def _f32(v: float) -> torch.Tensor:
@@ -180,11 +157,8 @@ def dist_cost(dist: torch.Tensor) -> torch.Tensor:
 def commit(span, dist, pos, length, S_eff: int):
     """Replay the DP's chosen chain with same-distance merging
     (``_commit``).  Returns (commit_match, commit_lit, eff)."""
-    is_match = (span >= 3) & (dist > 0)
-    committed, eff = greedy_commit_merge(span, is_match, dist, S_eff)
-    live = pos < length[:, None]
-    return (committed & (eff >= 3) & live, committed & (eff < 3) & live,
-            eff)
+    return commit_items(span, (span >= 3) & (dist > 0), dist, pos, length,
+                        S_eff)
 
 
 def compress_chunks_lean(bufs, lengths, bfinal, device=None,
@@ -219,18 +193,8 @@ def compress_chunks_lean(bufs, lengths, bfinal, device=None,
 
     mark("commit")
     commit_match, commit_lit, eff = commit(span, dist, pos, lengths, S_eff)
-
-    mark("emit_pre")
-    (val, nb, offs), aux = emit_dynamic_pre(bp, commit_match, commit_lit,
-                                            eff, dist)
-    mark("premerge")
-    sbuf, gw = group_premerge(val, nb, offs, capw=DYN_CAPW)
-
-    mark("pack")
-    words = kernels.pack_groups(sbuf, gw, dyn_nwords(n))
-
-    mark("post")
-    words, total_bits = emit_dynamic_post(words, aux, bfinal)
-    words = to_i32(words)
+    words, total_bits = emit_dynamic_block(bp, bfinal, commit_match,
+                                           commit_lit, eff, dist, n,
+                                           mark=mark)
     mark("end")
     return words, total_bits

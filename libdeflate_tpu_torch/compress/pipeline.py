@@ -1,26 +1,38 @@
-"""Lean-path stages of the chunk compress pipeline, on [B, n] tensors.
+"""Compress pipeline stages on [B, n] tensors: the lean path's and the
+greedy/lazy tiers'.
 
 Counterpart of ``libdeflate_tpu/compress/tpu_pipeline.py``: the constants
-(lines 60-81), ``_le32_words`` (163), ``_segment_sizes`` (175), the lean
-branch of ``_sorted_matchfind`` (192-375), ``_chain_extend_multi`` (690),
-the ``ext_c=False`` arm of ``_parse_candidates`` (1086-1235),
+(lines 60-81), ``_static_litlen_code`` (107), ``_le32_words`` (163),
+``_segment_sizes`` (175), ``_sorted_matchfind`` (192-395; its lean
+``return_triple`` branch is ``sorted_matchfind_lean``), ``_chain_extend``
+(631), ``_chain_extend2`` (654), ``_chain_extend_multi`` (690), the
+``ext_c=False`` arm of ``_parse_candidates`` (1086-1235),
 ``_greedy_commit_merge`` (771), ``_exclusive_bit_offsets`` (828),
-``_group_premerge`` (861), ``_group_place`` (909) and
-``device_stream_to_bytes`` (1308).
+``_group_premerge`` (861), ``_group_place`` (909), ``_hash3_matchfind``
+(934), ``_parse_chunk`` (965-1083, as ``greedy_candidates`` and
+``commit_items``), ``compress_chunk_static`` and
+``compress_chunks_static`` (1238-1305) and ``device_stream_to_bytes``
+(1308).
 
 The JAX functions work on one chunk under ``vmap``; these take a leading
 batch axis.  Where the TPU needed a trick the port uses the direct op:
 the un-permute sort becomes a scatter by the sort's own indices, the
 triangular-matmul prefix sum becomes ``cumsum``, the reverse log-shift
-minimum becomes ``cummin``.  Every result is bit-equal to the JAX one.
+minimum becomes ``cummin``, the one-hot alphabet count of the minimum
+match length becomes a scatter.  Every result is bit-equal to the JAX
+one.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Callable
+
 import numpy as np
 import torch
 
-from .bits import M32
+from ..device import from_numpy_batch
+from .bits import M32, bsr, length_slot, offset_slot, rev, rev16, to_i32
 
 MULT = 0x1E35A7BD
 HASH_ORDER = 15
@@ -31,6 +43,7 @@ WINDOW = 32768
 FSM_SEG = 512
 MAX_LEN = 258
 GROUP = 128
+GROUP_CAPW = 37    # 128 positions x <= 9 bits + a carry word
 DEPTH = 6          # sorted-order neighbours probed per position
 STRIDES = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -42,10 +55,12 @@ def seg_key_params(seg: int) -> tuple[int, int]:
     return pos_bits, junk
 
 
-def segment_sizes(n: int) -> tuple[int, int, int]:
-    """(padded_n, sort_seg, fsm_seg) for a chunk of n positions, with the
-    single-pass tiers' 128 KiB matchfind segments (``wide=True``)."""
-    seg = 2 * SORT_SEG
+def segment_sizes(n: int, wide: bool = True) -> tuple[int, int, int]:
+    """(padded_n, sort_seg, fsm_seg) for a chunk of n positions
+    (``_segment_sizes``).  ``wide`` gives the single-pass tiers' 128 KiB
+    matchfind segments (lean and dyn1); the static tier and the two-pass
+    tiers pass False for 64 KiB ones."""
+    seg = 2 * SORT_SEG if wide else SORT_SEG
     if n >= seg:
         return -(-n // seg) * seg, seg, FSM_SEG
     if n >= FSM_SEG:
@@ -83,6 +98,108 @@ def _tz_bytes(x: torch.Tensor) -> torch.Tensor:
                     torch.where((x & 0xFFFFFF) != 0, 2, 3)))
 
 
+def _segment_probe(h, ws, seg: int):
+    """Sort every ``seg``-position segment of [B, n] by (hash, position)
+    with the payload words ``ws``, (w, w4) or (w, w4, w8, w12).  Returns
+    the sort's order (each sorted slot's local position, [rows, seg]) and
+    probe(d): per sorted slot, the word-granular (mlen, dist, fine) of the
+    slot d before it in the same bucket, as ``_sorted_matchfind``'s probe
+    computes it (lcp 8 with two payloads, 16 with four)."""
+    rows = h.numel() // seg
+    pos_bits, junk = seg_key_params(seg)
+    lp = torch.arange(seg, device=h.device, dtype=torch.int64)
+    # keys h<<pos_bits|lp are unique per row and may fill all 32 bits, so
+    # they sort as int64; the sort's indices are the un-permutation
+    sk, order = torch.sort((h.reshape(rows, seg) << pos_bits) | lp, dim=1)
+    sws = [x.reshape(rows, seg).gather(1, order) for x in ws]
+    shash = sk >> pos_bits
+    col = lp[None, :]
+
+    def probe(d):
+        same = ((shash == torch.roll(shash, d, 1)) & (shash != junk)
+                & (col >= d))
+        dist = torch.where(same, order - torch.roll(order, d, 1), WINDOW + 1)
+        same = same & (dist <= WINDOW)
+        xs = [x ^ torch.roll(x, d, 1) for x in sws]
+        eq4 = same & (xs[0] == 0)
+        eq8 = eq4 & (xs[1] == 0)
+        mlen = 4 * (eq4.long() + eq8.long())
+        if len(xs) == 4:
+            eq12 = eq8 & (xs[2] == 0)
+            eq16 = eq12 & (xs[3] == 0)
+            mlen = mlen + 4 * (eq12.long() + eq16.long())
+            # byte remainder from the first unequal word (0 at full LCP)
+            x_sel = torch.where(~eq8, xs[1], torch.where(~eq12, xs[2], xs[3]))
+        else:
+            x_sel = torch.where(~eq8, xs[1], 0)
+        fine = torch.where((x_sel != 0) & eq4, _tz_bytes(x_sel), 0)
+        return mlen, torch.where(eq4, dist, 0), fine
+
+    return order, probe
+
+
+_INVD = WINDOW + 1
+
+
+def _pack_inv(mlen, dist, fine):
+    """mlen<<18 | fine<<16 | (W+1 - dist): one maximum picks the longest,
+    then the longest remainder, then the nearest candidate."""
+    return (mlen << 18) | (fine << 16) | (_INVD - dist)
+
+
+def _unpack_inv(p):
+    return p >> 18, (_INVD - (p & 0xFFFF)) & 0xFFFF, (p >> 16) & 3
+
+
+def _best_two(pays):
+    """The best packed probe and the best at another distance (zero when
+    there is none), each unpacked to (mlen, dist, fine)."""
+    payA = functools.reduce(torch.maximum, pays)
+    invA = payA & 0xFFFF
+    payB = torch.zeros_like(payA)
+    for p in pays:
+        payB = torch.maximum(payB, torch.where((p & 0xFFFF) != invA, p, 0))
+    nz2 = payB != 0
+    return (_unpack_inv(payA),
+            tuple(torch.where(nz2, x, 0) for x in _unpack_inv(payB)))
+
+
+def _unpermute(order, shape, *pays):
+    """Sorted-order payloads back to position order, reshaped to
+    ``shape``."""
+    return [torch.empty_like(p).scatter_(1, order, p).reshape(shape)
+            for p in pays]
+
+
+def _pay(mlen, dist, fine):
+    return (mlen << 18) | (fine << 16) | dist
+
+
+def _unpay(x):
+    return x >> 18, x & 0xFFFF, (x >> 16) & 3
+
+
+def sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 2,
+                     wide_ext: bool = False):
+    """``_sorted_matchfind`` without ``return_pair``/``return_triple``: the
+    nearest same-hash candidates per position from one sort of every
+    ``seg``-position segment, ``depth`` probes each, 16-byte payloads
+    (``w8`` and ``w12`` given) or 8-byte ones (either None).  Without
+    ``wide_ext`` the best probe is chain-extended (``chain_extend``); with
+    it the best and the best at another distance are extended together
+    (``chain_extend2``).  Returns (len, dist) [B, n]."""
+    ws = (w, w4) if w8 is None or w12 is None else (w, w4, w8, w12)
+    order, probe = _segment_probe(h, ws, seg)
+    pays = [_pack_inv(*probe(d)) for d in range(1, depth + 1)]
+    if not wide_ext:
+        pay, = _unpermute(order, h.shape, functools.reduce(torch.maximum,
+                                                          pays))
+        return chain_extend(*_unpack_inv(pay))
+    a, b = _best_two(pays)
+    pa, pb = _unpermute(order, h.shape, _pay(*a), _pay(*b))
+    return chain_extend2(*_unpay(pa), *_unpay(pb))
+
+
 def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int):
     """Lean branch of ``_sorted_matchfind`` (``return_triple=True``,
     16-byte payloads, ``wide=None``): the best, the best at another
@@ -90,69 +207,16 @@ def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int):
     word-granular (mlen, dist, fine) [B, n] triples.  Candidate C keeps
     the JAX path's packing loss: its length is capped to 12 in steps of 4
     and its ``fine`` is 0."""
-    shape = h.shape
-    rows = h.numel() // seg
-    pos_bits, junk = seg_key_params(seg)
-    dev = h.device
-    lp = torch.arange(seg, device=dev, dtype=torch.int64)
-    # keys h<<pos_bits|lp are unique per row and may fill all 32 bits, so
-    # they sort as int64; the sort's indices are the un-permutation
-    key = (h.reshape(rows, seg) << pos_bits) | lp
-    sk, order = torch.sort(key, dim=1)
-    sw, sw4, sw8, sw12 = (x.reshape(rows, seg).gather(1, order)
-                          for x in (w, w4, w8, w12))
-    shash = sk >> pos_bits
-    slp = order
-    col = lp[None, :]
-
-    def probe(d):
-        same = ((shash == torch.roll(shash, d, 1)) & (shash != junk)
-                & (col >= d))
-        dist = torch.where(same, slp - torch.roll(slp, d, 1), WINDOW + 1)
-        same = same & (dist <= WINDOW)
-        x1 = sw4 ^ torch.roll(sw4, d, 1)
-        x2 = sw8 ^ torch.roll(sw8, d, 1)
-        x3 = sw12 ^ torch.roll(sw12, d, 1)
-        eq4 = same & ((sw ^ torch.roll(sw, d, 1)) == 0)
-        eq8 = eq4 & (x1 == 0)
-        eq12 = eq8 & (x2 == 0)
-        eq16 = eq12 & (x3 == 0)
-        mlen = 4 * (eq4.long() + eq8.long() + eq12.long() + eq16.long())
-        # byte remainder from the first unequal word (0 at full LCP)
-        x_sel = torch.where(~eq8, x1, torch.where(~eq12, x2, x3))
-        fine = torch.where((x_sel != 0) & eq4, _tz_bytes(x_sel), 0)
-        return mlen, torch.where(eq4, dist, 0), fine
-
-    invd = WINDOW + 1
-
-    def pack_inv(m2, d2, f2):
-        return (m2 << 18) | (f2 << 16) | (invd - d2)
-
-    def unpack_inv(p):
-        return p >> 18, (invd - (p & 0xFFFF)) & 0xFFFF, (p >> 16) & 3
-
+    order, probe = _segment_probe(h, (w, w4, w8, w12), seg)
     mlenC, distC, fineC = probe(1)
-    pays = [pack_inv(mlenC, distC, fineC)]
-    pays += [pack_inv(*probe(d)) for d in range(2, DEPTH + 1)]
-    payA = pays[0]
-    for p in pays[1:]:
-        payA = torch.maximum(payA, p)
-    invA = payA & 0xFFFF
-    payB = torch.zeros_like(payA)
-    for p in pays:
-        payB = torch.maximum(payB, torch.where((p & 0xFFFF) != invA, p, 0))
-    mlen, dist, fine = unpack_inv(payA)
-    nz2 = payB != 0
-    mlen2, dist2, fine2 = (torch.where(nz2, x, 0) for x in unpack_inv(payB))
-
-    pay_a = (mlen << 18) | (fine << 16) | dist
-    pay_b = (mlen2 << 18) | (fine2 << 16) | dist2
+    pays = [_pack_inv(mlenC, distC, fineC)]
+    pays += [_pack_inv(*probe(d)) for d in range(2, DEPTH + 1)]
+    a, b = _best_two(pays)
     # C rides payload bits 23..31 of both words as (len/4 capped at 3, dist)
     cbits = (torch.clamp(mlenC >> 2, 0, 3) << 16) | distC
-    pa = torch.empty_like(pay_a).scatter_(
-        1, order, pay_a | ((cbits & 0x1FF) << 23)).reshape(shape)
-    pb = torch.empty_like(pay_b).scatter_(
-        1, order, pay_b | ((cbits >> 9) << 23)).reshape(shape)
+    pa, pb = _unpermute(order, h.shape,
+                        _pay(*a) | ((cbits & 0x1FF) << 23),
+                        _pay(*b) | ((cbits >> 9) << 23))
     cb = ((pa >> 23) & 0x1FF) | (((pb >> 23) & 0x1FF) << 9)
 
     def unpack(x):
@@ -160,6 +224,46 @@ def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int):
 
     triC = ((cb >> 16) << 2, cb & 0xFFFF, torch.zeros_like(cb))
     return unpack(pa), unpack(pb), triC
+
+
+def chain_extend(mlen, dist, fine):
+    """Stride-8 doubling (``_chain_extend``): where a match is exactly s
+    bytes (word-granular) and the position s ahead has the same distance,
+    splice its length and remainder in; s = 8, 16, 32, 64, 128.  Returns
+    (len, dist), lengths capped at MAX_LEN."""
+    r, f = mlen, fine
+    s = 8
+    while s < MAX_LEN:
+        take = (r == s) & (ahead(dist, s) == dist)
+        r = r + torch.where(take, ahead(r, s), 0)
+        f = torch.where(take, ahead(f, s), f)
+        s *= 2
+    return torch.clamp(r + torch.where(r >= 4, f, 0), max=MAX_LEN), dist
+
+
+def chain_extend2(mA, dA, fA, mB, dB, fB):
+    """Two-candidate stride-8 doubling (``_chain_extend2``): each chain
+    splices the downstream A at its distance, else the downstream B; the
+    longer extended match wins, ties to A.  Returns (len, dist)."""
+    rA, fa, rB, fb = mA, fA, mB, fB
+    s = 8
+    while s < MAX_LEN:
+        rA_s, dA_s, fa_s = ahead(rA, s), ahead(dA, s), ahead(fa, s)
+        rB_s, dB_s, fb_s = ahead(rB, s), ahead(dB, s), ahead(fb, s)
+        tA1 = (rA == s) & (dA_s == dA)
+        tA2 = (rA == s) & ~tA1 & (dB_s == dA)
+        tB1 = (rB == s) & (dA_s == dB)
+        tB2 = (rB == s) & ~tB1 & (dB_s == dB)
+        rA, fa, rB, fb = (
+            rA + torch.where(tA1, rA_s, torch.where(tA2, rB_s, 0)),
+            torch.where(tA1, fa_s, torch.where(tA2, fb_s, fa)),
+            rB + torch.where(tB1, rA_s, torch.where(tB2, rB_s, 0)),
+            torch.where(tB1, fa_s, torch.where(tB2, fb_s, fb)))
+        s *= 2
+    lenA = torch.clamp(rA + torch.where(rA >= 4, fa, 0), max=MAX_LEN)
+    lenB = torch.clamp(rB + torch.where(rB >= 4, fb, 0), max=MAX_LEN)
+    useB = lenB > lenA
+    return torch.where(useB, lenB, lenA), torch.where(useB, dB, dA)
 
 
 def chain_extend_multi(cands):
@@ -244,6 +348,114 @@ def parse_candidates_lean(b: torch.Tensor, length: torch.Tensor):
     return bp, pos, lenA, dA, lenB, dB, lenC, dC, zero
 
 
+def hash3_matchfind(h3, words, seg: int):
+    """Nearest previous 3-byte match per position (``_hash3_matchfind``):
+    one sort of every ``seg``-position segment by (3-byte hash, position),
+    one neighbour, kept within distance 1024.  Returns dist [B, n], 0 for
+    none.  It is the matchfind's first probe on the low three bytes of
+    each word (its window check never binds under the 1024 cut)."""
+    order, probe = _segment_probe(
+        h3, (words & 0xFFFFFF, torch.zeros_like(words)), seg)
+    dist = probe(1)[1]
+    return _unpermute(order, h3.shape, torch.where(dist <= 1024, dist, 0))[0]
+
+
+def min_match_len(bp: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """[B, 1] adaptive minimum match length from the distinct bytes of a
+    strided and a dense 4 KiB sample before ``length`` ([B, 1]), as
+    ``_parse_chunk`` sets it: 9 for <= 5 distinct bytes, then 8, 7, 6, 5
+    up to 7, 9, 15, 44, else MIN_MATCH."""
+    B, n_pad = bp.shape
+    stride = max(1, n_pad // 4096)
+    seen = torch.zeros(B, 257, dtype=torch.int64, device=bp.device)
+    for s, step in ((bp[:, ::stride][:, :4096], stride), (bp[:, :4096], 1)):
+        live = torch.arange(s.shape[1], device=bp.device) * step < length
+        seen.scatter_(1, torch.where(live, s.to(torch.int64), 256), 1)
+    used = seen[:, :256].sum(1, keepdim=True)
+    min_len = torch.full_like(used, MIN_MATCH)
+    for most, ml in ((44, 5), (15, 6), (9, 7), (7, 8), (5, 9)):
+        min_len = torch.where(used <= most, ml, min_len)
+    return min_len
+
+
+def greedy_candidates(b: torch.Tensor, length: torch.Tensor,
+                      lazy: bool = False, two_pass: bool = False,
+                      depth: int = 2, hash3: bool = False,
+                      wide_ext: bool = False, wide_window: bool = False,
+                      lcp: int = 16):
+    """The matchfind half of ``_parse_chunk``, batched: b uint8 [B, n],
+    length int [B].  Sorted matchfind over ``segment_sizes(n,
+    wide_window)`` segments (``lcp`` 16 keeps the 16-byte payloads, 8 or
+    12 the 8-byte ones); with ``two_pass`` a rescue pass over the row
+    shifted by half a segment (depth 2, lcp 8) keeps its strictly longer
+    matches; the cap at the chunk's end; the adaptive minimum length;
+    with ``hash3`` len-3 matches where no longer one exists; with ``lazy``
+    the offset-weighted one-position deferral.  Returns (bp, pos, span,
+    is_match, dist, fsm_seg), arrays [B, n_pad] (pos [1, n_pad])."""
+    B, n = b.shape
+    n_pad, sort_seg, fsm_seg = segment_sizes(n, wide_window)
+    junk_val = seg_key_params(sort_seg)[1]
+    dev = b.device
+    bp = torch.cat([b, torch.zeros(B, n_pad - n, dtype=b.dtype, device=dev)],
+                   dim=1)
+    pos = torch.arange(n_pad, device=dev, dtype=torch.int64)[None, :]
+    length = length.to(torch.int64)[:, None]
+
+    words = le32_words(bp)
+    w4, w8, w12 = (ahead(words, k) for k in (4, 8, 12))
+    h = ((words * MULT) & M32) >> (32 - HASH_ORDER)
+    h = torch.where(pos + MIN_MATCH <= length, h, junk_val)
+    mlen, dist = sorted_matchfind(h, words, w4, None if lcp <= 8 else w8,
+                                  None if lcp <= 12 else w12, sort_seg,
+                                  depth, wide_ext)
+    if two_pass and sort_seg >= 2 * FSM_SEG:
+        half = sort_seg // 2
+
+        def shift(x, fill):
+            return torch.cat([x[:, half:], torch.full_like(x[:, :half], fill)],
+                             1)
+
+        def unshift(x):
+            return torch.cat([torch.zeros_like(x[:, :half]), x[:, :-half]], 1)
+
+        mlen_b, dist_b = sorted_matchfind(
+            shift(h, junk_val), shift(words, 0), shift(w4, 0), None, None,
+            sort_seg)
+        mlen_b, dist_b = unshift(mlen_b), unshift(dist_b)
+        better = mlen_b > mlen
+        mlen = torch.where(better, mlen_b, mlen)
+        dist = torch.where(better, dist_b, dist)
+
+    cap = torch.clamp(length - pos, 0, MAX_LEN)
+    mlen = torch.minimum(mlen, cap)
+    min_len = min_match_len(bp, length)
+    if hash3:
+        h3 = (((words & 0xFFFFFF) * MULT) & M32) >> (32 - HASH_ORDER)
+        h3 = torch.where(pos + 3 <= length, h3, junk_val)
+        d3 = hash3_matchfind(h3, words, sort_seg)
+        use3 = (mlen < MIN_MATCH) & (d3 > 0) & (cap >= 3) & (min_len <= 4)
+        mlen = torch.where(use3, 3, mlen)
+        dist = torch.where(use3, d3, dist)
+        is_match = use3 | (mlen >= min_len)
+    else:
+        is_match = mlen >= min_len
+    span = torch.where(is_match, mlen, 1)
+
+    if lazy:
+        # defer a match to a literal when the next position's match wins
+        # 4*(next_len - cur_len) + bsr(cur_off) - bsr(next_off) > 2
+        def nxt(x, fill):
+            return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], 1)
+
+        span_n, match_n, dist_n = (nxt(span, 1), nxt(is_match, False),
+                                   nxt(dist, 1))
+        score = 4 * (span_n - span) + bsr(dist) - bsr(dist_n)
+        defer = is_match & match_n & (span_n >= span) & (score > 2)
+        is_match = is_match & ~defer
+        span = torch.where(is_match, span, 1)
+    return bp, pos, span, is_match, dist, fsm_seg
+
+
 def greedy_commit_merge(span, is_match, dist, seg: int):
     """Commit FSM with same-distance run coalescing
     (``_greedy_commit_merge``) over independent ``seg``-position
@@ -282,6 +494,26 @@ def greedy_commit_merge(span, is_match, dist, seg: int):
     nb_after = torch.cat([x[1:], torch.full_like(x[:1], seg)], 0)
     eff_m = torch.where(heads, nb_after - tix, effs)
     return heads.T.reshape(shape), eff_m.T.reshape(shape)
+
+
+def commit_items(span, is_match, dist, pos, length, seg: int):
+    """Commit with same-distance merging over ``seg``-position segments,
+    items past ``length`` ([B]) dropped: (commit_match, commit_lit, eff)
+    as ``_parse_chunk`` and ``tpu_optimal._commit`` form them."""
+    committed, eff = greedy_commit_merge(span, is_match, dist, seg)
+    live = pos < length[:, None]
+    return (committed & (eff >= 3) & live, committed & (eff < 3) & live,
+            eff)
+
+
+def parse_chunk(b: torch.Tensor, length: torch.Tensor, **options):
+    """``_parse_chunk``, batched: ``greedy_candidates`` (same options),
+    then ``commit_items``.  Returns (bp, pos, commit_match, commit_lit,
+    eff, dist)."""
+    bp, pos, span, is_match, dist, fsm_seg = greedy_candidates(
+        b, length, **options)
+    return (bp, pos, *commit_items(span, is_match, dist, pos, length,
+                                   fsm_seg), dist)
 
 
 def exclusive_bit_offsets(nb: torch.Tensor):
@@ -334,6 +566,96 @@ def group_place(sbuf: torch.Tensor, gw: torch.Tensor,
     words = torch.zeros(B * nwords, dtype=torch.int64, device=sbuf.device)
     words.index_add_(0, tgt.reshape(-1), sbuf.reshape(-1))
     return words.reshape(B, nwords) & M32
+
+
+def add_bits(words: torch.Tensor, vals: torch.Tensor,
+             offs: torch.Tensor) -> torch.Tensor:
+    """[B, nwords] int64 words plus [B, k] items of < 32 bits at bit
+    offsets ``offs``; an item's part in a word past the end is dropped
+    (``.at[].add(mode="drop")``).  Returns the words 32-bit masked."""
+    sb = offs & 31
+    idx = torch.cat([offs >> 5, (offs >> 5) + 1], 1)
+    add = torch.cat([(vals << sb) & M32,
+                     torch.where(sb > 0, vals >> (32 - sb), 0)], 1)
+    keep = idx < words.shape[1]
+    return words.scatter_add(1, torch.where(keep, idx, 0),
+                             torch.where(keep, add, 0)) & M32
+
+
+def static_litlen_code(sym: torch.Tensor):
+    """(bit-reversed codeword, nbits) of the RFC 1951 static litlen code
+    (``_static_litlen_code``)."""
+    sym = sym.to(torch.int64)
+    val = torch.where(sym < 144, 0x30 + sym, torch.where(
+        sym < 256, 0x190 + sym - 144,
+        torch.where(sym < 280, sym - 256, 0xC0 + sym - 280)))
+    bits = torch.where(sym < 144, 8, torch.where(
+        sym < 256, 9, torch.where(sym < 280, 7, 8)))
+    return rev(val, bits), bits
+
+
+def static_items(bp, commit_match, commit_lit, eff, dist):
+    """One (value, nbits) item per position of a static block
+    (``compress_chunk_static``'s emission column): a literal's code, or a
+    match's litlen code, length extra, 5-bit offset code and offset extra
+    in one item of <= 31 bits."""
+    lit_code, lit_bits = static_litlen_code(bp)
+    lslot, lbase, lextra = length_slot(torch.clamp(eff, min=3))
+    lsym_code, lsym_bits = static_litlen_code(257 + lslot)
+    oslot, obase, oextra = offset_slot(torch.clamp(dist, min=1))
+    sh2 = lsym_bits + lextra
+    sh3 = sh2 + 5
+    match_val = (lsym_code | ((eff - lbase) << lsym_bits)
+                 | (rev16(oslot) >> 11) << sh2 | (dist - obase) << sh3)
+    val = torch.where(commit_match, match_val & M32,
+                      torch.where(commit_lit, lit_code, 0))
+    nb = torch.where(commit_match, sh3 + oextra,
+                     torch.where(commit_lit, lit_bits, 0))
+    return val, nb
+
+
+def static_nwords(n: int) -> int:
+    """Word count of one static chunk's output: 9 bits a position and
+    128 bits of header and tail."""
+    return (9 * n + 128 + 31) // 32
+
+
+def compress_chunks_static(bufs, lengths, bfinal, device=None,
+                           on_stage: Callable[[str], None] | None = None):
+    """Static-Huffman tier (``compress_chunks_static``): greedy parse at
+    depth 2 over 64 KiB segments, one static block per chunk plus an
+    empty stored block carrying BFINAL.  uint8[B, N], int[B], bool[B] ->
+    (words int32[B, W] holding the uint32 bit patterns, total_bits
+    int64[B]).  Runs on CUDA unless ``device`` names another device; the
+    bits are placed by the pack kernel on CUDA, by ``group_place`` on the
+    CPU.  ``on_stage(name)`` marks each stage's start and the end."""
+    from .kernels import pack_groups     # kernels imports this module
+    mark = on_stage or (lambda name: None)
+    bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
+    n = bufs.shape[1]
+    mark("candidates")
+    bp, pos, span, is_match, dist, fsm_seg = greedy_candidates(bufs, lengths)
+    mark("commit")
+    cm, cl, eff = commit_items(span, is_match, dist, pos, lengths, fsm_seg)
+    mark("emit_pre")
+    val, nb = static_items(bp, cm, cl, eff, dist)
+    offs, body_bits = exclusive_bit_offsets(nb)
+    mark("premerge")
+    sbuf, gw = group_premerge(val, nb, offs + 3, capw=GROUP_CAPW)
+    mark("pack")
+    words = pack_groups(sbuf, gw, static_nwords(n))
+    mark("post")
+    # block header (BFINAL 0, BTYPE 01), the 7-bit EOB, then the stored
+    # sync-flush block: its 3-bit header, byte padding, LEN 0 and NLEN
+    end = body_bits + 3
+    pad = (-(end + 10)) % 8
+    zero = torch.zeros_like(end)
+    vals = torch.stack([zero + 0b010, zero, bfinal.to(torch.int64),
+                        zero + 0xFFFF0000], 1)
+    words = add_bits(words, vals,
+                     torch.stack([zero, end, end + 7, end + 10 + pad], 1))
+    mark("end")
+    return to_i32(words), end + 10 + pad + 32
 
 
 def device_stream_to_bytes(words, total_bits: int) -> bytes:

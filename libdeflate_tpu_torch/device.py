@@ -31,3 +31,20 @@ def as_tensor(x, dtype) -> torch.Tensor:
         return x
     return torch.from_numpy(np.require(np.asarray(x, dtype), dtype,
                                        ["C", "W"]))
+
+
+def from_numpy_batch(bufs, lengths, bfinal, device=None):
+    """The JAX entry's inputs (uint8[B, N], int32[B], bool[B], as numpy
+    arrays or tensors) as tensors on ``device`` (CUDA when None)."""
+    dev = resolve_device(device)
+    bufs = as_tensor(bufs, np.uint8)
+    lengths = as_tensor(lengths, np.int64)
+    bfinal = as_tensor(bfinal, bool)
+    if bufs.dtype != torch.uint8 or bufs.dim() != 2:
+        raise ValueError(f"bufs must be uint8[B, N], got {bufs.dtype} "
+                         f"{tuple(bufs.shape)}")
+    B = bufs.shape[0]
+    if lengths.shape != (B,) or bfinal.shape != (B,):
+        raise ValueError("lengths and bfinal must have shape [B]")
+    return (bufs.to(dev).contiguous(), lengths.to(dev, torch.int64),
+            bfinal.to(dev, torch.bool))

@@ -7,6 +7,12 @@ in order, with a warm-up before each timing and a sync ending each pass:
   float32 [128, 128] tile by 1, 16 and 64 blocks that split it, ms per
   call and per block on the host clock, by CUDA events and replayed from a
   CUDA graph;
+- "2": the dynamic compress tiers (the script's lines 80-118): dyn1 and
+  dyn2 over the corpus in batches of 4 chunks (BFINAL clear), best of 4
+  passes after a warm-up, in MB/s with the ratio; every chunk must
+  inflate through ``zlib``.  The script times each tier's XLA and Pallas
+  entries; in the port both are one path, whose bit placement is the pack
+  kernel K2;
 - "4": CRC-32 and Adler-32 of 8 corpus chunks (lines 122-136) through
   ``ops/checksums.py``, each equal to ``zlib``, in GB/s on the host clock
   and replayed from a CUDA graph (the card's time alone);
@@ -15,14 +21,14 @@ in order, with a warm-up before each timing and a sync ending each pass:
 - "tok": the tokenize-only ceiling (K4), ``exp_tokenize_ceiling``;
 - "overhead": the grid and loop probes (K5, K6), ``exp_launch_overhead``.
 
-Sections "2" and "3" time compress tiers that are not ported (dynamic,
-optimal and deep); asking for them raises.  The default is every ported
-section.  ``grid_copy`` launches ``csrc/launch_probes.cu`` for CUDA tensors
-and computes its plain version, ``x.clone()``, for CPU tensors; launches
-are counted in ``grid_copy.launches``.
+Section "3" times compress tiers that are not ported (optimal and deep);
+asking for it raises.  The default is every ported section.
+``grid_copy`` launches ``csrc/launch_probes.cu`` for CUDA tensors and
+computes its plain version, ``x.clone()``, for CPU tensors; launches are
+counted in ``grid_copy.launches``.
 
 Run (on a CUDA machine): ``python -m
-libdeflate_tpu_torch.experiments.exp_device_roundup [1 4 5 tok overhead]``.
+libdeflate_tpu_torch.experiments.exp_device_roundup [1 2 4 5 tok overhead]``.
 """
 
 from __future__ import annotations
@@ -33,18 +39,26 @@ import zlib
 import numpy as np
 import torch
 
+from ..compress.dynamic import (
+    compress_chunks_dynamic,
+    compress_chunks_dynamic2,
+)
+from ..compress.pipeline import device_stream_to_bytes
 from ..decompress.decode import decompress_chunks_words, pack_streams
 from ..device import resolve_device
 from ..ops import checksums
 from . import exp_launch_overhead, exp_tokenize_ceiling, timing
 from .corpus import CHUNK, CORPUS_BYTES, make_corpus, zlib_raw
 
-SECTIONS = ("1", "4", "5", "tok", "overhead")
-NOT_PORTED = {"2": "the dynamic compress tiers (dyn1, dyn2)",
-              "3": "the optimal and deep compress tiers"}
+SECTIONS = ("1", "2", "4", "5", "tok", "overhead")
+NOT_PORTED = {"3": "the optimal and deep compress tiers"}
 PROBE_STEPS = (1, 16, 64)
 TILE = (128, 128)
 NCHUNKS = 8
+BATCH = 4
+# (name, entry): the script's "dyn1 xla"/"dyn1 pal" and "dyn2" pairs
+TIERS = (("dyn1", compress_chunks_dynamic),
+         ("dyn2", compress_chunks_dynamic2))
 
 
 def reset_launch_counts() -> None:
@@ -109,6 +123,33 @@ def _checksums(bufs, dev) -> dict:
     return res
 
 
+def _compress(bufs, dev) -> dict:
+    batches = [torch.as_tensor(bufs[i:i + BATCH], device=dev)
+               for i in range(0, len(bufs), BATCH)]
+    res = {}
+    for name, fn in TIERS:
+        def run():
+            return [fn(b, torch.full((len(b),), b.shape[1], device=dev),
+                       torch.zeros(len(b), dtype=torch.bool, device=dev),
+                       device=dev) for b in batches]
+
+        outs = run()
+        dt = timing.best_of(run, dev, 4)
+        total_bits = torch.cat([t for _, t in outs]).cpu()
+        words = torch.cat([w for w, _ in outs]).cpu()
+        ok = all(zlib.decompressobj(-15).decompress(device_stream_to_bytes(
+            words[k], total_bits[k])) == bufs[k].tobytes()
+            for k in range(len(bufs)))
+        ratio = int(((total_bits + 7) // 8).sum()) / bufs.size
+        res[name] = {"mb_s": bufs.size / dt / 1e6, "s": dt, "ratio": ratio,
+                     "ok": ok}
+        print(f"[2] {name} (the script's XLA and Pallas entries, one path "
+              f"here): {bufs.size / dt / 1e6:.6f} MB/s ({dt:.6f} s for "
+              f"{bufs.size} bytes), ratio {ratio:.6f}, every chunk through "
+              f"zlib={ok}", flush=True)
+    return res
+
+
 def _decode(bufs, dev) -> dict:
     comp, clen = pack_streams([zlib_raw(b.tobytes()) for b in bufs])
     ca = torch.as_tensor(comp.view(np.int32), device=dev)
@@ -148,6 +189,8 @@ def main(sections=None, device=None, total: int = CORPUS_BYTES,
     res = {}
     if "1" in sections:
         res["1"] = _probe(dev)
+    if "2" in sections:
+        res["2"] = _compress(bufs, dev)
     if "4" in sections:
         res["4"] = _checksums(first, dev)
     if "5" in sections:

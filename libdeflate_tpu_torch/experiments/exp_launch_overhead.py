@@ -18,8 +18,10 @@ per-grid-step overhead:
 For CUDA tensors each wrapper launches its kernel in
 ``csrc/launch_probes.cu``; for CPU tensors it computes the plain version,
 ``x + 1``.  Launches are counted in each wrapper's ``launches``.  The
-script's last measurement, the dynamic compress tier at B = 4 (lines
-72-82), is not ported: that tier is not in the port yet.
+script's last measurement, the dynamic tier at B = 4 (lines 72-82), is
+``dynamic_baseline``: ``compress_chunks_dynamic`` (dyn1) on 4 x 1 MiB of
+random bytes below 64, best of 5 after a warm-up, which ``main`` prints
+after the probes.
 
 Run (on a CUDA machine): ``python -m
 libdeflate_tpu_torch.experiments.exp_launch_overhead``.
@@ -30,9 +32,11 @@ from __future__ import annotations
 import ctypes
 import sys
 
+import numpy as np
 import torch
 
 from .. import _build
+from ..compress.dynamic import compress_chunks_dynamic
 from ..device import resolve_device
 from . import timing
 
@@ -159,6 +163,23 @@ def format_table(table: dict) -> list[str]:
     return lines
 
 
+def dynamic_baseline(device=None, batch: int = 4, n: int = 1 << 20) -> dict:
+    """The script's dynamic-tier baseline: dyn1 on ``batch`` chunks of
+    ``n`` random bytes below 64 (numpy seed 0), BFINAL clear, best of
+    HOST_REPS passes on the host clock after a warm-up.  Returns {"ms",
+    "mb_s", "total_bits"}."""
+    dev = resolve_device(device)
+    data = np.random.default_rng(0).integers(0, 64, (batch, n), np.uint8)
+    bufs = torch.as_tensor(data, device=dev)
+    lens = torch.full((batch,), n, device=dev)
+    bfinal = torch.zeros(batch, dtype=torch.bool, device=dev)
+    total_bits = compress_chunks_dynamic(bufs, lens, bfinal, device=dev)[1]
+    dt = timing.best_of(lambda: compress_chunks_dynamic(
+        bufs, lens, bfinal, device=dev), dev, HOST_REPS)
+    return {"ms": 1e3 * dt, "mb_s": batch * n / dt / 1e6,
+            "total_bits": total_bits.tolist()}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     dev = resolve_device("cpu" if "--cpu" in argv else None)
@@ -166,6 +187,9 @@ def main(argv=None) -> int:
     table = overhead_table(dev)
     for line in format_table(table):
         print(line, flush=True)
+    base = dynamic_baseline(dev)
+    print(f"compress_chunks_dynamic B=4: {base['ms']:.6f} ms = "
+          f"{base['mb_s']:.6f} MB/s", flush=True)
     return 0 if all(r["ok"] for r in [*table["grid"].values(),
                                       table["loop"]]) else 1
 
