@@ -23,6 +23,20 @@ two paths through their entry points:
   and a 40000-byte tail chunk, K2 equals its plain version on each
   tier's own inputs (capw + 1 = 38, 46, 62) and K3 decodes the dyn1 and
   static streams back; GB/s, ratio and stage ms per tier;
+- DP tiers: the same corpus and batches through
+  ``compress_chunks_optfast``, ``compress_chunks_optimal``,
+  ``compress_chunks_optimal2``, ``compress_chunks_optimal_deep`` and
+  ``compress_chunks_optimal_with`` at the mesh's level 5-7, 8-9 and
+  10-12 keywords: K1 launched once a cost pass and K2 once a call, every
+  chunk inflates through zlib, every chunk's total_bits equals the JAX
+  package's (pinned in ``experiments/dp_total_bits.json`` by
+  ``tests/pin_dp_total_bits.py``), CUDA equals the CPU on chunk 0 and a
+  40000-byte tail chunk for optfast and deep, K1 equals its plain
+  version at both ladders (LEN_LADDER, LEN_LADDER_DENSE2) on every pass's
+  own inputs of optfast, optimal, optimal2 and deep (the refined passes
+  with a match-cost table a chunk), K2 on optfast's (capw + 1 = 62), and
+  K3 decodes the optfast streams back; GB/s (optfast best of 3, optimal,
+  optimal2 and deep one pass after a warm-up), ratio and stage ms;
 - decode: the compress path's own streams, left on the card and padded
   there, and zlib level-6 streams of the same 16 chunks, each set decoded
   in one known-size ``decompress_chunks_words`` call of B = 16; the zlib
@@ -37,9 +51,9 @@ two paths through their entry points:
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
-  8 zlib-6 chunks, dyn1 and dyn2 over the corpus, the tokenize-only
-  ceiling (K4 per corpus class beside
-  K3's decode of the same streams) and the grid and loop probes (K5, K6).
+  8 zlib-6 chunks, dyn1 and dyn2, optimal and deep over the corpus, the
+  tokenize-only ceiling (K4 per corpus class beside K3's decode of the
+  same streams) and the grid and loop probes (K5, K6).
   Before it, K4 is held against its plain version in all six
   configurations (the 16 zlib-6 chunks, Z_FIXED, the damaged and run-on
   sets, and the crafted sets of ``experiments/crafted_streams.py`` that
@@ -53,9 +67,10 @@ two paths through their entry points:
   table setups and the token loop.
 
 K1 is held against its plain version on random inputs at the main path's
-shape, the main path's own, per-chunk lc tables at S = 256, 15 lanes (a
-ragged warp), one chunk, a segment of 8704 positions (64-bit keys) and
-the crafted sets of ``experiments/crafted_dp.py`` (ties, caps exceeded,
+shape, the main path's own, the DP tiers' own, and at both ladders on
+per-chunk lc tables at S = 256, 15 lanes (a ragged warp), one chunk, a
+segment of 8704 positions (64-bit keys) and the crafted sets of
+``experiments/crafted_dp.py`` (ties, caps exceeded,
 fields past their packed bits, lengths past 258, all-literal chunks);
 the nodes of a CUDA graph captured around one wrapper call show that it
 runs its kernel and no other device op. K2 is held against its plain
@@ -79,6 +94,7 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -103,6 +119,7 @@ DP_OPS_PER_RUNG = 3
 LOOP_TILE_COUNTS = (1, 7, 133, 256, 1000)  # K6 checks; 256 is its main shape
 COPY_SIZES = (1, 3, 4097, 16385, 1 << 20)  # K7 checks beside its 128 x 128 tile
 GREEDY_BITS = "libdeflate_tpu_torch/experiments/greedy_total_bits.json"
+DP_BITS = "libdeflate_tpu_torch/experiments/dp_total_bits.json"
 
 
 def card_line() -> str:
@@ -355,6 +372,48 @@ def greedy_pack_inputs(tier: str, bufs, lengths):
             pd.dyn_nwords(bufs.shape[1]))
 
 
+class Recording:
+    """A kernel wrapper that keeps each call's positional arguments; its
+    ``launches`` is the wrapper's own, so the wrapper's count, which
+    reads its module's name, goes on counting."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+        self.seen = []
+
+    def __call__(self, *args):
+        self.seen.append(args)
+        return self.wrapper(*args)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.wrapper.launches = value
+
+
+def record_calls(module, name: str, fn):
+    """fn() with ``module.name`` wrapped so that each call's positional
+    arguments are kept: (fn's result, the argument tuples).  The entries
+    call the kernel wrappers through their module, so this captures a
+    tier's own kernel inputs in one real call."""
+    orig = getattr(module, name)
+    rec = Recording(orig)
+    setattr(module, name, rec)
+    try:
+        return fn(), rec.seen
+    finally:
+        setattr(module, name, orig)
+
+
+def feasible_rungs(ladder, S: int) -> int:
+    """Rungs f of ``ladder`` with t + f <= S, summed over t in one
+    S-position segment."""
+    return sum(sum(1 for f in ladder if t + f <= S) for t in range(S))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -421,15 +480,17 @@ def main() -> int:
             tuple(torch.as_tensor(a, device=dev) for a in arrays)
             + (torch.as_tensor(lc, device=dev),), cdp.DP_S)
     for name, (args, S) in dp_sets.items():
-        err_dp = max(err_dp, require_equal(
-            f"dp_parse ({name})", pk.dp_parse(*args, S),
-            pk.dp_parse_plain(*args, S)))
+        for ladder in (pk.LEN_LADDER_DENSE2, pk.LEN_LADDER):
+            err_dp = max(err_dp, require_equal(
+                f"dp_parse ({name}, {len(ladder)} rungs)",
+                pk.dp_parse(*args, S, ladder),
+                pk.dp_parse_plain(*args, S, ladder)))
     bp0, real_dp, real_pack = main_path_kernel_inputs(batches[0], lengths)
     err_dp = max(err_dp, require_equal(
         "dp_parse (main path)", pk.dp_parse(*real_dp, po.DP_SEG),
         pk.dp_parse_plain(*real_dp, po.DP_SEG)))
-    print(f"K1 dp_parse: equal to its plain version (random, main path, "
-          f"{', '.join(dp_sets)})", flush=True)
+    print(f"K1 dp_parse: equal to its plain version (random, main path; "
+          f"at both ladders {', '.join(dp_sets)})", flush=True)
 
     # ---- K2: the pack kernel against its plain version -----------------
     # the main path's inputs of the rand and runs parts of the corpus
@@ -647,6 +708,123 @@ def main() -> int:
     print("K3 decode_chunks: the 16 dyn1 and the 16 static streams decode to "
           "the corpus, status 0", flush=True)
 
+    # ---- the DP tiers: optfast, optimal, optimal2, deep, levels 5-12 ----
+    # every chunk through zlib and equal to the JAX package's total_bits
+    # (pinned by tests/pin_dp_total_bits.py), K1 launched once a cost pass
+    # and K2 once a call, CUDA equal to the CPU on chunk 0 and the tail
+    # chunk (optfast, deep), K1 equal to its plain version at both ladders
+    # on each tier's own inputs of every pass (the refined passes' tables
+    # one a chunk), K2 on optfast's, and the optfast streams back through
+    # K3
+    dp_pinned = json.loads((root / DP_BITS).read_text())["total_bits"]
+    dp_entries = {"optfast": po.compress_chunks_optfast,
+                  "optimal": po.compress_chunks_optimal,
+                  "optimal2": po.compress_chunks_optimal2,
+                  "deep": po.compress_chunks_optimal_deep}
+    dp_passes = {name: po.TIERS[name]["passes"] for name in dp_entries}
+    for k, kw in po.MESH_LEVEL_OPTIONS.items():
+        dp_entries[f"level{k}"] = functools.partial(
+            po.compress_chunks_optimal_with, **kw)
+        dp_passes[f"level{k}"] = kw["passes"]
+    dp_tiers = {}
+    for name, entry in dp_entries.items():
+        pk.reset_launch_counts()
+        dd.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs_t = [entry(b, lengths, bfinal) for b in batches]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t_launch = {"dp_parse": pk.dp_parse.launches,
+                    "pack_groups": pk.pack_groups.launches}
+        want = {"dp_parse": dp_passes[name] * len(batches),
+                "pack_groups": len(batches)}
+        if t_launch != want or dd.decompress_chunks_words.launches:
+            raise AssertionError(f"{name}: launches {t_launch}, not {want}")
+        words_t = torch.cat([w for w, _ in outs_t])
+        bits_t = torch.cat([t for _, t in outs_t])
+        if bits_t.tolist() != dp_pinned[name]:
+            raise AssertionError(f"{name}: total_bits {bits_t.tolist()} "
+                                 f"differ from the JAX package's "
+                                 f"{dp_pinned[name]}")
+        w_cpu_all = words_t.cpu()
+        for k in range(nchunks):
+            stream = pp.device_stream_to_bytes(w_cpu_all[k], bits_t[k])
+            if zlib.decompress(stream, -15) != chunks[k].tobytes():
+                raise AssertionError(f"{name}: chunk {k} does not inflate "
+                                     f"to its input")
+        ratio = int(((bits_t + 7) // 8).sum()) / len(corpus)
+        row = {"passes": dp_passes[name], "ratio": ratio,
+               "launches": t_launch, "first_pass_s": first_s,
+               "words": words_t, "total_bits": bits_t}
+        if name == "optfast":
+            # best of 3 passes, then one pass by stage
+            row["s"] = time_best(lambda: [entry(b, lengths, bfinal)
+                                          for b in batches])
+            row["stage_ms"] = stage_ms(entry, batches, lengths, bfinal)
+        elif name in ("optimal", "optimal2", "deep"):
+            # the checked pass was the warm-up; one timed pass by stage
+            t0 = time.perf_counter()
+            row["stage_ms"] = stage_ms(entry, batches, lengths, bfinal)
+            row["s"] = time.perf_counter() - t0
+        if name in ("optfast", "deep"):
+            for args in ((chunks[:1], np.array([CHUNK]), np.array([True])),
+                         tail):
+                require_equal(f"{name}: CPU vs CUDA stream",
+                              entry(*args, device="cpu"),
+                              [x.cpu() for x in entry(*args)])
+        dp_tiers[name] = row
+        timing = ("" if "s" not in row else
+                  f"{len(corpus) / row['s'] / 1e9:.6f} GB/s ("
+                  + ("best of 3 passes" if name == "optfast" else
+                     "one pass after a warm-up")
+                  + f" over {len(corpus)} bytes, {row['s']:.6f} s), ")
+        print(f"{name}: {timing}ratio {ratio:.6f}; all 16 total_bits equal "
+              f"the JAX package's, every chunk inflates through zlib"
+              + (", CUDA equals CPU on chunk 0 and the tail chunk"
+                 if name in ("optfast", "deep") else "")
+              + f"; launches {json.dumps(t_launch)} for {len(batches)} "
+              f"calls; first pass {first_s:.6f} s"
+              + (f"; stage ms per 16 MiB pass (CUDA events) "
+                 f"{json.dumps({k: round(v, 3) for k, v in row['stage_ms'].items()})}"
+                 if "stage_ms" in row else "") + f"; {card}", flush=True)
+    # K1 at both ladders on each tier's own inputs, every pass; K2 on
+    # optfast's
+    dp_calls = {}
+    for name in ("optfast", "optimal", "optimal2", "deep"):
+        (_, packs), dps = record_calls(
+            pk, "dp_parse", lambda: record_calls(
+                pk, "pack_groups",
+                lambda: dp_entries[name](batches[0], lengths, bfinal)))
+        dp_calls[name] = dps
+        for i, args in enumerate(dps):
+            for ladder in (pk.LEN_LADDER, pk.LEN_LADDER_DENSE2):
+                err_dp = max(err_dp, require_equal(
+                    f"dp_parse ({name}, pass {i + 1}, "
+                    f"{len(ladder)} rungs)", pk.dp_parse(*args[:14], ladder),
+                    pk.dp_parse_plain(*args[:14], ladder)))
+        if name == "optfast":
+            sbuf_o, gw_o, nw_o = packs[0]
+            err_pack = max(err_pack, require_equal(
+                "pack_groups (optfast)", [pk.pack_groups(*packs[0])],
+                [pp.group_place(*packs[0])]))
+    print(f"K1 dp_parse: equal to its plain version at LEN_LADDER and "
+          f"LEN_LADDER_DENSE2 on every pass's inputs of optfast, optimal, "
+          f"optimal2 and deep (lc [4, 259] in the refined passes); K2 "
+          f"equal to group_place on optfast's (sbuf {list(sbuf_o.shape)})",
+          flush=True)
+    # K3 decodes the optfast streams back to the corpus
+    w = dp_tiers["optfast"]["words"]
+    w = torch.cat([w, torch.zeros(nchunks, pad_w, dtype=w.dtype,
+                                  device=dev)], 1)
+    clen = ((dp_tiers["optfast"]["total_bits"] + 7) // 8).to(torch.int32)
+    out, st, ol, cons = dd.decompress_chunks_words(w, clen, full, CHUNK)
+    if not (bool((st == 0).all()) and bool((ol == CHUNK).all())
+            and bool((cons == clen).all()) and torch.equal(out, corpus_d)):
+        raise AssertionError("K3 does not decode the optfast streams back "
+                             "to the corpus")
+    print("K3 decode_chunks: the 16 optfast streams decode to the corpus, "
+          "status 0", flush=True)
+
     # ---- K3: the decoder against its plain version ---------------------
     zstreams = [zlib6(chunks[i].tobytes()) for i in range(nchunks)]
     z_comp, z_clen = dd.pack_streams(zstreams, pad_w)
@@ -855,7 +1033,8 @@ def main() -> int:
     res = rd.main()
     if not rd.all_ok(res):
         raise AssertionError("measurement roundup: a result is wrong")
-    meas_launches = {"pack_groups": pk.pack_groups.launches,
+    meas_launches = {"dp_parse": pk.dp_parse.launches,
+                     "pack_groups": pk.pack_groups.launches,
                      "decode_chunks": dd.decompress_chunks_words.launches,
                      "tokenize_chunks": tk.tokenize_chunks.launches,
                      "grid_add_one": lo.grid_add_one.launches,
@@ -865,8 +1044,6 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"the measurement path never launched "
                                  f"{name}")
-    if pk.dp_parse.launches:
-        raise AssertionError("the measurement path launched the DP kernel")
     print(f"measurement main path: every section right, "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     print(f"measurement main path launches: {json.dumps(meas_launches)}",
@@ -879,16 +1056,34 @@ def main() -> int:
 
     # ---- kernel times at main-path shapes ------------------------------
     lanes = BATCH * CHUNK // po.DP_SEG
-    feasible_rungs = sum(sum(1 for f in pk.LEN_LADDER_DENSE2
-                             if t + f <= po.DP_SEG)
-                         for t in range(po.DP_SEG))
-    dp_ops = feasible_rungs * lanes * DP_OPS_PER_RUNG
+    dp_ops = (feasible_rungs(pk.LEN_LADDER_DENSE2, po.DP_SEG) * lanes
+              * DP_OPS_PER_RUNG)
     # the int64 interface: twelve inputs and lc read once, span and dist
     # written once
     dp_bytes = (sum(a.numel() * a.element_size() for a in real_dp)
                 + 2 * 8 * BATCH * CHUNK)
     dp_span = torch.empty(BATCH, CHUNK, dtype=torch.int64, device=dev)
     dp_dist = torch.empty_like(dp_span)
+    # K1 at both ladders on the optimal tier's own inputs (pass 1 of the
+    # text batch; LEN_LADDER is its ladder), beside each ladder's bounds
+    opt_args = dp_calls["optimal"][0][:14]
+    ladder_times = {}
+    for ladder in (pk.LEN_LADDER, pk.LEN_LADDER_DENSE2):
+        ops_l = (feasible_rungs(ladder, po.DP_SEG) * lanes
+                 * DP_OPS_PER_RUNG)
+        opt_bytes = (sum(a.numel() * a.element_size() for a in opt_args[:13])
+                     + 2 * 8 * BATCH * CHUNK)
+        ladder_times[f"{len(ladder)} rungs"] = {
+            "inputs": "optimal, pass 1, text batch",
+            "ms": cuda_ms(lambda: pk.dp_parse(*opt_args, ladder), 20),
+            "kernel_ms": cuda_ms(lambda: pk.dp_parse_into(
+                opt_args[:12], opt_args[12], po.DP_SEG, dp_span, dp_dist,
+                ladder), 20),
+            "bytes_bound_ms": 1e3 * opt_bytes / H100_BYTES_PER_S,
+            "ops_bound_ms": 1e3 * ops_l / H100_INT32_OPS_PER_S}
+        print(f"K1 ({len(ladder)} rungs, optimal's inputs): "
+              f"{json.dumps(ladder_times[f'{len(ladder)} rungs'])}; {card}",
+              flush=True)
     sbuf, gw, nwords = real_pack
     # the int64 interface: sbuf and gw read once, the output written once
     pack_bytes = 8 * (sbuf.numel() + gw.numel() + BATCH * nwords)
@@ -914,6 +1109,15 @@ def main() -> int:
             / H100_BYTES_PER_S}
         print(f"K2 ({name}, graph replay): "
               f"{json.dumps(pack_tier_times[name])}; {card}", flush=True)
+    pack_tier_times["optfast"] = {
+        "sbuf": list(sbuf_o.shape),
+        "launches": dp_tiers["optfast"]["launches"]["pack_groups"],
+        "ms": graph_ms(lambda: pk.pack_groups(sbuf_o, gw_o, nw_o), 200),
+        "library_ms": graph_ms(index_add_call(sbuf_o, gw_o, nw_o), 200),
+        "bound_ms": 1e3 * 8 * (sbuf_o.numel() + gw_o.numel() + BATCH * nw_o)
+        / H100_BYTES_PER_S}
+    print(f"K2 (optfast, graph replay): "
+          f"{json.dumps(pack_tier_times['optfast'])}; {card}", flush=True)
     kernels = [
         {"name": "dp_parse", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/dp_parse.cu",
@@ -928,7 +1132,9 @@ def main() -> int:
                                dp_ops / H100_INT32_OPS_PER_S),
          "bound_by": ("operations" if dp_ops / H100_INT32_OPS_PER_S
                       > dp_bytes / H100_BYTES_PER_S else "bytes"),
-         "library_ms": None},
+         "library_ms": None, "ladders": ladder_times,
+         "dp_tier_launches": {name: row["launches"]["dp_parse"]
+                              for name, row in dp_tiers.items()}},
         {"name": "pack_groups", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/pack_groups.cu",
          "replaces": "libdeflate_tpu/compress/pallas_kernels.py:313",

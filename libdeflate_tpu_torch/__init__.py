@@ -1,11 +1,13 @@
 """libdeflate_tpu_torch — the PyTorch/CUDA port of libdeflate_tpu.
 
 Counterpart of ``libdeflate_tpu/``.  The port goes slice by slice; this
-package holds the lean min-cost-DP compress path (the JAX package's
-``compress/tpu_optimal.py::compress_chunks_lean_pallas``) with its two
-kernels, and the scalar DEFLATE decoder
-(``decompress/pallas_decode.py``) with its kernel, all written by hand in
-CUDA C++ for Hopper (``csrc/``).
+package holds the compress tiers (the JAX package's min-cost-DP tiers of
+``compress/tpu_optimal.py`` -- lean, optfast, optimal, optimal2, deep and
+``compress_chunk_optimal`` at any of the mesh's keyword sets -- and the
+greedy/lazy static and dynamic tiers) with their two kernels, the scalar
+DEFLATE decoder (``decompress/pallas_decode.py``) with its kernel, and
+the measurement path, all kernels written by hand in CUDA C++ for Hopper
+(``csrc/``).
 
 The package imports ``torch`` and ``numpy`` and nothing of JAX or of the
 JAX package.  Entry points run on the CUDA device unless the caller
@@ -17,7 +19,14 @@ from .compress.dynamic import (
     compress_chunks_dynamic2,
     compress_chunks_dynamic3,
 )
-from .compress.optimal import compress_chunks_lean
+from .compress.optimal import (
+    compress_chunks_lean,
+    compress_chunks_optfast,
+    compress_chunks_optimal,
+    compress_chunks_optimal2,
+    compress_chunks_optimal_deep,
+    compress_chunks_optimal_with,
+)
 from .compress.pipeline import compress_chunks_static, device_stream_to_bytes
 from .decompress.decode import (
     decompress_chunks,
@@ -31,6 +40,11 @@ __all__ = [
     "compress_chunks_dynamic2",
     "compress_chunks_dynamic3",
     "compress_chunks_lean",
+    "compress_chunks_optfast",
+    "compress_chunks_optimal",
+    "compress_chunks_optimal2",
+    "compress_chunks_optimal_deep",
+    "compress_chunks_optimal_with",
     "compress_chunks_static",
     "decompress_chunks",
     "decompress_chunks_host",

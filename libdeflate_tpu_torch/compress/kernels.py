@@ -1,4 +1,5 @@
-"""The lean path's two kernels: wrappers, plain versions, launch counts.
+"""The compress paths' two kernels: wrappers, plain versions, launch
+counts.
 
 Counterpart of ``libdeflate_tpu/compress/pallas_kernels.py``:
 
@@ -24,11 +25,17 @@ from .. import _build
 from .bits import M32
 from .pipeline import MAX_LEN, group_place
 
-# every length 3..66, then half-band steps (tpu_optimal.LEN_LADDER_DENSE2);
-# csrc/dp_parse.cu computes the same 80 rungs arithmetically
+# slot-top lengths: 3..10, then the top of each extra-bit band, then 258
+# (tpu_optimal.LEN_LADDER)
+LEN_LADDER = (3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 16, 18, 22, 26, 30, 34, 42,
+              50, 58, 66, 82, 98, 114, 130, 162, 194, 226, 258)
+# every length 3..66, then half-band steps (tpu_optimal.LEN_LADDER_DENSE2)
 LEN_LADDER_DENSE2 = tuple(range(3, 67)) + (74, 82, 90, 98, 106, 114, 122,
                                            130, 146, 162, 178, 194, 210,
                                            226, 242, 258)
+# the ladders csrc/dp_parse.cu instantiates (each rung table computed
+# arithmetically there), told apart by their rung counts
+LADDERS = {len(lad): lad for lad in (LEN_LADDER, LEN_LADDER_DENSE2)}
 WIN = 512                  # circular cost-window rows (>= 259, power of 2)
 _BIG = 1 << 28
 _BIG2 = 1 << 29
@@ -81,12 +88,22 @@ def _split_choice(choice: torch.Tensor):
     return (choice >> 16) & 0xFFFF, choice & 0xFFFF
 
 
+def ladder_rungs(ladder) -> int:
+    """The rung count that names ``ladder`` to the kernel; a ladder other
+    than LEN_LADDER and LEN_LADDER_DENSE2 raises."""
+    ladder = tuple(int(f) for f in ladder)
+    if LADDERS.get(len(ladder)) != ladder:
+        raise ValueError("dp_parse: the ladder must be LEN_LADDER or "
+                         "LEN_LADDER_DENSE2")
+    return len(ladder)
+
+
 def dp_parse_plain(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC,
-                   d3, cd3, lc_len, S: int):
+                   d3, cd3, lc_len, S: int, ladder=LEN_LADDER_DENSE2):
     """Plain PyTorch version of the DP kernel on [B, n_pad] inputs.
 
     Backwards over t = S-1..0 for every S-position segment (lane) at
-    once: the literal edge, the 80 ladder rungs (the cheapest of A/B/C
+    once: the literal edge, the ladder's rungs (the cheapest of A/B/C
     with len >= f, plus d3 at f = 3) and the tail edge of length S-t.
     The first minimum over [literal, rungs in ladder order, tail] is the
     kernel's "only a strictly lower cost replaces" rule.  lc_len is one
@@ -101,10 +118,10 @@ def dp_parse_plain(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC,
     lc = x.pop("lc").repeat_interleave(lpc, 0)               # [lanes, 259]
     r = {k: v.reshape(lanes, S).T for k, v in x.items()}     # [S, lanes]
 
-    ladder = torch.tensor(LEN_LADDER_DENSE2, device=dev)
-    nr = len(LEN_LADDER_DENSE2)
+    nr = ladder_rungs(ladder)
+    ladder = torch.tensor(LADDERS[nr], device=dev)
     f = ladder[:, None]
-    lc_rungs = lc[:, ladder].T                               # [80, lanes]
+    lc_rungs = lc[:, ladder].T                               # [nr, lanes]
     order = torch.arange(nr + 2, device=dev)[:, None]
     D = torch.zeros(WIN, lanes, dtype=torch.int64, device=dev)
     choice = torch.empty(S, lanes, dtype=torch.int64, device=dev)
@@ -120,7 +137,7 @@ def dp_parse_plain(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC,
         return cd, dsel
 
     for t in range(S - 1, -1, -1):
-        cd, dsel = pick(t, f)                                # [80, lanes]
+        cd, dsel = pick(t, f)                                # [nr, lanes]
         use3 = (r["d3"][t] > 0) & (r["c3"][t] < cd[0])
         cd[0] = torch.where(use3, r["c3"][t], cd[0])
         dsel[0] = torch.where(use3, r["d3"][t], dsel[0])
@@ -168,27 +185,29 @@ def _require_cuda(tensors, what: str) -> None:
 
 
 def dp_parse_into(arrs, lc_len, S: int, span: torch.Tensor,
-                  dist: torch.Tensor) -> None:
+                  dist: torch.Tensor, ladder=LEN_LADDER_DENSE2) -> None:
     """The bare launch of the DP kernel on CUDA tensors: the twelve
     [B, n_pad] contiguous int64 arrays ``arrs``, lc_len contiguous int32
     or int64 [259] or [B, 259] (non-negative), span and dist int64
-    [B, n_pad], every element written.  Counts nothing: ``dp_parse`` is
-    the wrapper."""
+    [B, n_pad], every element written, ``ladder`` LEN_LADDER or
+    LEN_LADDER_DENSE2.  Counts nothing: ``dp_parse`` is the wrapper."""
     B, n_pad = arrs[0].shape
     P, I = _build.PTR, _build.INT
     fn = _build.kernel("dp_parse", "dp_parse_launch",
-                       [P] * 13 + [I, I, P, P, I, I, I, P])
+                       [P] * 13 + [I, I, P, P, I, I, I, I, P])
     _check(fn(*map(_ptr, arrs), _ptr(lc_len),
               int(lc_len.dtype == torch.int64),
               1 if lc_len.dim() == 1 else B, _ptr(span), _ptr(dist), S,
-              B * (n_pad // S), n_pad // S, _stream()), "dp_parse")
+              B * (n_pad // S), n_pad // S, ladder_rungs(ladder), _stream()),
+           "dp_parse")
 
 
 def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
-             lc_len, S: int):
+             lc_len, S: int, ladder=LEN_LADDER_DENSE2):
     """Backwards min-cost DP (``dp_parse_pallas``): [B, n_pad] candidate
     and cost arrays plus the [259] or [B, 259] per-length match costs ->
-    (span, dist) int64 [B, n_pad].  CUDA kernel for CUDA tensors
+    (span, dist) int64 [B, n_pad], over ``ladder`` (LEN_LADDER or
+    LEN_LADDER_DENSE2; another ladder raises).  CUDA kernel for CUDA tensors
     (contiguous int64 arrays, an int32 or int64 lc_len of non-negative
     costs, read as they are: the wrapper allocates the outputs and
     launches, nothing else), the plain version for CPU tensors."""
@@ -197,8 +216,9 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
     if any(a.shape != (B, n_pad) for a in arrs) or n_pad % S:
         raise ValueError("dp_parse: inputs must share one [B, n_pad] shape "
                          "with n_pad a multiple of S")
+    ladder_rungs(ladder)
     if cost_lit.device.type == "cpu":
-        return dp_parse_plain(*arrs, lc_len, S)
+        return dp_parse_plain(*arrs, lc_len, S, ladder)
     _require_cuda(arrs + (lc_len,), "dp_parse")
     if any(a.dtype != torch.int64 or not a.is_contiguous() for a in arrs):
         raise ValueError("dp_parse: the [B, n_pad] arrays must be contiguous "
@@ -211,7 +231,7 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
     span = torch.empty(B, n_pad, dtype=torch.int64, device=cost_lit.device)
     dist = torch.empty_like(span)
     if span.numel():
-        dp_parse_into(arrs, lc_len, S, span, dist)
+        dp_parse_into(arrs, lc_len, S, span, dist, ladder)
         dp_parse.launches += 1
     return span, dist
 

@@ -1,17 +1,31 @@
-"""The lean min-cost-DP compress tier, on the CUDA device.
+"""The min-cost-DP compress tiers, on the CUDA device.
 
-Counterpart of the lean tier of ``libdeflate_tpu/compress/tpu_optimal.py``:
-the ladders and cost constants (lines 75-97), ``_literal_costs`` with
-``sample=32`` (135-179), ``_dist_cost`` (182), ``_seed_lc_len``
-(191-207), ``_commit`` (349) and ``compress_chunks_lean_pallas``
-(733-754), which is ``_compress_chunks_optimal_pallas`` (524-684) at
-``passes=1`` with the dense ladder, raw candidate C, no second
-relaxation round, 11-bit codes and a 1/32 literal sample.
+Counterpart of ``libdeflate_tpu/compress/tpu_optimal.py``: the ladders
+and cost constants (lines 72-97), ``_literal_costs`` (135-179, every
+sample, with ``table`` and ``cache``), ``_dist_cost`` (182),
+``_seed_lc_len`` (191-207), ``_SHORT_BIAS16`` (217), ``_lc_len_from_lens``
+(220), ``_take30`` (232), ``_commit`` (349), ``_code_lens_from_items``
+(358), ``parse_chunk_optimal`` and ``compress_chunk_optimal`` (383-482,
+batched as ``compress_chunks_optimal_with``), and the entries
+``compress_chunks_optimal``, ``compress_chunks_optimal2``,
+``compress_chunks_optimal_deep`` (485-521) with their ``_pallas`` twins
+(687-716), ``compress_chunks_optfast_pallas`` (719) and
+``compress_chunks_lean_pallas`` (733), all through one function,
+``_compress_dp``, which mirrors ``_compress_chunks_optimal_pallas``
+(524-684): candidates, seed costs, the DP kernel, commit, then each
+further cost pass (code lengths from the items, re-translated costs, the
+DP and commit again), then the emission.
 
 ``_dp_parse`` (244-346), the XLA DP, has its counterpart in
 ``kernels.dp_parse_plain``, the plain version of the DP kernel; the
-per-position byte-cost select tree (``_byte_table_select``) becomes
-indexing.
+per-position select trees (``_byte_table_select``, ``_take30``) become
+indexing.  Where the XLA entries and the ``_pallas`` twins differ, the
+port follows the XLA ones: in a further cost pass every DP lane reads its
+own chunk's match-cost table (the Pallas kernel reads one table a
+1024-lane block, the same only where a chunk fills whole blocks), and
+``compress_chunks_optimal_with`` ignores ``lit_sample`` as
+``parse_chunk_optimal`` does (``_compress_chunks_optimal_pallas``
+honours it).
 """
 
 from __future__ import annotations
@@ -23,9 +37,24 @@ import torch
 
 from ..device import from_numpy_batch
 from . import kernels
-from .bits import bsr
-from .dynamic import batched_hist, emit_dynamic_block
-from .pipeline import commit_items, parse_candidates_lean
+from .bits import bsr, length_slot, offset_slot
+from .dynamic import (
+    DONT_CARE,
+    MAX_CODE_LEN_DEEP,
+    NDIST,
+    NSYM,
+    batched_hist,
+    build_code_lens_pair,
+    emit_dynamic_block,
+)
+from .kernels import LEN_LADDER, LEN_LADDER_DENSE2
+from .pipeline import (
+    LEAN_CANDIDATES,
+    STRIDES,
+    behind,
+    commit_items,
+    parse_candidates,
+)
 
 DP_SEG = 1024
 BIT = 16
@@ -50,6 +79,15 @@ def _seed_lc_len() -> np.ndarray:
 
 
 SEED_LC_LEN = _seed_lc_len()
+# the passes >= 2 tiers' seed bias: 3 bits off matches of length <= 8
+SHORT_BIAS16 = np.where(np.arange(259) <= 8, 3 * BIT, 0).astype(np.int32)
+
+
+def seed_lc_len(match_bias16=0) -> np.ndarray:
+    """Pass 1's [259] match costs: SEED_LC_LEN less ``match_bias16`` (a
+    scalar or a [259] table), at least 1, lengths < 3 not matches."""
+    lc = np.maximum(SEED_LC_LEN - np.asarray(match_bias16, np.int64), 1)
+    return np.where(np.arange(259) < 3, 1 << 28, lc).astype(np.int32)
 
 
 def _f32(v: float) -> torch.Tensor:
@@ -109,21 +147,39 @@ def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
     return fma_f32(_f32(_LOG_Q2), e, r)
 
 
-def literal_cost_table(bp: torch.Tensor,
-                       length: torch.Tensor) -> torch.Tensor:
+def literal_hist_rows(bp: torch.Tensor, length: torch.Tensor,
+                      sample: int = 1) -> torch.Tensor:
+    """The per-row byte histogram that ``_literal_costs`` keeps as its
+    cache: every ``sample``-th byte before ``length`` (class 256 past
+    it and in the padding), split into max(n_s // 65536, 1) equal
+    contiguous rows, [B, rows, 257]."""
+    B = bp.shape[0]
+    n_s = bp.shape[1] // sample
+    pos = torch.arange(n_s, device=bp.device)
+    sym = torch.where(pos * sample < length.reshape(B, 1),
+                      bp[:, ::sample][:, :n_s].to(torch.int64), 256)
+    rows = max(n_s // 65536, 1)
+    n_rs = -(-n_s // (rows * 128)) * (rows * 128)
+    sym = torch.nn.functional.pad(sym, (0, n_rs - n_s), value=256)
+    return batched_hist(sym.reshape(B * rows, n_rs // rows),
+                        257).reshape(B, rows, 257)
+
+
+def literal_cost_table(bp: torch.Tensor, length: torch.Tensor,
+                       sample: int = LIT_SAMPLE,
+                       cache: torch.Tensor | None = None) -> torch.Tensor:
     """[B, 256] literal costs (1/16 bit) from the histogram of every
-    32nd byte: -16*log2(p) clamped to [1, 15] bits, 15 bits for
-    unseen bytes (``_literal_costs``' seeding branch).
+    ``sample``-th byte (or of a given ``literal_hist_rows`` cache):
+    -16*log2(p) clamped to [1, 15] bits, 15 bits for unseen bytes
+    (``_literal_costs``' seeding branch).
 
     XLA compiles the reference's ``log2(total) - log2(h)`` to
     ``log(total)*c - log(h)*c`` with c = float32(1/ln 2), the second
     product contracted into a multiply-add; the table repeats that
     arithmetic exactly (``xla_log_f32``, ``fma_f32``)."""
-    n_s = bp.shape[1] // LIT_SAMPLE
-    pos = torch.arange(n_s, device=bp.device)
-    sym = torch.where(pos * LIT_SAMPLE < length[:, None],
-                      bp[:, ::LIT_SAMPLE][:, :n_s].to(torch.int64), 256)
-    h = batched_hist(sym, 256)
+    if cache is None:
+        cache = literal_hist_rows(bp, length, sample)
+    h = cache.sum(1)[:, :256]
     return seed_costs(h, torch.clamp(h.sum(1), min=1))
 
 
@@ -147,11 +203,74 @@ def literal_costs(bp: torch.Tensor, length: torch.Tensor,
     return torch.where(pos < length[:, None], c_at, 0)
 
 
+def literal_costs_with(bp: torch.Tensor, length: torch.Tensor,
+                       table: torch.Tensor | None = None,
+                       cache: torch.Tensor | None = None, sample: int = 1):
+    """``_literal_costs``, batched: (per-position literal costs [B,
+    n_pad], the row histogram cache [B, rows, 257] or the given one).
+    With ``table`` ([B, 256], e.g. code lengths * 16) the bytes translate
+    through it, 14 bits where it is 0, and no histogram is taken."""
+    if table is None:
+        if cache is None:
+            cache = literal_hist_rows(bp, length, sample)
+        table = literal_cost_table(bp, length, cache=cache)
+    else:
+        table = torch.where(table > 0, table, 14 * BIT)
+    return literal_costs(bp, length, table), cache
+
+
 def dist_cost(dist: torch.Tensor) -> torch.Tensor:
     """Seeded offset cost DIST_SYM_COST + 16 * extra_bits (``_dist_cost``)."""
     o1 = torch.clamp(dist.to(torch.int64), min=1) - 1
     k = bsr(torch.clamp(o1, min=1))
     return DIST_SYM_COST + BIT * torch.clamp(k - 1, min=0)
+
+
+def lc_len_from_lens(lit_lens: torch.Tensor) -> torch.Tensor:
+    """Per-length match costs [B, 259] from litlen code lengths [B, 286]
+    (``_lc_len_from_lens``): the length symbol's bits, 14 for an unused
+    symbol, plus the extra bits, in 1/16 bit; lengths < 3 not matches."""
+    f = torch.arange(259, device=lit_lens.device)
+    lslot, _, lextra = length_slot(torch.clamp(f, min=3))
+    sym_len = lit_lens[:, 257 + lslot].to(torch.int64)
+    out = torch.where(sym_len > 0, sym_len, 14) * BIT + BIT * lextra
+    return torch.where(f < 3, 1 << 28, out)
+
+
+def take30(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``_take30``: table [B, 30] at idx [B, n], the select tree's reading
+    of the low five bits (30 and 31 read entry 29)."""
+    return table.gather(1, torch.clamp(idx & 31, max=29))
+
+
+def dist_cost_from(table: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """A further pass's offset cost: the offset slot's cost from
+    ``table`` [B, 30] plus 16 per extra bit."""
+    oslot, _, oextra = offset_slot(torch.clamp(dist, min=1))
+    return take30(table, oslot) + BIT * oextra
+
+
+def code_lens_from_items(bp, commit_match, commit_lit, eff, dist):
+    """Litlen and offset code lengths [B, 286], [B, 30] of a pass's
+    committed items (``_code_lens_from_items``): a match's length symbol
+    at its position and its offset symbol one position after, a literal's
+    byte; end-of-block counted once, and symbols 0 (litlen) and 0, 1
+    (offset) forced to 1 where unused; 15-bit codes, 16 refinement
+    passes."""
+    lslot = length_slot(torch.clamp(eff, min=3))[0]
+    oslot = offset_slot(torch.clamp(dist, min=1))[0]
+    sym = torch.where(
+        commit_match, 257 + lslot,
+        torch.where(behind(commit_match, False), NSYM + behind(oslot),
+                    torch.where(commit_lit, bp.to(torch.int64), DONT_CARE)))
+    hist = batched_hist(sym, NSYM + NDIST)
+    hist_lit, hist_dist = hist[:, :NSYM].clone(), hist[:, NSYM:].clone()
+    hist_lit[:, 256] += 1
+    for h, k in ((hist_lit, 0), (hist_dist, 0), (hist_dist, 1)):
+        h[:, k] += (h[:, k] == 0).long()
+    lit_lens, dist_lens, _, _ = build_code_lens_pair(
+        hist_lit, hist_dist, 16, MAX_CODE_LEN_DEEP)
+    return lit_lens, dist_lens
 
 
 def commit(span, dist, pos, length, S_eff: int):
@@ -161,40 +280,175 @@ def commit(span, dist, pos, length, S_eff: int):
                         S_eff)
 
 
-def compress_chunks_lean(bufs, lengths, bfinal, device=None,
-                         on_stage: Callable[[str], None] | None = None):
-    """Single-cost-pass lean DP tier: uint8[B, N], int[B], bool[B] ->
-    (words int32[B, W] holding the uint32 bit patterns, total_bits
-    int64[B]).  Each chunk becomes a byte-aligned raw-DEFLATE fragment
-    (one dynamic or static block plus an empty stored block carrying
-    BFINAL).  Runs on CUDA unless ``device`` names another device.
-
-    ``on_stage(name)``, when given, is called as each stage begins and
-    with ``"end"`` after the last, for per-stage timing."""
+def _compress_dp(bufs, lengths, bfinal, device, on_stage, *,
+                 candidates: dict, passes: int, ladder, lit_sample: int,
+                 match_bias16, refine: int, S: int = DP_SEG):
+    """The DP tiers' pipeline (``_compress_chunks_optimal_pallas``):
+    candidates (``parse_candidates(**candidates)``), seed costs (literal
+    histogram every ``lit_sample``-th byte, seeded offset costs, the
+    seed match costs less ``match_bias16``), the DP kernel over
+    ``ladder`` and the commit; then ``passes - 1`` times code lengths
+    from the items, literal, match and offset costs from them (one
+    match-cost table a chunk), the DP and the commit again; then one
+    dynamic block a chunk with ``refine`` refinement passes (15-bit codes
+    if any, else 11-bit).  ``on_stage(name)`` marks each stage's start
+    and the end; a further pass's stages are named with its number
+    ("dp_2")."""
     mark = on_stage or (lambda name: None)
     bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
     n = bufs.shape[1]
 
     mark("candidates")
-    bp, pos, lenA, dA, lenB, dB, lenC, dC, d3 = parse_candidates_lean(
-        bufs, lengths)
+    bp, pos, lenA, dA, lenB, dB, lenC, dC, d3 = parse_candidates(
+        bufs, lengths, **candidates)
     n_pad = bp.shape[1]
-    S_eff = DP_SEG if (n_pad % DP_SEG == 0 and n_pad >= DP_SEG) else n_pad
+    S_eff = S if (n_pad % S == 0 and n_pad >= S) else n_pad
+    dists = (dA, dB, dC, d3)
 
     mark("costs")
-    cost_lit = literal_costs(bp, lengths, literal_cost_table(bp, lengths))
-    cds = [dist_cost(d) for d in (dA, dB, dC, d3)]
-    lc_len = torch.as_tensor(SEED_LC_LEN, device=bp.device)
-
-    mark("dp")
-    span, dist = kernels.dp_parse(
-        cost_lit, lenA, dA, cds[0], lenB, dB, cds[1], lenC, dC, cds[2],
-        d3, cds[3], lc_len, S_eff)
-
-    mark("commit")
-    commit_match, commit_lit, eff = commit(span, dist, pos, lengths, S_eff)
-    words, total_bits = emit_dynamic_block(bp, bfinal, commit_match,
-                                           commit_lit, eff, dist, n,
-                                           mark=mark)
+    cost_lit, _ = literal_costs_with(bp, lengths, sample=lit_sample)
+    cds = [dist_cost(d) for d in dists]
+    lc_len = torch.as_tensor(seed_lc_len(match_bias16), device=bp.device)
+    for k in range(1, passes + 1):
+        if k > 1:
+            mark(f"code_lens_{k}")
+            lit_lens, dist_lens = code_lens_from_items(bp, cm, cl, eff, dist)
+            mark(f"costs_{k}")
+            cost_lit, _ = literal_costs_with(bp, lengths,
+                                             table=lit_lens[:, :256] * BIT)
+            lc_len = lc_len_from_lens(lit_lens)
+            dtab = torch.where(dist_lens > 0, dist_lens, 14) * BIT
+            cds = [dist_cost_from(dtab, d) for d in dists]
+        sfx = "" if k == 1 else f"_{k}"
+        mark("dp" + sfx)
+        span, dist = kernels.dp_parse(
+            cost_lit, lenA, dA, cds[0], lenB, dB, cds[1], lenC, dC, cds[2],
+            d3, cds[3], lc_len, S_eff, ladder)
+        mark("commit" + sfx)
+        cm, cl, eff = commit(span, dist, pos, lengths, S_eff)
+    words, total_bits = emit_dynamic_block(bp, bfinal, cm, cl, eff, dist, n,
+                                           refine, mark)
     mark("end")
     return words, total_bits
+
+
+# each entry's configuration, as the JAX entries set it
+TIERS = {
+    "lean": dict(candidates=LEAN_CANDIDATES, passes=1,
+                 ladder=LEN_LADDER_DENSE2, lit_sample=LIT_SAMPLE,
+                 match_bias16=0, refine=0),
+    "optfast": dict(candidates=LEAN_CANDIDATES, passes=2,
+                    ladder=LEN_LADDER_DENSE2, lit_sample=1,
+                    match_bias16=SHORT_BIAS16, refine=16),
+    "optimal": dict(candidates={}, passes=1, ladder=LEN_LADDER,
+                    lit_sample=1, match_bias16=0, refine=16),
+    "optimal2": dict(candidates={}, passes=2, ladder=LEN_LADDER,
+                     lit_sample=1, match_bias16=0, refine=16),
+    "deep": dict(candidates=dict(depth=12, two_pass=True, hash3=True,
+                                 wide_window=False, content_doublings=2),
+                 passes=3, ladder=LEN_LADDER_DENSE2, lit_sample=1,
+                 match_bias16=SHORT_BIAS16, refine=16),
+}
+
+
+# the mesh ladder's chunk compressor at levels 5-7, 8-9 and 10-12
+# (parallel/mesh.py:67-81), as ``compress_chunks_optimal_with`` keywords
+MESH_LEVEL_OPTIONS = {
+    5: dict(passes=1, use_content=False, use_wide=False,
+            ladder=LEN_LADDER_DENSE2, ext_c=False, strides2=(),
+            lit_sample=32),
+    8: dict(passes=2, ladder=LEN_LADDER_DENSE2, match_bias16=SHORT_BIAS16),
+    10: dict(depth=12, two_pass=True, hash3=True, passes=2,
+             ladder=LEN_LADDER_DENSE2, match_bias16=SHORT_BIAS16),
+}
+
+
+def compress_chunks_lean(bufs, lengths, bfinal, device=None,
+                         on_stage: Callable[[str], None] | None = None):
+    """Single-cost-pass lean DP tier (``compress_chunks_lean_pallas``):
+    uint8[B, N], int[B], bool[B] -> (words int32[B, W] holding the uint32
+    bit patterns, total_bits int64[B]).  Each chunk becomes a
+    byte-aligned raw-DEFLATE fragment (one dynamic or static block plus
+    an empty stored block carrying BFINAL).  Runs on CUDA unless
+    ``device`` names another device.
+
+    ``on_stage(name)``, when given, is called as each stage begins and
+    with ``"end"`` after the last, for per-stage timing."""
+    return _compress_dp(bufs, lengths, bfinal, device, on_stage,
+                        **TIERS["lean"])
+
+
+def compress_chunks_optfast(bufs, lengths, bfinal, device=None,
+                            on_stage: Callable[[str], None] | None = None):
+    """Lean two-cost-pass DP tier (``compress_chunks_optfast_pallas``):
+    the lean candidates, the dense ladder, the short-match seed bias, a
+    refined second cost pass, 15-bit codes.  Same contract as
+    ``compress_chunks_lean``."""
+    return _compress_dp(bufs, lengths, bfinal, device, on_stage,
+                        **TIERS["optfast"])
+
+
+def compress_chunks_optimal(bufs, lengths, bfinal, device=None,
+                            on_stage: Callable[[str], None] | None = None):
+    """DP tier at every ``compress_chunk_optimal`` default
+    (``compress_chunks_optimal`` and ``_pallas``): the content pass, 32-byte
+    payloads, C in the relaxation, two relaxation rounds, LEN_LADDER, one
+    cost pass.  Same contract as ``compress_chunks_lean``."""
+    return _compress_dp(bufs, lengths, bfinal, device, on_stage,
+                        **TIERS["optimal"])
+
+
+def compress_chunks_optimal2(bufs, lengths, bfinal, device=None,
+                             on_stage: Callable[[str], None] | None = None):
+    """``compress_chunks_optimal`` with a refined second cost pass
+    (``compress_chunks_optimal2`` and ``_pallas``)."""
+    return _compress_dp(bufs, lengths, bfinal, device, on_stage,
+                        **TIERS["optimal2"])
+
+
+def compress_chunks_optimal_deep(
+        bufs, lengths, bfinal, device=None,
+        on_stage: Callable[[str], None] | None = None):
+    """The deep DP tier (``compress_chunks_optimal_deep`` and ``_pallas``):
+    depth 12, the rescue pass, hash3, 64 KiB windows, two suffix-rank
+    doublings in the content pass, the dense ladder, the short-match
+    bias, three cost passes.  Same contract as ``compress_chunks_lean``."""
+    return _compress_dp(bufs, lengths, bfinal, device, on_stage,
+                        **TIERS["deep"])
+
+
+def compress_chunks_optimal_with(bufs, lengths, bfinal, device=None,
+                                 on_stage: Callable[[str], None] | None = None,
+                                 depth: int = 6, two_pass: bool = False,
+                                 hash3: bool = False, passes: int = 1,
+                                 use_content: bool = True,
+                                 use_wide: bool = True, ladder=LEN_LADDER,
+                                 refine_passes: int = 16, S: int = DP_SEG,
+                                 ext_c: bool = True, lcp: int = 16,
+                                 row_lit1: bool = False, strides2=STRIDES,
+                                 strides1=STRIDES, lit_sample: int = 1,
+                                 content_doublings: int = 0,
+                                 content_round_probes: bool = False,
+                                 match_bias16=0):
+    """``compress_chunk_optimal`` with keyword arguments, over a batch
+    (its ``jax.vmap``), as the mesh ladder calls it at levels 5-12:
+    ``parse_chunk_optimal``'s options, the windows 64 KiB with
+    ``two_pass`` or ``hash3`` and 128 KiB otherwise.  ``lit_sample`` is
+    accepted and ignored, as there (the seed histogram takes every
+    byte).  ``row_lit1`` is an option of the JAX package's experiments
+    only and raises; so do ``lcp`` other than 16 and
+    ``content_round_probes``.  Same contract as
+    ``compress_chunks_lean``."""
+    if row_lit1:
+        raise NotImplementedError("compress_chunks_optimal_with: row_lit1 "
+                                  "is not ported")
+    candidates = dict(depth=depth, two_pass=two_pass, hash3=hash3,
+                      wide_window=not (two_pass or hash3),
+                      use_content=use_content, use_wide=use_wide, ext_c=ext_c,
+                      lcp=lcp, strides2=strides2, strides1=strides1,
+                      content_doublings=content_doublings,
+                      content_round_probes=content_round_probes)
+    return _compress_dp(bufs, lengths, bfinal, device, on_stage,
+                        candidates=candidates, passes=passes, ladder=ladder,
+                        lit_sample=1, match_bias16=match_bias16,
+                        refine=refine_passes, S=S)

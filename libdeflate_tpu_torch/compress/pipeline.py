@@ -1,24 +1,27 @@
-"""Compress pipeline stages on [B, n] tensors: the lean path's and the
-greedy/lazy tiers'.
+"""Compress pipeline stages on [B, n] tensors: the DP tiers' candidates
+and the greedy/lazy tiers' parser.
 
 Counterpart of ``libdeflate_tpu/compress/tpu_pipeline.py``: the constants
 (lines 60-81), ``_static_litlen_code`` (107), ``_le32_words`` (163),
-``_segment_sizes`` (175), ``_sorted_matchfind`` (192-395; its lean
-``return_triple`` branch is ``sorted_matchfind_lean``), ``_chain_extend``
-(631), ``_chain_extend2`` (654), ``_chain_extend_multi`` (690), the
-``ext_c=False`` arm of ``_parse_candidates`` (1086-1235),
-``_greedy_commit_merge`` (771), ``_exclusive_bit_offsets`` (828),
-``_group_premerge`` (861), ``_group_place`` (909), ``_hash3_matchfind``
-(934), ``_parse_chunk`` (965-1083, as ``greedy_candidates`` and
-``commit_items``), ``compress_chunk_static`` and
-``compress_chunks_static`` (1238-1305) and ``device_stream_to_bytes``
-(1308).
+``_segment_sizes`` (175), ``_sorted_matchfind`` (192-395; its
+``return_triple`` branches are ``sorted_matchfind_lean`` and
+``sorted_matchfind_triple``), ``_row_cummax`` (397, as ``cummax``),
+``_content_sorted_matchfind`` (410-538, without ``round_probes``),
+``_pool_probe`` (549), ``_chain_extend`` (631), ``_chain_extend2`` (654),
+``_chain_extend_multi`` (690), ``_parse_candidates`` (1086-1235, as
+``parse_candidates``), ``_greedy_commit_merge`` (771),
+``_exclusive_bit_offsets`` (828), ``_group_premerge`` (861),
+``_group_place`` (909), ``_hash3_matchfind`` (934), ``_parse_chunk``
+(965-1083, as ``greedy_candidates`` and ``commit_items``),
+``compress_chunk_static`` and ``compress_chunks_static`` (1238-1305) and
+``device_stream_to_bytes`` (1308).
 
 The JAX functions work on one chunk under ``vmap``; these take a leading
 batch axis.  Where the TPU needed a trick the port uses the direct op:
-the un-permute sort becomes a scatter by the sort's own indices, the
-triangular-matmul prefix sum becomes ``cumsum``, the reverse log-shift
-minimum becomes ``cummin``, the one-hot alphabet count of the minimum
+the un-permute sort becomes a scatter by the sort's own indices, a sort
+on three keys becomes two stable int64 sorts, the triangular-matmul
+prefix sum becomes ``cumsum``, the log-shift running extrema become
+``cummin`` and ``cummax``, the one-hot alphabet count of the minimum
 match length becomes a scatter.  Every result is bit-equal to the JAX
 one.
 """
@@ -98,13 +101,37 @@ def _tz_bytes(x: torch.Tensor) -> torch.Tensor:
                     torch.where((x & 0xFFFFFF) != 0, 2, 3)))
 
 
+def _word_lcp(ok, xs):
+    """Word-granular LCP of probes whose payload XORs are ``xs`` (w, w4,
+    then w8, w12 and any wider words), gated by ``ok``: (mlen, fine,
+    eq4), fine the byte remainder from the first unequal word (0 at full
+    LCP), as ``_sorted_matchfind``'s and ``_pool_probe``'s probes
+    compute it."""
+    eq4 = eq = ok & (xs[0] == 0)
+    mlen = 4 * eq4.long()
+    chain = []
+    for x in xs[1:]:
+        eq = eq & (x == 0)
+        mlen = mlen + 4 * eq.long()
+        chain.append(eq)
+    if len(xs) == 2:
+        x_sel = torch.where(~chain[0], xs[1], 0)
+    else:
+        x_sel = xs[-1]
+        for k in range(len(xs) - 3, -1, -1):
+            x_sel = torch.where(~chain[k], xs[k + 1], x_sel)
+    fine = torch.where((x_sel != 0) & eq4, _tz_bytes(x_sel), 0)
+    return mlen, fine, eq4
+
+
 def _segment_probe(h, ws, seg: int):
     """Sort every ``seg``-position segment of [B, n] by (hash, position)
-    with the payload words ``ws``, (w, w4) or (w, w4, w8, w12).  Returns
-    the sort's order (each sorted slot's local position, [rows, seg]) and
-    probe(d): per sorted slot, the word-granular (mlen, dist, fine) of the
-    slot d before it in the same bucket, as ``_sorted_matchfind``'s probe
-    computes it (lcp 8 with two payloads, 16 with four)."""
+    with the payload words ``ws``: (w, w4), (w, w4, w8, w12) or those
+    and the wide words w16..w28.  Returns the sort's order (each sorted
+    slot's local position, [rows, seg]) and probe(d): per sorted slot,
+    the word-granular (mlen, dist, fine) of the slot d before it in the
+    same bucket, as ``_sorted_matchfind``'s probe computes it (lcp 8
+    with two payloads, 16 with four, 32 with eight)."""
     rows = h.numel() // seg
     pos_bits, junk = seg_key_params(seg)
     lp = torch.arange(seg, device=h.device, dtype=torch.int64)
@@ -119,20 +146,8 @@ def _segment_probe(h, ws, seg: int):
         same = ((shash == torch.roll(shash, d, 1)) & (shash != junk)
                 & (col >= d))
         dist = torch.where(same, order - torch.roll(order, d, 1), WINDOW + 1)
-        same = same & (dist <= WINDOW)
-        xs = [x ^ torch.roll(x, d, 1) for x in sws]
-        eq4 = same & (xs[0] == 0)
-        eq8 = eq4 & (xs[1] == 0)
-        mlen = 4 * (eq4.long() + eq8.long())
-        if len(xs) == 4:
-            eq12 = eq8 & (xs[2] == 0)
-            eq16 = eq12 & (xs[3] == 0)
-            mlen = mlen + 4 * (eq12.long() + eq16.long())
-            # byte remainder from the first unequal word (0 at full LCP)
-            x_sel = torch.where(~eq8, xs[1], torch.where(~eq12, xs[2], xs[3]))
-        else:
-            x_sel = torch.where(~eq8, xs[1], 0)
-        fine = torch.where((x_sel != 0) & eq4, _tz_bytes(x_sel), 0)
+        mlen, fine, eq4 = _word_lcp(same & (dist <= WINDOW),
+                                    [x ^ torch.roll(x, d, 1) for x in sws])
         return mlen, torch.where(eq4, dist, 0), fine
 
     return order, probe
@@ -200,7 +215,7 @@ def sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 2,
     return chain_extend2(*_unpay(pa), *_unpay(pb))
 
 
-def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int):
+def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int, depth: int = DEPTH):
     """Lean branch of ``_sorted_matchfind`` (``return_triple=True``,
     16-byte payloads, ``wide=None``): the best, the best at another
     distance, and the nearest same-hash candidate per position, each as
@@ -210,7 +225,7 @@ def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int):
     order, probe = _segment_probe(h, (w, w4, w8, w12), seg)
     mlenC, distC, fineC = probe(1)
     pays = [_pack_inv(mlenC, distC, fineC)]
-    pays += [_pack_inv(*probe(d)) for d in range(2, DEPTH + 1)]
+    pays += [_pack_inv(*probe(d)) for d in range(2, depth + 1)]
     a, b = _best_two(pays)
     # C rides payload bits 23..31 of both words as (len/4 capped at 3, dist)
     cbits = (torch.clamp(mlenC >> 2, 0, 3) << 16) | distC
@@ -224,6 +239,112 @@ def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int):
 
     triC = ((cb >> 16) << 2, cb & 0xFFFF, torch.zeros_like(cb))
     return unpack(pa), unpack(pb), triC
+
+
+def sorted_matchfind_triple(h, ws, seg: int, depth: int = DEPTH):
+    """``_sorted_matchfind``'s ``return_triple`` branch with wide payloads
+    (``ws`` the eight words w, w4, ..., w28: an LCP of up to 32 bytes
+    plus the remainder): the best, the best at another distance and the
+    nearest same-hash candidate per position, each a raw word-granular
+    (mlen, dist, fine) [B, n] triple, C unpacked in full."""
+    order, probe = _segment_probe(h, ws, seg)
+    c = probe(1)
+    pays = [_pack_inv(*c)] + [_pack_inv(*probe(d))
+                              for d in range(2, depth + 1)]
+    a, b = _best_two(pays)
+    return [_unpay(x) for x in _unpermute(order, h.shape, _pay(*a),
+                                          _pay(*b), _pay(*c))]
+
+
+def _sort3(ka, kb, kc):
+    """Per row of [rows, seg] keys, the order sorting by (ka, kb, kc)
+    (``lax.sort`` with three keys): ka and kb below 2**32, kc below 2**18
+    and unique within a row.  A sort by (kb, kc) packed into one int64,
+    then a stable sort by ka."""
+    o1 = torch.argsort((kb << 18) | kc, dim=1)
+    o2 = torch.sort(ka.gather(1, o1), dim=1, stable=True).indices
+    return o1.gather(1, o2)
+
+
+def _pool_probe(sjunk, slp, sws, depth: int):
+    """+-depth neighbour probes over one sorted order (``_pool_probe``):
+    the packed (best, best at a distinct distance) candidate pair per
+    sorted slot, pay = mlen<<18 | fine<<16 | dist.  ``sjunk`` flags the
+    junk slots, ``slp`` holds each slot's position, ``sws`` the sorted
+    payload words."""
+    seg = slp.shape[1]
+    col = torch.arange(seg, device=slp.device)[None, :]
+    z = torch.zeros_like(slp)
+    mlen, dist, fine, mlen2, dist2, fine2 = (z,) * 6
+    for d in list(range(1, depth + 1)) + [-k for k in range(1, depth + 1)]:
+        same = ((sjunk == 0) & (torch.roll(sjunk, d, 1) == 0)
+                & (col >= d if d > 0 else col < seg + d))
+        dist_i = slp - torch.roll(slp, d, 1)
+        ok = same & (dist_i >= 1) & (dist_i <= WINDOW)
+        m2, f2, eq4 = _word_lcp(ok, [x ^ torch.roll(x, d, 1) for x in sws])
+        d2 = torch.where(eq4, dist_i, 0)
+        better = ((m2 > mlen) | ((m2 == mlen) & (f2 > fine))
+                  | ((m2 == mlen) & (f2 == fine) & (d2 < dist) & (d2 > 0)))
+        cm = torch.where(better, mlen, m2)
+        cd = torch.where(better, dist, d2)
+        cf = torch.where(better, fine, f2)
+        nbd = torch.where(better, d2, dist)
+        upd2 = ((cd != nbd) & (cd != 0)
+                & ((cm > mlen2) | ((cm == mlen2) & (cf > fine2))))
+        mlen2 = torch.where(upd2, cm, mlen2)
+        dist2 = torch.where(upd2, cd, dist2)
+        fine2 = torch.where(upd2, cf, fine2)
+        mlen = torch.where(better, m2, mlen)
+        dist = torch.where(better, d2, dist)
+        fine = torch.where(better, f2, fine)
+    return _pay(mlen, dist, fine), _pay(mlen2, dist2, fine2)
+
+
+def content_sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 6,
+                             wide=(), doublings: int = 0):
+    """The content-ordered candidate pass (``_content_sorted_matchfind``
+    without ``round_probes``): every ``seg``-position segment sorted by
+    (hash, the next 17 content bits), then bytes 6..9 in byte order, then
+    position, so that suffixes sharing long prefixes sit side by side;
+    with ``doublings`` each round first re-ranks by (rank, rank h ahead),
+    h = 10, 20, ...  Returns the raw (mlen, dist, fine) triples of the
+    best and the best at a distinct distance of the +-depth neighbour
+    probes, [B, n] each."""
+    shape = h.shape
+    rows = h.numel() // seg
+    junk = seg_key_params(seg)[1]
+    h, w, w4, w8, w12 = (x.reshape(rows, seg) for x in (h, w, w4, w8, w12))
+    col = torch.arange(seg, device=h.device, dtype=torch.int64)[None, :]
+    # the hash (wrapped to 32 bits, as uint32), bytes 4 and 5 and the top
+    # bit of byte 6; then bytes 6..9 byte-reversed
+    k1 = (((h << 17) & M32) | ((w4 & 0xFF) << 9) | (((w4 >> 8) & 0xFF) << 1)
+          | ((w4 >> 23) & 1))
+    w6 = (w4 >> 16) | ((w8 << 16) & M32)
+    k2 = (((w6 & 0xFF) << 24) | ((w6 & 0xFF00) << 8) | ((w6 >> 8) & 0xFF00)
+          | (w6 >> 24))
+    is_junk = h == junk
+    lpj = col | (is_junk.long() << 17)
+    ka, kb = k1, k2
+    h_cov = 10
+    for _ in range(doublings):
+        order = _sort3(ka, kb, lpj)
+        ska, skb = ka.gather(1, order), kb.gather(1, order)
+        newg = (ska != behind(ska)) | (skb != behind(skb)) | (col == 0)
+        rank_sorted = torch.cummax(torch.where(newg, col, 0), 1).values
+        rank, = _unpermute(order, (rows, seg), rank_sorted)
+        ka = rank
+        kb = torch.cat([rank[:, h_cov:],
+                        torch.full_like(rank[:, :h_cov], 1 << 17)], 1)
+        h_cov *= 2
+    if doublings:
+        # junk positions stay sorted last
+        ka = torch.where(is_junk, 0x7FFFFFFF, ka)
+    order = _sort3(ka, kb, lpj)
+    sws = [x.reshape(rows, seg).gather(1, order)
+           for x in (w, w4, w8, w12, *wide)]
+    pay_a, pay_b = _pool_probe(is_junk.gather(1, order), order, sws, depth)
+    pa, pb = _unpermute(order, shape, pay_a, pay_b)
+    return _unpay(pa), _unpay(pb)
 
 
 def chain_extend(mlen, dist, fine):
@@ -266,15 +387,15 @@ def chain_extend2(mA, dA, fA, mB, dB, fB):
     return torch.where(useB, lenB, lenA), torch.where(useB, dB, dA)
 
 
-def chain_extend_multi(cands):
+def chain_extend_multi(cands, strides2=STRIDES, strides1=STRIDES):
     """N-candidate chain extension by multi-stride max-relaxation
-    (``_chain_extend_multi`` with ``strides2=()``: one round of strides
-    1..128): lcp(i, d) >= s implies lcp(i, d) = s + lcp(i+s, d).
-    Returns [(len, dist)] per candidate."""
+    (``_chain_extend_multi``): a round of strides ``strides1``, then one
+    of ``strides2`` (empty for the lean tiers); lcp(i, d) >= s implies
+    lcp(i, d) = s + lcp(i+s, d).  Returns [(len, dist)] per candidate."""
     rs = [c[0] for c in cands]
     ds = [c[1] for c in cands]
     fs = [c[2] for c in cands]
-    for s in STRIDES:
+    for s in tuple(strides1) + tuple(strides2):
         r_s = [ahead(r, s) for r in rs]
         d_s = [ahead(d, s) for d in ds]
         f_s = [ahead(f, s) for f in fs]
@@ -294,37 +415,104 @@ def chain_extend_multi(cands):
             for r, d, f in zip(rs, ds, fs)]
 
 
-def parse_candidates_lean(b: torch.Tensor, length: torch.Tensor):
-    """Lean-tier candidate generation (``_parse_candidates`` with depth 6,
-    no rescue pass, no hash3, 128 KiB windows, no content pass, no wide
-    payloads, ``ext_c=False``, ``strides2=()``).
-
-    b: uint8 [B, n]; length: int [B].  Returns (bp, pos, lenA, dA, lenB,
-    dB, lenC, dC, d3), each [B, n_pad] (pos [1, n_pad]); d3 is all zero.
-    """
+def _positions(b: torch.Tensor, length: torch.Tensor, wide_window: bool):
+    """What every parser starts from: (bp the padded bytes, pos [1,
+    n_pad], length [B, 1], words, w4, w8, w12, the masked hash h,
+    sort_seg, fsm_seg, junk_val), as ``_parse_chunk`` and
+    ``_parse_candidates`` compute them."""
     B, n = b.shape
-    n_pad, sort_seg, _ = segment_sizes(n)
+    n_pad, sort_seg, fsm_seg = segment_sizes(n, wide_window)
     junk_val = seg_key_params(sort_seg)[1]
     dev = b.device
     bp = torch.cat([b, torch.zeros(B, n_pad - n, dtype=b.dtype, device=dev)],
                    dim=1)
     pos = torch.arange(n_pad, device=dev, dtype=torch.int64)[None, :]
     length = length.to(torch.int64)[:, None]
-
     words = le32_words(bp)
     w4, w8, w12 = (ahead(words, k) for k in (4, 8, 12))
     h = ((words * MULT) & M32) >> (32 - HASH_ORDER)
     h = torch.where(pos + MIN_MATCH <= length, h, junk_val)
+    return (bp, pos, length, words, w4, w8, w12, h, sort_seg, fsm_seg,
+            junk_val)
 
-    rawA, rawB, rawC = sorted_matchfind_lean(h, words, w4, w8, w12, sort_seg)
-    # C (nearest occurrence) stays at its raw word-granular LCP
-    ext = chain_extend_multi([rawA, rawB])
-    mC0, dC0, fC0 = rawC
-    ext.append((torch.clamp(mC0 + torch.where(mC0 >= 4, fC0, 0),
-                            max=MAX_LEN), dC0))
 
-    # pool: A = longest (ties: nearest), B = second-longest at another
-    # distance, C = nearest occurrence with len >= 4
+def rescue_pass(h, words, w4, sort_seg: int, junk_val: int):
+    """The half-segment-shifted second matchfind of the two-pass modes
+    (depth 2, 8-byte payloads, chain-extended): every position gets at
+    least half a segment of history.  Returns (len, dist) [B, n_pad],
+    zero over the first half segment."""
+    half = sort_seg // 2
+
+    def shift(x, fill):
+        return torch.cat([x[:, half:], torch.full_like(x[:, :half], fill)], 1)
+
+    def unshift(x):
+        return torch.cat([torch.zeros_like(x[:, :half]), x[:, :-half]], 1)
+
+    mlen_b, dist_b = sorted_matchfind(shift(h, junk_val), shift(words, 0),
+                                      shift(w4, 0), None, None, sort_seg)
+    return unshift(mlen_b), unshift(dist_b)
+
+
+def hash3_dist(words, pos, length, sort_seg: int, junk_val: int):
+    """hash3 distances ([B, n_pad], 0 for none) of the positions with
+    three valid bytes before ``length`` [B, 1]."""
+    h3 = (((words & 0xFFFFFF) * MULT) & M32) >> (32 - HASH_ORDER)
+    h3 = torch.where(pos + 3 <= length, h3, junk_val)
+    return hash3_matchfind(h3, words, sort_seg)
+
+
+def parse_candidates(b: torch.Tensor, length: torch.Tensor, depth: int = 6,
+                     two_pass: bool = False, hash3: bool = False,
+                     wide_window: bool = True, use_content: bool = True,
+                     use_wide: bool = True, ext_c: bool = True,
+                     lcp: int = 16, strides2=STRIDES, strides1=STRIDES,
+                     content_doublings: int = 0,
+                     content_round_probes: bool = False):
+    """Candidate generation for the min-cost DP (``_parse_candidates``),
+    batched: b uint8 [B, n], length int [B].  The sorted matchfind's best,
+    runner-up at another distance and nearest candidates (``use_wide``:
+    32-byte payloads, C in full; else 16-byte ones, C packed lean); with
+    ``use_content`` the content-ordered pass adds two more, and all five
+    are relaxed over both stride rounds; else A and B (with ``ext_c`` also
+    C) are relaxed over ``strides1`` then ``strides2``.  The pool keeps A
+    = longest (ties: nearest), B = second-longest at another distance, C
+    = nearest with len >= 4; the rescue pass (``two_pass``) merges into
+    A/B on strictly longer matches; then the cap at the chunk's end and,
+    with ``hash3``, the len-3 distances.
+
+    Returns (bp, pos, lenA, dA, lenB, dB, lenC, dC, d3), each [B, n_pad]
+    (pos [1, n_pad]); d3 is zero without ``hash3``.  ``lcp`` other than
+    16 and ``content_round_probes`` are options of the JAX package's
+    experiments only, and raise."""
+    if lcp != 16 or content_round_probes:
+        raise NotImplementedError(
+            "parse_candidates: lcp other than 16 and content_round_probes "
+            "are not ported")
+    (bp, pos, length, words, w4, w8, w12, h, sort_seg, _,
+     junk_val) = _positions(b, length, wide_window)
+    wide = tuple(ahead(words, k) for k in (16, 20, 24, 28)) \
+        if use_wide else ()
+    if use_wide:
+        rawA, rawB, rawC = sorted_matchfind_triple(
+            h, (words, w4, w8, w12) + wide, sort_seg, depth)
+    else:
+        rawA, rawB, rawC = sorted_matchfind_lean(h, words, w4, w8, w12,
+                                                 sort_seg, depth)
+    if use_content:
+        rawD, rawE = content_sorted_matchfind(
+            h, words, w4, w8, w12, sort_seg, max(depth * 2 // 3, 4), wide,
+            content_doublings)
+        ext = chain_extend_multi([rawA, rawB, rawC, rawD, rawE])
+    elif ext_c:
+        ext = chain_extend_multi([rawA, rawB, rawC], strides2, strides1)
+    else:
+        # C (nearest occurrence) stays at its raw word-granular LCP
+        ext = chain_extend_multi([rawA, rawB], strides2, strides1)
+        mC0, dC0, fC0 = rawC
+        ext.append((torch.clamp(mC0 + torch.where(mC0 >= 4, fC0, 0),
+                                max=MAX_LEN), dC0))
+
     zero = torch.zeros_like(words)
     lenA, dA, lenB, dB, lenC, dC = (zero,) * 6
     for ln, dd in ext:
@@ -342,10 +530,38 @@ def parse_candidates_lean(b: torch.Tensor, length: torch.Tensor):
         beats_c = valid & ((dC == 0) | (dd < dC))
         lenC = torch.where(beats_c, ln, lenC)
         dC = torch.where(beats_c, dd, dC)
+    if two_pass and sort_seg >= 2 * FSM_SEG:
+        # the rescue candidate displaces A on a strictly longer match; the
+        # displaced A becomes B unless the two share a distance
+        mlen_c, dist_c = rescue_pass(h, words, w4, sort_seg, junk_val)
+        beats_a = mlen_c > lenA
+        demote = beats_a & (dist_c != dA)
+        newB_l = torch.where(demote, lenA, lenB)
+        newB_d = torch.where(demote, dA, dB)
+        beats_b = ~beats_a & (mlen_c > lenB) & (dist_c != dA)
+        lenB = torch.where(beats_b, mlen_c, newB_l)
+        dB = torch.where(beats_b, dist_c, newB_d)
+        lenA = torch.where(beats_a, mlen_c, lenA)
+        dA = torch.where(beats_a, dist_c, dA)
 
     cap = torch.clamp(length - pos, 0, MAX_LEN)
     lenA, lenB, lenC = (torch.minimum(x, cap) for x in (lenA, lenB, lenC))
-    return bp, pos, lenA, dA, lenB, dB, lenC, dC, zero
+    d3 = torch.where(cap >= 3, hash3_dist(words, pos, length, sort_seg,
+                                          junk_val), 0) if hash3 else zero
+    return bp, pos, lenA, dA, lenB, dB, lenC, dC, d3
+
+
+# the lean tiers' candidates: no content pass, 16-byte payloads, raw C,
+# one relaxation round
+LEAN_CANDIDATES = dict(use_content=False, use_wide=False, ext_c=False,
+                       strides2=())
+
+
+def parse_candidates_lean(b: torch.Tensor, length: torch.Tensor):
+    """Lean-tier candidate generation: ``parse_candidates`` with
+    ``LEAN_CANDIDATES`` (depth 6, no rescue pass, no hash3, 128 KiB
+    windows)."""
+    return parse_candidates(b, length, **LEAN_CANDIDATES)
 
 
 def hash3_matchfind(h3, words, seg: int):
@@ -392,36 +608,13 @@ def greedy_candidates(b: torch.Tensor, length: torch.Tensor,
     with ``hash3`` len-3 matches where no longer one exists; with ``lazy``
     the offset-weighted one-position deferral.  Returns (bp, pos, span,
     is_match, dist, fsm_seg), arrays [B, n_pad] (pos [1, n_pad])."""
-    B, n = b.shape
-    n_pad, sort_seg, fsm_seg = segment_sizes(n, wide_window)
-    junk_val = seg_key_params(sort_seg)[1]
-    dev = b.device
-    bp = torch.cat([b, torch.zeros(B, n_pad - n, dtype=b.dtype, device=dev)],
-                   dim=1)
-    pos = torch.arange(n_pad, device=dev, dtype=torch.int64)[None, :]
-    length = length.to(torch.int64)[:, None]
-
-    words = le32_words(bp)
-    w4, w8, w12 = (ahead(words, k) for k in (4, 8, 12))
-    h = ((words * MULT) & M32) >> (32 - HASH_ORDER)
-    h = torch.where(pos + MIN_MATCH <= length, h, junk_val)
+    (bp, pos, length, words, w4, w8, w12, h, sort_seg, fsm_seg,
+     junk_val) = _positions(b, length, wide_window)
     mlen, dist = sorted_matchfind(h, words, w4, None if lcp <= 8 else w8,
                                   None if lcp <= 12 else w12, sort_seg,
                                   depth, wide_ext)
     if two_pass and sort_seg >= 2 * FSM_SEG:
-        half = sort_seg // 2
-
-        def shift(x, fill):
-            return torch.cat([x[:, half:], torch.full_like(x[:, :half], fill)],
-                             1)
-
-        def unshift(x):
-            return torch.cat([torch.zeros_like(x[:, :half]), x[:, :-half]], 1)
-
-        mlen_b, dist_b = sorted_matchfind(
-            shift(h, junk_val), shift(words, 0), shift(w4, 0), None, None,
-            sort_seg)
-        mlen_b, dist_b = unshift(mlen_b), unshift(dist_b)
+        mlen_b, dist_b = rescue_pass(h, words, w4, sort_seg, junk_val)
         better = mlen_b > mlen
         mlen = torch.where(better, mlen_b, mlen)
         dist = torch.where(better, dist_b, dist)
@@ -430,9 +623,7 @@ def greedy_candidates(b: torch.Tensor, length: torch.Tensor,
     mlen = torch.minimum(mlen, cap)
     min_len = min_match_len(bp, length)
     if hash3:
-        h3 = (((words & 0xFFFFFF) * MULT) & M32) >> (32 - HASH_ORDER)
-        h3 = torch.where(pos + 3 <= length, h3, junk_val)
-        d3 = hash3_matchfind(h3, words, sort_seg)
+        d3 = hash3_dist(words, pos, length, sort_seg, junk_val)
         use3 = (mlen < MIN_MATCH) & (d3 > 0) & (cap >= 3) & (min_len <= 4)
         mlen = torch.where(use3, 3, mlen)
         dist = torch.where(use3, d3, dist)

@@ -8,7 +8,7 @@
 // What it computes, per lane (one S-position segment of one chunk), for
 // t = S-1 down to 0, with D[S] = 0:
 //   D[t] = min( lit[t] + D[t+1],
-//               min over the 80 ladder rungs f with t+f <= S of
+//               min over the ladder's rungs f with t+f <= S of
 //                   cheapest offset cost among A/B/C with len >= f
 //                   (and d3 at f = 3) + lc[f] + D[t+f],
 //               the tail edge of length S-t when it lies in 3..258 )
@@ -21,10 +21,15 @@
 // output keeps the reference's (span << 16 | dist) word split at bit 16,
 // so a dist of 65536 or more spills into span.
 //
+// The ladder is a template argument: LEN_LADDER_DENSE2 (80 rungs, the
+// lean, optfast and deep tiers) or LEN_LADDER (28 rungs, the optimal
+// tiers), each rung table a constexpr function.
+//
 // What bounds it on this card: bytes, then the serial recurrence.  The
 // work the function needs is 2 adds and 1 min per feasible rung, 317 M
-// rungs for the main path's 4 x 1 MiB batch at S = 1024: 0.057 ms at
-// 132 SMs x 64 INT32 lanes x 1.98 GHz.  Reading the caller's twelve int64
+// rungs for the main path's 4 x 1 MiB batch at S = 1024 on the dense
+// ladder (0.057 ms at 132 SMs x 64 INT32 lanes x 1.98 GHz), 111 M on the
+// sparse one.  Reading the caller's twelve int64
 // inputs once and writing span and dist as int64 once is 470 MB, 0.140 ms
 // at 3.35 TB/s.  Within a lane each step needs the step before, 1024
 // times; only the literal edge reads D[t+1], every rung reads D[t+3] or
@@ -37,8 +42,13 @@
 //   and 16, and 2 and 8 warps a block, beside it).  Thread g
 //   takes rungs g, g+G, g+2G, ... with each rung's length and its
 //   (lc[f] << 9 | order << 2) in registers (a lane's chunk is fixed).
+//   The sparse ladder's 28 rungs give threads 0-3 four rungs and
+//   threads 4-7 three and a padding slot, selected away at its min (a
+//   compile-time no-op on the dense ladder), so that no rung's order
+//   moves and the rung work a lane stays 28.
 // - A candidate is one integer key, cost << 9 | order << 2 | which:
-//   order 0 is the literal, 1-80 the rungs, 81 the tail; which is 0-2
+//   order 0 is the literal, 1..R the rungs in ladder order, R + 1 the
+//   tail (R = 80 or 28); which is 0-2
 //   for A/B/C and 3 for d3.  The first minimum of the reference is the
 //   minimum key, so each rung costs one add of three terms and one min,
 //   and the group reduces its keys with __shfl_xor_sync.
@@ -85,33 +95,56 @@
 
 namespace {
 
-constexpr int kRungs = 80;
 constexpr int kMaxLen = 258;
 constexpr int kLcEntries = 259;
 constexpr int kWin = 512;          // ring slots a lane (>= 259, power of 2)
 constexpr int kMirror = 258;       // slots 0..257 mirrored at 512..769
 constexpr int kShift = 9;          // key = cost << 9 | order << 2 | which
-constexpr int kTailOrder = kRungs + 1;
 constexpr int kInputs = 12;
 constexpr int kGroup = 8;          // threads a lane
 constexpr int kWarps = 4;          // warps a block
 constexpr int kPos = 2;            // positions a thread stages a tile
 constexpr int kKey32MaxS = 8192;   // longest segment for 32-bit keys
 
+// The two length ladders (tpu_optimal.py:75-87), one instantiation each.
 // LEN_LADDER_DENSE2: every length 3..66, then 74..130 step 8, 146..258
 // step 16.
-__host__ __device__ constexpr int rung(int i) {
-  return i < 64 ? i + 3 : (i < 72 ? 66 + 8 * (i - 63) : 130 + 16 * (i - 71));
-}
-static_assert(rung(63) == 66 && rung(64) == 74 && rung(71) == 130 &&
-                  rung(72) == 146 && rung(kRungs - 1) == 258,
-              "ladder");
+struct Dense2 {
+  static constexpr int kRungs = 80;
+  __host__ __device__ static constexpr int rung(int i) {
+    return i < 64 ? i + 3 : (i < 72 ? 66 + 8 * (i - 63) : 130 + 16 * (i - 71));
+  }
+};
+static_assert(Dense2::rung(63) == 66 && Dense2::rung(64) == 74 &&
+                  Dense2::rung(71) == 130 && Dense2::rung(72) == 146 &&
+                  Dense2::rung(Dense2::kRungs - 1) == 258,
+              "dense ladder");
 
-template <int G>
+// LEN_LADDER: 3..10, then four tops of each extra-bit band b = 0..4,
+// 2 + 8 * 2^b + 2^(b+1) * (k + 1) for k = 0..3 (12..18, 22..34, 42..66,
+// 82..130, 162..258).
+struct Sparse {
+  static constexpr int kRungs = 28;
+  __host__ __device__ static constexpr int rung(int i) {
+    return i < 8 ? i + 3
+                 : 2 + (8 << ((i - 8) >> 2)) +
+                       (2 << ((i - 8) >> 2)) * (((i - 8) & 3) + 1);
+  }
+};
+static_assert(Sparse::rung(7) == 10 && Sparse::rung(8) == 12 &&
+                  Sparse::rung(12) == 22 && Sparse::rung(16) == 42 &&
+                  Sparse::rung(19) == 66 && Sparse::rung(20) == 82 &&
+                  Sparse::rung(24) == 162 &&
+                  Sparse::rung(Sparse::kRungs - 1) == 258,
+              "sparse ladder");
+
+template <int G, typename L>
 struct Shape {
   static_assert(G == 4 || G == 8 || G == 16, "group size");
   static constexpr int kLanes = 32 / G;          // lanes a warp
-  static constexpr int kPer = kRungs / G;        // rungs a thread
+  // rungs a thread; where G does not divide the ladder, the last rung
+  // slot of some threads is padding that takes no part in the minimum
+  static constexpr int kPer = (L::kRungs + G - 1) / G;
   static constexpr int kTile = kPos * 32 / kLanes;  // positions a tile
   static constexpr int kRecs = 2 * kTile;        // record ring, positions
   static constexpr int kStride = 800 + G;        // ring row: >= 770 slots,
@@ -130,12 +163,13 @@ struct Rec {
   uint4 rest;
 };
 
-template <int G, typename Key>
+template <int G, typename L, typename Key>
 struct WarpSmem {
-  Rec rec[Shape<G>::kRecs][Shape<G>::kLanes];
-  Key ring[Shape<G>::kLanes][Shape<G>::kStride];
-  Key tail[Shape<G>::kLanes][kLcEntries + 1];
-  unsigned short won[Shape<G>::kLanes][Shape<G>::kRecs];
+  using Sh = Shape<G, L>;
+  Rec rec[Sh::kRecs][Sh::kLanes];
+  Key ring[Sh::kLanes][Sh::kStride];
+  Key tail[Sh::kLanes][kLcEntries + 1];
+  unsigned short won[Sh::kLanes][Sh::kRecs];
 };
 
 __device__ __forceinline__ Rec make_rec(const long long (&v)[kInputs]) {
@@ -185,18 +219,19 @@ __device__ __forceinline__ Key step_cost(const uint4& s, int f) {
   return f <= (int)(s.x & 511) ? (Key)s.y : cd;
 }
 
-template <int G, typename Key>
+template <int G, typename L, typename Key>
 __global__ void __launch_bounds__(32 * kWarps)
 dp_parse_kernel(Inputs in, const void* __restrict__ lc, int lc_is64,
                 int lc_rows, long long* __restrict__ span,
                 long long* __restrict__ dist, int S, int lanes, int lpc) {
-  using Sh = Shape<G>;
+  using Sh = Shape<G, L>;
+  constexpr int kRungs = L::kRungs, kTailOrder = kRungs + 1;
   constexpr Key kPastEnd = Key(1) << (8 * sizeof(Key) - 1);
   constexpr int kTile = Sh::kTile, kRecMask = Sh::kRecs - 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
-  WarpSmem<G, Key>& sm =
-      reinterpret_cast<WarpSmem<G, Key>*>(smem_raw)[warp];
+  WarpSmem<G, L, Key>& sm =
+      reinterpret_cast<WarpSmem<G, L, Key>*>(smem_raw)[warp];
   const int li = tid / G, g = tid % G;
   const int lane0 = (blockIdx.x * kWarps + warp) * Sh::kLanes;
   const int lane = lane0 + li;
@@ -208,13 +243,14 @@ dp_parse_kernel(Inputs in, const void* __restrict__ lc, int lc_is64,
     return (Key)(unsigned)min(v, 1 << 20) << kShift;
   };
 
-  // this thread's rungs: g, g+G, ...
+  // this thread's rungs: g, g+G, ... (a padding slot past the ladder
+  // reads its last rung's window slot and is never taken)
   int fk[Sh::kPer];
   Key pre[Sh::kPer];
 #pragma unroll
   for (int k = 0; k < Sh::kPer; ++k) {
     const int i = g + G * k;
-    fk[k] = rung(i);
+    fk[k] = L::rung(min(i, kRungs - 1));
     pre[k] = lc_key(fk[k]) | (Key)((i + 1) << 2);
   }
   for (int f = g; f <= kMaxLen; f += G)
@@ -263,7 +299,7 @@ dp_parse_kernel(Inputs in, const void* __restrict__ lc, int lc_is64,
         sp = 1;
         ds = 0;
       } else {
-        sp = order <= kRungs ? rung(order - 1) : S - pos;
+        sp = order <= kRungs ? L::rung(order - 1) : S - pos;
         ds = which == 0 ? rest.y
                         : which == 1 ? rest.z
                                      : which == 2 ? rest.w : rest.x >> 18;
@@ -284,8 +320,10 @@ dp_parse_kernel(Inputs in, const void* __restrict__ lc, int lc_is64,
     const Key e0 = pre[0] + D[fk[0]];
     Key m = e0 + step_cost<Key>(s, fk[0]);
 #pragma unroll
-    for (int k = 1; k < Sh::kPer; ++k)
-      m = min(m, pre[k] + D[fk[k]] + step_cost<Key>(s, fk[k]));
+    for (int k = 1; k < Sh::kPer; ++k) {
+      const Key e = pre[k] + D[fk[k]] + step_cost<Key>(s, fk[k]);
+      m = kRungs % G == 0 || g + G * k < kRungs ? min(m, e) : m;
+    }
     // d3 at f = 3 (thread 0's first rung), after A/B/C in a tie
     const Key k3 = g == 0 && (lit3 >> 18) != 0
                        ? (Key)((((lit3 >> 8) & 0x3FF) << kShift) | 3)
@@ -333,25 +371,25 @@ dp_parse_kernel(Inputs in, const void* __restrict__ lc, int lc_is64,
   write_tile(0);
 }
 
-template <int G, typename Key>
+template <int G, typename L, typename Key>
 int launch(const Inputs& in, const void* lc, int lc_is64, int lc_rows,
            long long* span, long long* dist, int S, int lanes, int lpc,
            cudaStream_t stream) {
   // the shared-memory limit, raised at the first launch on each device
   static unsigned long long raised = 0;  // a bit per device
-  const int smem = (int)(kWarps * sizeof(WarpSmem<G, Key>));
+  const int smem = (int)(kWarps * sizeof(WarpSmem<G, L, Key>));
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !(raised >> dev & 1)) {
-    err = cudaFuncSetAttribute(dp_parse_kernel<G, Key>,
+    err = cudaFuncSetAttribute(dp_parse_kernel<G, L, Key>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) raised |= 1ull << dev;
   }
-  const int per_block = kWarps * Shape<G>::kLanes;
-  dp_parse_kernel<G, Key><<<(lanes + per_block - 1) / per_block,
+  const int per_block = kWarps * Shape<G, L>::kLanes;
+  dp_parse_kernel<G, L, Key><<<(lanes + per_block - 1) / per_block,
                             32 * kWarps, smem, stream>>>(
       in, lc, lc_is64, lc_rows, span, dist, S, lanes, lpc);
   return (int)cudaGetLastError();
@@ -362,23 +400,32 @@ int launch(const Inputs& in, const void* lc, int lc_is64, int lc_rows,
 // Inputs: the twelve [B, n_pad] int64 arrays of dp_parse, contiguous
 // (lane l's positions are l*S .. l*S + S-1), lc the [lc_rows][259] match
 // costs (int32, or int64 if lc_is64; lc_rows 1 or B) with lc >= 0; span
-// and dist int64 [B, n_pad], every element written.  Returns the CUDA
-// error of the launch (0 on success).
+// and dist int64 [B, n_pad], every element written; nrungs the ladder,
+// 80 for LEN_LADDER_DENSE2 or 28 for LEN_LADDER.  Returns the CUDA error
+// of the launch (0 on success; cudaErrorInvalidValue for another ladder).
 extern "C" int dp_parse_launch(
     const long long* cost_lit, const long long* lenA, const long long* dA,
     const long long* cdA, const long long* lenB, const long long* dB,
     const long long* cdB, const long long* lenC, const long long* dC,
     const long long* cdC, const long long* d3, const long long* cd3,
     const void* lc, int lc_is64, int lc_rows, long long* span,
-    long long* dist, int S, int lanes, int lpc, void* stream) {
+    long long* dist, int S, int lanes, int lpc, int nrungs, void* stream) {
   const Inputs in = {{cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC,
                       d3, cd3}};
+  if (nrungs != Dense2::kRungs && nrungs != Sparse::kRungs)
+    return (int)cudaErrorInvalidValue;
   if (lanes <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  return S <= kKey32MaxS
-             ? launch<kGroup, unsigned>(in, lc, lc_is64, lc_rows, span, dist,
-                                        S, lanes, lpc, st)
-             : launch<kGroup, unsigned long long>(in, lc, lc_is64, lc_rows,
+  const bool k32 = S <= kKey32MaxS;
+  if (nrungs == Dense2::kRungs)
+    return k32 ? launch<kGroup, Dense2, unsigned>(in, lc, lc_is64, lc_rows,
                                                   span, dist, S, lanes, lpc,
-                                                  st);
+                                                  st)
+               : launch<kGroup, Dense2, unsigned long long>(
+                     in, lc, lc_is64, lc_rows, span, dist, S, lanes, lpc,
+                     st);
+  return k32 ? launch<kGroup, Sparse, unsigned>(in, lc, lc_is64, lc_rows,
+                                                span, dist, S, lanes, lpc, st)
+             : launch<kGroup, Sparse, unsigned long long>(
+                   in, lc, lc_is64, lc_rows, span, dist, S, lanes, lpc, st);
 }

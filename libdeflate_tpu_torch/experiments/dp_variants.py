@@ -9,9 +9,16 @@ loads" (positions made from their index instead of read). Every variant
 that computes the DP is held to the plain version; each is timed as its
 bare launch by CUDA events, in turns (the list, then the list reversed),
 on the JAX test generator's inputs and on the main path's four batches
-of the corpus at 4 x 1 MiB, S = 1024.
+of the corpus at 4 x 1 MiB, S = 1024, on LEN_LADDER_DENSE2 (the lean
+tier's ladder); the as-built kernel is also timed on the same inputs at
+LEN_LADDER.
 
-    python -m libdeflate_tpu_torch.experiments.dp_variants
+    python -m libdeflate_tpu_torch.experiments.dp_variants [--against F]
+
+``--against F`` adds the ``dp_parse.cu`` at path F (an earlier version,
+whose launch function has no ladder argument and computes the dense
+ladder) as one more variant, checked and timed in the same turns: the
+way to hold a change of the kernel to its parent on one card.
 
 Needs a CUDA card and ``nvcc``.  Prints one JSON object a line: the card,
 the build logs' register and spill lines, the checks, then the times.
@@ -22,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import json
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -72,16 +80,21 @@ def variant_source(src: str, name: str) -> str:
     return src
 
 
-def build_all(names) -> tuple[dict, dict]:
-    """Build every named variant, all nvcc started together: (launch
-    function per name, register and spill lines per name)."""
+def build_all(names, against: Path | None = None) -> tuple[dict, dict]:
+    """Build every named variant (and the source ``against`` as
+    "against"), all nvcc started together: (launch function per name,
+    register and spill lines per name).  A launch function takes
+    ``launch``'s arguments."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     src = (_build.SRC_DIR / "dp_parse.cu").read_text()
     nvcc = _build.nvcc_path()
+    sources = {name: variant_source(src, name) for name in names}
+    if against is not None:
+        sources["against"] = Path(against).read_text()
     procs = {}
-    for i, name in enumerate(names):
+    for i, (name, text) in enumerate(sources.items()):
         cu = VARIANT_DIR / f"dp_parse_v{i}.cu"
-        cu.write_text(variant_source(src, name))
+        cu.write_text(text)
         so = VARIANT_DIR / f"libdp_parse_v{i}.so"
         procs[name] = (_build.compile_async(nvcc, cu, so), so)
     fns, regs = {}, {}
@@ -93,13 +106,17 @@ def build_all(names) -> tuple[dict, dict]:
                       if "registers" in ln or "spill" in ln]
         fn = ctypes.CDLL(str(so)).dp_parse_launch
         P, I = _build.PTR, _build.INT
-        fn.argtypes = [P] * 13 + [I, I, P, P, I, I, I, P]
+        # an earlier source's launch function has no ladder argument
+        fn.argtypes = [P] * 13 + [I, I, P, P, I, I, I] + (
+            [P] if name == "against" else [I, P])
         fn.restype = ctypes.c_int
+        fn.takes_ladder = name != "against"
         fns[name] = fn
     return fns, regs
 
 
-def launch(fn, args, S: int, span, dist) -> None:
+def launch(fn, args, S: int, span, dist,
+           ladder=kernels.LEN_LADDER_DENSE2) -> None:
     """The bare launch of one build on dp_parse's thirteen arguments."""
     arrs, lc = args[:12], args[12]
     B, n_pad = arrs[0].shape
@@ -107,9 +124,10 @@ def launch(fn, args, S: int, span, dist) -> None:
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
 
+    rungs = [kernels.ladder_rungs(ladder)] if fn.takes_ladder else []
     err = fn(*map(ptr, arrs), ptr(lc), int(lc.dtype == torch.int64),
              1 if lc.dim() == 1 else B, ptr(span), ptr(dist), S,
-             B * (n_pad // S), n_pad // S,
+             B * (n_pad // S), n_pad // S, *rungs,
              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"dp_parse variant failed to launch: {err}")
@@ -128,12 +146,14 @@ def main_path_dp_inputs(bufs, lengths):
                                         device=bp.device))
 
 
-def main() -> dict:
+def main(against: Path | None = None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("dp_variants measures the card: no CUDA device")
     dev = torch.device("cuda", 0)
     names = list(VARIANTS) + list(DIAGNOSTICS)
-    fns, regs = build_all(names)
+    fns, regs = build_all(names, against)
+    checked = list(VARIANTS) + (["against"] if against else [])
+    names = names + (["against"] if against else [])
     corpus = make_corpus(4 * BATCH * CHUNK, ROOT)
     chunks = np.frombuffer(corpus, np.uint8).reshape(-1, CHUNK)
     lengths = torch.full((BATCH,), CHUNK, dtype=torch.int64, device=dev)
@@ -148,18 +168,27 @@ def main() -> dict:
     out = {"device": describe(dev), "registers": regs, "equal": {}, "ms": {}}
     print(json.dumps({"device": out["device"]}), flush=True)
     print(json.dumps({"registers": regs}), flush=True)
+    built = fns["G8 W4 (as built)"]
     for iname, args in inputs.items():
         want = kernels.dp_parse_plain(*args, S)
-        for name in VARIANTS:
+        for name in checked:
             launch(fns[name], args, S, span, dist)
             out["equal"][f"{iname}, {name}"] = bool(
                 torch.equal(span, want[0]) and torch.equal(dist, want[1]))
+        want = kernels.dp_parse_plain(*args, S, kernels.LEN_LADDER)
+        launch(built, args, S, span, dist, kernels.LEN_LADDER)
+        out["equal"][f"{iname}, as built, LEN_LADDER"] = bool(
+            torch.equal(span, want[0]) and torch.equal(dist, want[1]))
     print(json.dumps({"equal": out["equal"]}), flush=True)
     for iname, args in inputs.items():
         row = out["ms"][iname] = {}
         for name in names + names[::-1]:
             row.setdefault(name, []).append(cuda_ms(
                 lambda: launch(fns[name], args, S, span, dist), 20))
+            if name == "G8 W4 (as built)":
+                row.setdefault("as built, LEN_LADDER", []).append(cuda_ms(
+                    lambda: launch(built, args, S, span, dist,
+                                   kernels.LEN_LADDER), 20))
         print(json.dumps({"ms": {iname: row}}), flush=True)
     if not all(out["equal"].values()):
         raise AssertionError("a dp_parse variant disagrees with the plain "
@@ -168,4 +197,6 @@ def main() -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    argv = sys.argv[1:]
+    main(Path(argv[argv.index("--against") + 1])
+         if "--against" in argv else None)

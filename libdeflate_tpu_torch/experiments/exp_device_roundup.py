@@ -13,6 +13,11 @@ in order, with a warm-up before each timing and a sync ending each pass:
   inflate through ``zlib``.  The script times each tier's XLA and Pallas
   entries; in the port both are one path, whose bit placement is the pack
   kernel K2;
+- "3": the DP tiers "opt" and "optD" (the script's lines 82-110, the
+  same lines as section 2) the same way, through
+  ``compress_chunks_optimal`` and ``compress_chunks_optimal_deep``: the
+  script's XLA and Pallas rows give the same bits at 1 MiB chunks, and in
+  the port they are one path through K1 and K2;
 - "4": CRC-32 and Adler-32 of 8 corpus chunks (lines 122-136) through
   ``ops/checksums.py``, each equal to ``zlib``, in GB/s on the host clock
   and replayed from a CUDA graph (the card's time alone);
@@ -21,8 +26,7 @@ in order, with a warm-up before each timing and a sync ending each pass:
 - "tok": the tokenize-only ceiling (K4), ``exp_tokenize_ceiling``;
 - "overhead": the grid and loop probes (K5, K6), ``exp_launch_overhead``.
 
-Section "3" times compress tiers that are not ported (optimal and deep);
-asking for it raises.  The default is every ported section.
+The default is every section.
 ``grid_copy`` launches ``csrc/launch_probes.cu`` for CUDA tensors and
 computes its plain version, ``x.clone()``, for CPU tensors; launches are
 counted in ``grid_copy.launches``.
@@ -43,6 +47,10 @@ from ..compress.dynamic import (
     compress_chunks_dynamic,
     compress_chunks_dynamic2,
 )
+from ..compress.optimal import (
+    compress_chunks_optimal,
+    compress_chunks_optimal_deep,
+)
 from ..compress.pipeline import device_stream_to_bytes
 from ..decompress.decode import decompress_chunks_words, pack_streams
 from ..device import resolve_device
@@ -50,15 +58,17 @@ from ..ops import checksums
 from . import exp_launch_overhead, exp_tokenize_ceiling, timing
 from .corpus import CHUNK, CORPUS_BYTES, make_corpus, zlib_raw
 
-SECTIONS = ("1", "2", "4", "5", "tok", "overhead")
-NOT_PORTED = {"3": "the optimal and deep compress tiers"}
+SECTIONS = ("1", "2", "3", "4", "5", "tok", "overhead")
 PROBE_STEPS = (1, 16, 64)
 TILE = (128, 128)
 NCHUNKS = 8
 BATCH = 4
-# (name, entry): the script's "dyn1 xla"/"dyn1 pal" and "dyn2" pairs
-TIERS = (("dyn1", compress_chunks_dynamic),
-         ("dyn2", compress_chunks_dynamic2))
+# section -> (name, entry): the script's "dyn1 xla"/"dyn1 pal" and "dyn2"
+# pairs, then its "opt" and "optD" pairs
+TIERS = {"2": (("dyn1", compress_chunks_dynamic),
+               ("dyn2", compress_chunks_dynamic2)),
+         "3": (("opt", compress_chunks_optimal),
+               ("optD", compress_chunks_optimal_deep))}
 
 
 def reset_launch_counts() -> None:
@@ -123,11 +133,11 @@ def _checksums(bufs, dev) -> dict:
     return res
 
 
-def _compress(bufs, dev) -> dict:
+def _compress(bufs, dev, section: str) -> dict:
     batches = [torch.as_tensor(bufs[i:i + BATCH], device=dev)
                for i in range(0, len(bufs), BATCH)]
     res = {}
-    for name, fn in TIERS:
+    for name, fn in TIERS[section]:
         def run():
             return [fn(b, torch.full((len(b),), b.shape[1], device=dev),
                        torch.zeros(len(b), dtype=torch.bool, device=dev),
@@ -143,10 +153,10 @@ def _compress(bufs, dev) -> dict:
         ratio = int(((total_bits + 7) // 8).sum()) / bufs.size
         res[name] = {"mb_s": bufs.size / dt / 1e6, "s": dt, "ratio": ratio,
                      "ok": ok}
-        print(f"[2] {name} (the script's XLA and Pallas entries, one path "
-              f"here): {bufs.size / dt / 1e6:.6f} MB/s ({dt:.6f} s for "
-              f"{bufs.size} bytes), ratio {ratio:.6f}, every chunk through "
-              f"zlib={ok}", flush=True)
+        print(f"[{section}] {name} (the script's XLA and Pallas entries, "
+              f"one path here): {bufs.size / dt / 1e6:.6f} MB/s ({dt:.6f} s "
+              f"for {bufs.size} bytes), ratio {ratio:.6f}, every chunk "
+              f"through zlib={ok}", flush=True)
     return res
 
 
@@ -167,15 +177,12 @@ def _decode(bufs, dev) -> dict:
 
 def main(sections=None, device=None, total: int = CORPUS_BYTES,
          chunk: int = CHUNK) -> dict:
-    """Run the sections (default: all ported ones) on ``device`` (CUDA
+    """Run the sections (default: all of them) on ``device`` (CUDA
     unless named) over a corpus of ``total`` bytes in ``chunk``-byte
     chunks; print the script's lines and return {section: results}, each
     result with an "ok" flag."""
     sections = list(SECTIONS if sections is None else sections)
     for s in sections:
-        if s in NOT_PORTED:
-            raise ValueError(f"section {s} times {NOT_PORTED[s]}, which the "
-                             f"port does not have yet")
         if s not in SECTIONS:
             raise ValueError(f"unknown section {s!r}; the sections are "
                              f"{SECTIONS}")
@@ -189,8 +196,9 @@ def main(sections=None, device=None, total: int = CORPUS_BYTES,
     res = {}
     if "1" in sections:
         res["1"] = _probe(dev)
-    if "2" in sections:
-        res["2"] = _compress(bufs, dev)
+    for s in ("2", "3"):
+        if s in sections:
+            res[s] = _compress(bufs, dev, s)
     if "4" in sections:
         res["4"] = _checksums(first, dev)
     if "5" in sections:

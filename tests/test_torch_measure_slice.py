@@ -1,10 +1,12 @@
 """The port's device measurement path as a whole, on the CPU.
 
 libdeflate_tpu_torch/experiments/exp_device_roundup.py::main with
-device="cpu" at a small size (8 chunks of 64 KiB): every ported section
+device="cpu" at a small size (8 chunks of 64 KiB): every section but 3
 (1, 2, 4, 5, tok, overhead) runs through the plain versions and every result
-is right; section 3 (compress tiers not ported) raises.  Section 2's ratios
-against the port's dyn1 and dyn2 entries, and the overhead script's dyn1
+is right; section 3 (the DP tiers opt and optD) runs alone on 4 chunks of
+2 KiB; a section the script does not have raises.  Section 2's and 3's
+ratios against the port's dyn1, dyn2, optimal and deep entries, and the
+overhead script's dyn1
 baseline against the JAX package's compress_chunks_dynamic at B = 2 x 16
 KiB.  The corpus recipe
 (experiments/corpus.py) against bench.make_corpus with the same text, the
@@ -33,6 +35,9 @@ from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
 from scripts import exp_tokenize_ceiling as ref
 
 TOTAL, CHUNK = 8 << 16, 1 << 16
+# section 3 times the DP tiers five times over the corpus: it runs alone,
+# on four 2 KiB chunks (test_roundup_times_the_dp_tiers)
+SECTIONS = [s for s in rd.SECTIONS if s != "3"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,11 +56,11 @@ def one_torch_thread():
 def roundup():
     for mod in (rd, lo, tk):
         mod.reset_launch_counts()
-    return rd.main(device="cpu", total=TOTAL, chunk=CHUNK)
+    return rd.main(SECTIONS, device="cpu", total=TOTAL, chunk=CHUNK)
 
 
 def test_roundup_runs_every_ported_section_right(roundup):
-    assert list(roundup) == list(rd.SECTIONS)
+    assert list(roundup) == SECTIONS
     assert rd.all_ok(roundup)
     assert sorted(roundup["1"]) == list(rd.PROBE_STEPS)
     assert sorted(roundup["4"]) == ["adler32", "crc32"]
@@ -76,7 +81,7 @@ def test_roundup_sizes(roundup):
     assert roundup["5"]["ok"] and roundup["4"]["crc32"]["ok"]
 
 
-@pytest.mark.parametrize("section", ["3", "7"])
+@pytest.mark.parametrize("section", ["0", "7"])
 def test_sections_not_ported_raise(section):
     with pytest.raises(ValueError):
         rd.main([section], device="cpu", total=TOTAL, chunk=CHUNK)
@@ -156,3 +161,20 @@ def test_dynamic_baseline_matches_jax():
         jnp.zeros(2, bool))
     assert res["total_bits"] == np.asarray(want).tolist()
     assert res["ms"] > 0 and res["mb_s"] > 0
+
+
+def test_roundup_times_the_dp_tiers():
+    """Section 3 on the CPU at 4 x 2 KiB (one call a pass): opt and optD
+    over the corpus, every chunk through zlib, and the ratio that the
+    port's own optimal and deep entries give."""
+    import libdeflate_tpu_torch as lt
+    total, chunk = 4 << 11, 1 << 11
+    res = rd.main(["3"], device="cpu", total=total, chunk=chunk)
+    assert list(res) == ["3"] and rd.all_ok(res)
+    assert sorted(res["3"]) == ["opt", "optD"]
+    bufs = np.frombuffer(pc.make_corpus(total), np.uint8).reshape(-1, chunk)
+    for name, fn in (("opt", lt.compress_chunks_optimal),
+                     ("optD", lt.compress_chunks_optimal_deep)):
+        _, bits = fn(bufs, np.full(len(bufs), chunk),
+                     np.zeros(len(bufs), bool), device="cpu")
+        assert res["3"][name]["ratio"] == int(((bits + 7) // 8).sum()) / total

@@ -1,0 +1,22 @@
+"""The port's deep DP tier against its XLA entry.
+
+``libdeflate_tpu_torch.compress_chunks_optimal_deep`` (device="cpu")
+against ``libdeflate_tpu/compress/tpu_optimal.py::
+compress_chunks_optimal_deep`` (XLA, B = 2); its Pallas twin is
+tests/test_torch_optimal_deep_pallas.py's, a file of its own so that
+the suite's workers share the two JAX compiles.
+The same words and total_bits, and every fragment inflates through zlib;
+the cases are tests/dp_tier_cases.py's (two 64 KiB chunks at B = 2, the
+text chunk alone at B = 1).  Tolerance: exact.
+"""
+
+import pytest
+
+from dp_tier_cases import check, one_torch_thread, xla  # noqa: F401
+
+TIERS = ["deep"]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_tier_matches_xla(tier):
+    check(tier, False, xla(tier))
