@@ -48,6 +48,20 @@ two paths through their entry points:
   boundaries, long stored blocks, stored jumps to ring edges, output past
   out_bytes, failures in the middle of a window), and its chain is set
   beside its floor (the plain version's lookups under K3's own loop);
+- whole file: ``gzip_compress_dp`` of the corpus over
+  ``make_chunk_mesh()`` (every CUDA device; on one card B = 16 x 1 MiB
+  a call) at levels 0, 1, 6, 9 and 12: the gzip bytes' length and
+  SHA-256 equal the JAX package's (pinned in
+  ``experiments/file_codec_pins.json`` by ``tests/pin_file_codec.py``),
+  every chunk's gathered size equals the pinned JAX total_bits, the
+  output inflates through zlib, K2 launches once a call and K1 once a
+  cost pass, K3 never; GB/s, the share of a call off the tier entries
+  and peak memory; ``zlib_compress_dp`` and ``deflate_compress_dp`` at
+  level 1 with zlib's checksums; ``compress_chunks_dp`` at level 6 with
+  BFINAL on every chunk, then ``decompress_chunks_dp`` of its fragments
+  and of the zlib-6 streams (one K3 launch a shard, every chunk equal,
+  a corrupt chunk isolated, out_lens one short BAD_DATA); ``entry()``
+  on the card equal to the CPU and ``dryrun_multichip(1)``;
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
@@ -95,6 +109,7 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -120,6 +135,11 @@ LOOP_TILE_COUNTS = (1, 7, 133, 256, 1000)  # K6 checks; 256 is its main shape
 COPY_SIZES = (1, 3, 4097, 16385, 1 << 20)  # K7 checks beside its 128 x 128 tile
 GREEDY_BITS = "libdeflate_tpu_torch/experiments/greedy_total_bits.json"
 DP_BITS = "libdeflate_tpu_torch/experiments/dp_total_bits.json"
+FILE_PINS = "libdeflate_tpu_torch/experiments/file_codec_pins.json"
+# whole-file levels -> (the chunk pins' configuration, K1 launches a
+# shard, best of 3 timed calls or one)
+FILE_LEVELS = {0: ("static", 0, 1), 1: ("dyn1", 0, 3), 6: ("level5", 1, 3),
+               9: ("level8", 2, 1), 12: ("level10", 2, 1)}
 
 
 def card_line() -> str:
@@ -373,17 +393,20 @@ def greedy_pack_inputs(tier: str, bufs, lengths):
 
 
 class Recording:
-    """A kernel wrapper that keeps each call's positional arguments; its
+    """A kernel wrapper that keeps each call's positional arguments and
+    result; its
     ``launches`` is the wrapper's own, so the wrapper's count, which
     reads its module's name, goes on counting."""
 
     def __init__(self, wrapper):
         self.wrapper = wrapper
         self.seen = []
+        self.results = []
 
     def __call__(self, *args):
         self.seen.append(args)
-        return self.wrapper(*args)
+        self.results.append(self.wrapper(*args))
+        return self.results[-1]
 
     @property
     def launches(self):
@@ -412,6 +435,244 @@ def feasible_rungs(ladder, S: int) -> int:
     """Rungs f of ``ladder`` with t + f <= S, summed over t in one
     S-position segment."""
     return sum(sum(1 for f in ladder if t + f <= S) for t in range(S))
+
+
+class StageClock:
+    """Host seconds spent inside wrapped functions, each call bracketed by
+    torch.cuda.synchronize(), summed by name."""
+
+    def __init__(self):
+        self.s: dict[str, float] = {}
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+
+def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
+                     zbufs: np.ndarray, z_clen: np.ndarray, chunk_pins: dict,
+                     card: str) -> dict:
+    """The whole-file codec on the card through its entry points
+    (``gzip/zlib/deflate_compress_dp`` over ``make_chunk_mesh()``, then
+    ``compress_chunks_dp`` and ``decompress_chunks_dp``); each K1 and K2
+    launch of a level's checked call is held to its plain version on the
+    same inputs.  Returns the kernels' launches a call and their largest
+    differences from the plain versions."""
+    from libdeflate_tpu_torch import entry as pe
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.formats import gzip_fmt, zlib_fmt
+    from libdeflate_tpu_torch.parallel import file_codec as fc
+    from libdeflate_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_chunk_mesh()
+    ndev = len(mesh.devices)
+    pins = json.loads((root / FILE_PINS).read_text())["gzip"]
+    nchunks = len(chunks)
+    stored_size = 5 * -(-CHUNK // 65535) + CHUNK + 5
+    originals = {name: getattr(pm, name) for name in (
+        "chunk_compressor", "crc32_chunks", "adler32_chunks",
+        "compress_chunks_dp")}
+    file_launches = {}
+    errs = {"dp_parse": 0, "pack_groups": 0}
+    for level, (pin_name, dp_calls, timed_calls) in FILE_LEVELS.items():
+        clock = StageClock()
+        gathered = []
+        recs = {name: Recording(getattr(pk, name)) for name in errs}
+
+        def compress_dp(*args, **kwargs):
+            out = originals["compress_chunks_dp"](*args, **kwargs)
+            gathered.append(out[4].tolist())
+            return out
+
+        pm.chunk_compressor = lambda lv: clock.wrap(
+            "tier", originals["chunk_compressor"](lv))
+        pm.crc32_chunks = clock.wrap("checksums", originals["crc32_chunks"])
+        pm.adler32_chunks = clock.wrap("checksums",
+                                       originals["adler32_chunks"])
+        pm.compress_chunks_dp = compress_dp
+        for name, rec in recs.items():
+            setattr(pk, name, rec)
+        try:
+            pk.reset_launch_counts()
+            dd.reset_launch_counts()
+            out = fc.gzip_compress_dp(corpus, mesh, CHUNK, level)
+            torch.cuda.synchronize()
+            launches = {"pack_groups": pk.pack_groups.launches,
+                        "dp_parse": pk.dp_parse.launches,
+                        "decode_chunks": dd.decompress_chunks_words.launches}
+        finally:
+            for name, rec in recs.items():
+                setattr(pk, name, rec.wrapper)
+        try:
+            # each launch of the checked call against its plain version on
+            # the same inputs: K1 at its own ladder, K2 against group_place
+            shapes = []
+            for i, (args, res) in enumerate(zip(recs["dp_parse"].seen,
+                                                recs["dp_parse"].results)):
+                errs["dp_parse"] = max(errs["dp_parse"], require_equal(
+                    f"dp_parse (whole file, level {level}, launch {i + 1})",
+                    list(res), pk.dp_parse_plain(*args)))
+                shapes.append(f"K1 launch {i + 1}: inputs "
+                              f"{list(args[0].shape)}, lc "
+                              f"{list(args[12].shape)}, S {args[13]}, "
+                              f"{len(args[14])} rungs")
+            for args, res in zip(recs["pack_groups"].seen,
+                                 recs["pack_groups"].results):
+                errs["pack_groups"] = max(errs["pack_groups"], require_equal(
+                    f"pack_groups (whole file, level {level})", [res],
+                    [pp.group_place(*args)]))
+                shapes.append(f"K2: sbuf {list(args[0].shape)}, words "
+                              f"{list(res.shape)}")
+            del recs
+            # the checked call was the warm-up; time the next ones
+            clock.s.clear()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            secs = []
+            for _ in range(timed_calls):
+                t0 = time.perf_counter()
+                fc.gzip_compress_dp(corpus, mesh, CHUNK, level)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            for name, fn in originals.items():
+                setattr(pm, name, fn)
+        want = {"pack_groups": ndev, "dp_parse": dp_calls * ndev,
+                "decode_chunks": 0}
+        if launches != want:
+            raise AssertionError(f"whole file, level {level}: launches "
+                                 f"{launches}, not {want}")
+        file_launches[level] = launches
+        if zlib.decompress(out, 31) != corpus:
+            raise AssertionError(f"whole file, level {level}: the gzip stream "
+                                 f"does not inflate to the corpus")
+        if gzip_fmt.parse_header(out) != gzip_fmt.MIN_HEADER_SIZE:
+            raise AssertionError("whole file: the gzip header does not parse")
+        if gathered[0] != chunk_pins[pin_name]:
+            raise AssertionError(f"whole file, level {level}: all_bits "
+                                 f"{gathered[0]} differ from the JAX "
+                                 f"package's {chunk_pins[pin_name]}")
+        digest = hashlib.sha256(out).hexdigest()
+        pin = pins[str(level)]
+        if (len(out), digest) != (pin["bytes"], pin["sha256"]):
+            raise AssertionError(f"whole file, level {level}: {len(out)} "
+                                 f"bytes, SHA-256 {digest}; the JAX package "
+                                 f"gives {pin['bytes']}, {pin['sha256']}")
+        stored = [i for i, b in enumerate(gathered[0])
+                  if b // 8 > stored_size]
+        best = min(secs)
+        tier_s = clock.s.get("tier", 0.0) / timed_calls
+        sums_s = clock.s.get("checksums", 0.0) / timed_calls
+        mean = sum(secs) / timed_calls
+        print(f"whole file, gzip level {level}: {len(corpus) / best / 1e9:.6f}"
+              f" GB/s ({'best of 3 calls' if timed_calls == 3 else 'one call'}"
+              f" after a warm-up, {best:.6f} s for {len(corpus)} bytes in "
+              f"{nchunks} chunks of {CHUNK} on {ndev} device(s)), ratio "
+              f"{len(out) / len(corpus):.6f}; {len(out)} bytes with the JAX "
+              f"package's SHA-256, all_bits equal to its {pin_name} "
+              f"total_bits, inflates through zlib; stored fallback chunks "
+              f"{stored}; launches {json.dumps(launches)}; a call's mean "
+              f"{mean:.6f} s: tier entries {tier_s:.6f} s, checksums "
+              f"{sums_s:.6f} s, off the tier entries "
+              f"{1 - tier_s / mean:.6f} of it; peak memory {peak} bytes "
+              f"(torch.cuda.max_memory_allocated over the timed calls), "
+              f"{peak - base} above the {base} held before them; {card}",
+              flush=True)
+        print(f"whole file, gzip level {level}: every K1 and K2 launch of "
+              f"the checked call equals its plain version (dp_parse_plain, "
+              f"group_place) on the same inputs: {'; '.join(shapes)}",
+              flush=True)
+
+    # zlib and raw DEFLATE at level 1: round trip, CRC-32 and Adler-32
+    zout = fc.zlib_compress_dp(corpus, mesh, CHUNK, 1)
+    stream, crc, adler = fc.deflate_compress_dp(corpus, mesh, CHUNK, 1)
+    if (zlib.decompress(zout) != corpus
+            or zlib_fmt.parse_header(zout) != zlib_fmt.MIN_HEADER_SIZE
+            or zlib.decompress(stream, -15) != corpus
+            or (crc, adler) != (zlib.crc32(corpus), zlib.adler32(corpus))):
+        raise AssertionError("whole file: zlib_compress_dp or "
+                             "deflate_compress_dp at level 1 is wrong")
+    print(f"whole file, zlib and raw DEFLATE at level 1: both inflate to the "
+          f"corpus; crc32 {crc:#010x} and adler32 {adler:#010x} equal zlib's",
+          flush=True)
+
+    # the decode direction: level-6 fragments with BFINAL on every chunk,
+    # and zlib-6 streams of the same chunks, through decompress_chunks_dp
+    dev = mesh.devices[0]
+    lengths = np.full(nchunks, CHUNK, np.int32)
+    words, total_bits, _, _, _ = pm.compress_chunks_dp(
+        mesh, chunks, lengths, np.ones(nchunks, bool), level=6)
+    if total_bits.tolist() != chunk_pins["level5"]:
+        raise AssertionError("compress_chunks_dp, level 6: total_bits differ "
+                             "from the JAX package's")
+    frag_bufs = words.view(torch.uint8)
+    frag_lens = ((total_bits + 7) // 8).to(torch.int32)
+    corpus_d = torch.as_tensor(chunks.copy(), device=dev)
+    sets = {"level 6 fragments": (frag_bufs, frag_lens),
+            "zlib-6": (zbufs, z_clen)}
+    dec_s = {}
+    for name, (cb, cl) in sets.items():
+        dd.reset_launch_counts()
+        pk.reset_launch_counts()
+        out, olen, consumed, status, all_lens = pm.decompress_chunks_dp(
+            mesh, cb, cl, lengths, CHUNK)
+        torch.cuda.synchronize()
+        if (dd.decompress_chunks_words.launches != ndev
+                or pk.pack_groups.launches or pk.dp_parse.launches):
+            raise AssertionError(f"decompress_chunks_dp ({name}): launches "
+                                 f"{dd.decompress_chunks_words.launches}")
+        if not (bool((status == 0).all()) and bool((olen == CHUNK).all())
+                and torch.equal(all_lens, olen)
+                and torch.equal(consumed.cpu(), torch.as_tensor(cl).cpu())
+                and torch.equal(out, corpus_d)):
+            raise AssertionError(f"decompress_chunks_dp ({name}): a chunk "
+                                 f"does not decode to the corpus")
+        dec_s[name] = time_best(lambda: pm.decompress_chunks_dp(
+            mesh, cb, cl, lengths, CHUNK))
+    # one corrupt chunk is isolated; out_lens one short is BAD_DATA
+    bad = frag_bufs.clone()
+    bad[3, :8] = 0xFF
+    status = pm.decompress_chunks_dp(mesh, bad, frag_lens, lengths,
+                                     CHUNK)[3].tolist()
+    if status[3] == 0 or status[:3] + status[4:] != [0] * (nchunks - 1):
+        raise AssertionError(f"decompress_chunks_dp: corrupt chunk 3 gives "
+                             f"statuses {status}")
+    wrong = lengths.copy()
+    wrong[1] -= 1
+    status = pm.decompress_chunks_dp(mesh, frag_bufs, frag_lens, wrong,
+                                     CHUNK)[3].tolist()
+    if status != [0, 1] + [0] * (nchunks - 2):
+        raise AssertionError(f"decompress_chunks_dp: out_lens one short "
+                             f"gives statuses {status}")
+    for name, best in dec_s.items():
+        print(f"whole file, decompress_chunks_dp ({name}): "
+              f"{len(corpus) / best / 1e9:.6f} GB/s of output (best of 3 "
+              f"calls, {best:.6f} s for {nchunks} x {CHUNK} bytes), every "
+              f"chunk equals the corpus, one decode_chunks launch a shard; "
+              f"{card}", flush=True)
+    print("whole file, decompress_chunks_dp: a corrupt chunk 3 fails alone; "
+          "out_lens one short on chunk 1 is BAD_DATA", flush=True)
+
+    # the entry module on the card
+    fn, args = pe.entry()
+    fn_cpu, args_cpu = pe.entry(device="cpu")
+    require_equal("entry(): CUDA vs CPU", [x.cpu() for x in fn(*args)],
+                  fn_cpu(*args_cpu))
+    pe.dryrun_multichip(1)
+    print("entry(): dyn1 on the card equals the CPU; dryrun_multichip(1) "
+          "passes", flush=True)
+    return {"compress": file_launches, "decode_chunks": ndev,
+            "max_abs_err": errs}
 
 
 def main() -> int:
@@ -924,6 +1185,15 @@ def main() -> int:
     print(f"decode main path launches: "
           f"{json.dumps({'decode_chunks': dec_launches})}", flush=True)
 
+    # ---- the whole-file codec, through its entry points ----------------
+    t0 = time.perf_counter()
+    file_launches = whole_file_phase(
+        root, corpus, chunks, bufs, z_clen,
+        {**pinned, **dp_pinned}, card)
+    print(f"whole-file phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    err_dp = max(err_dp, file_launches["max_abs_err"]["dp_parse"])
+    err_pack = max(err_pack, file_launches["max_abs_err"]["pack_groups"])
+
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
     tok_plain_s = {}
@@ -1133,6 +1403,8 @@ def main() -> int:
          "bound_by": ("operations" if dp_ops / H100_INT32_OPS_PER_S
                       > dp_bytes / H100_BYTES_PER_S else "bytes"),
          "library_ms": None, "ladders": ladder_times,
+         "whole_file_launches": {level: n["dp_parse"] for level, n in
+                                 file_launches["compress"].items()},
          "dp_tier_launches": {name: row["launches"]["dp_parse"]
                               for name, row in dp_tiers.items()}},
         {"name": "pack_groups", "route": "cuda",
@@ -1146,7 +1418,9 @@ def main() -> int:
          "bound_ms": 1e3 * pack_bytes / H100_BYTES_PER_S,
          "bound_by": "bytes",
          "library_ms": graph_ms(index_add_call(*real_pack), 200),
-         "tiers": pack_tier_times},
+         "tiers": pack_tier_times,
+         "whole_file_launches": {level: n["pack_groups"] for level, n in
+                                 file_launches["compress"].items()}},
         {"name": "decode_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
          "replaces": "libdeflate_tpu/decompress/pallas_decode.py:943",
@@ -1159,7 +1433,8 @@ def main() -> int:
          "bound_by": "bytes",
          "chain_lookups": int(chain3[1, top3]),
          "chain_floor_ms": chain3_floor_ms,
-         "library_ms": None},
+         "library_ms": None,
+         "whole_file_launches": file_launches["decode_chunks"]},
         {"name": "tokenize_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/tokenize_chunks.cu",
          "replaces": "scripts/exp_tokenize_ceiling.py:351",

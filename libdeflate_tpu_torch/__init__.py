@@ -5,15 +5,21 @@ package holds the compress tiers (the JAX package's min-cost-DP tiers of
 ``compress/tpu_optimal.py`` -- lean, optfast, optimal, optimal2, deep and
 ``compress_chunk_optimal`` at any of the mesh's keyword sets -- and the
 greedy/lazy static and dynamic tiers) with their two kernels, the scalar
-DEFLATE decoder (``decompress/pallas_decode.py``) with its kernel, and
-the measurement path, all kernels written by hand in CUDA C++ for Hopper
-(``csrc/``).
+DEFLATE decoder (``decompress/pallas_decode.py``) with its kernel, the
+whole-file chunk-parallel codec over a device mesh (``parallel/``, the
+formats, and the entry module ``entry.py``), and the measurement path,
+all kernels written by hand in CUDA C++ for Hopper (``csrc/``).
 
 The package imports ``torch`` and ``numpy`` and nothing of JAX or of the
 JAX package.  Entry points run on the CUDA device unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"`` (the whole-file codec: a mesh of CPU devices).
 """
 
+from .api import (
+    deflate_compress_bound,
+    gzip_compress_bound,
+    zlib_compress_bound,
+)
 from .compress.dynamic import (
     compress_chunks_dynamic,
     compress_chunks_dynamic2,
@@ -34,8 +40,19 @@ from .decompress.decode import (
     decompress_chunks_words,
 )
 from .device import from_numpy_batch, resolve_device
+from .parallel.file_codec import (
+    deflate_compress_dp,
+    gzip_compress_dp,
+    zlib_compress_dp,
+)
+from .parallel.mesh import (
+    compress_chunks_dp,
+    decompress_chunks_dp,
+    make_chunk_mesh,
+)
 
 __all__ = [
+    "compress_chunks_dp",
     "compress_chunks_dynamic",
     "compress_chunks_dynamic2",
     "compress_chunks_dynamic3",
@@ -47,9 +64,17 @@ __all__ = [
     "compress_chunks_optimal_with",
     "compress_chunks_static",
     "decompress_chunks",
+    "decompress_chunks_dp",
     "decompress_chunks_host",
     "decompress_chunks_words",
+    "deflate_compress_bound",
+    "deflate_compress_dp",
     "device_stream_to_bytes",
     "from_numpy_batch",
+    "gzip_compress_bound",
+    "gzip_compress_dp",
+    "make_chunk_mesh",
     "resolve_device",
+    "zlib_compress_bound",
+    "zlib_compress_dp",
 ]
