@@ -49,8 +49,8 @@ two paths through their entry points:
   out_bytes, failures in the middle of a window), and its chain is set
   beside its floor (the plain version's lookups under K3's own loop);
 - whole file: ``gzip_compress_dp`` of the corpus over
-  ``make_chunk_mesh()`` (every CUDA device; on one card B = 16 x 1 MiB
-  a call) at levels 0, 1, 6, 9 and 12: the gzip bytes' length and
+  ``make_chunk_mesh()`` (the current CUDA device: B = 16 x 1 MiB a
+  call) at levels 0, 1, 6, 9 and 12: the gzip bytes' length and
   SHA-256 equal the JAX package's (pinned in
   ``experiments/file_codec_pins.json`` by ``tests/pin_file_codec.py``),
   every chunk's gathered size equals the pinned JAX total_bits, the
@@ -62,6 +62,20 @@ two paths through their entry points:
   and of the zlib-6 streams (one K3 launch a shard, every chunk equal,
   a corrupt chunk isolated, out_lens one short BAD_DATA); ``entry()``
   on the card equal to the CPU and ``dryrun_multichip(1)``;
+- host contract: ``Compressor``, ``Decompressor``, ``crc32`` and
+  ``adler32`` on the host engine, the native codec built from
+  ``native/ldtpu_native.cpp`` into ``build/native/`` (asserted loaded)
+  and then the forced Python path: the raw DEFLATE of the corpus at
+  levels -1 to 12 and the three formats of its first 1 MiB (native), the
+  first 256 KiB at levels 0-9 and 16 KiB at 10-12 (Python), equal the JAX
+  package's bytes (pinned in ``experiments/host_engine_pins.json`` by
+  ``tests/pin_host_engine.py``) and decode back in both size modes, with
+  compress and decompress MB/s per level; K3 decodes every chunk's
+  ``Compressor(l)`` stream at l = 1, 6, 12 (two chunks held to its plain
+  version); the native and Python ``gzip_decompress`` decode
+  ``gzip_compress_dp``'s level-6 output (K1, K2); the host checksums equal
+  zlib's and the device's per chunk; the damaged set's ``Decompressor``
+  4-tuples equal the pinned ones on both backends;
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
@@ -111,6 +125,8 @@ from __future__ import annotations
 import functools
 import hashlib
 import json
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -136,6 +152,10 @@ COPY_SIZES = (1, 3, 4097, 16385, 1 << 20)  # K7 checks beside its 128 x 128 tile
 GREEDY_BITS = "libdeflate_tpu_torch/experiments/greedy_total_bits.json"
 DP_BITS = "libdeflate_tpu_torch/experiments/dp_total_bits.json"
 FILE_PINS = "libdeflate_tpu_torch/experiments/file_codec_pins.json"
+HOST_PINS = "libdeflate_tpu_torch/experiments/host_engine_pins.json"
+HOST_BEST_OF_3 = (1, 6, 12)   # host contract levels timed best of 3
+CROSS_LEVELS = (1, 6, 12)     # Compressor levels whose chunks K3 decodes
+CROSS_PLAIN_CHUNKS = [0, 12]  # chunks K3 is held to its plain version on
 # whole-file levels -> (the chunk pins' configuration, K1 launches a
 # shard, best of 3 timed calls or one)
 FILE_LEVELS = {0: ("static", 0, 1), 1: ("dyn1", 0, 3), 6: ("level5", 1, 3),
@@ -675,6 +695,235 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
             "max_abs_err": errs}
 
 
+def cpu_model() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it (its model name, else its
+    vendor and model numbers), with the architecture and CPU count."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name") or ", ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                     "CPU implementer", "CPU part")
+        if k in fields) or "no model in /proc/cpuinfo"
+    return f"{name} ({platform.machine()}, {os.cpu_count()} CPUs)"
+
+
+def best_call(fn, passes: int):
+    """(fn()'s result, best host seconds over ``passes`` calls)."""
+    best = float("inf")
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def require_pin(name: str, out: bytes, pin: dict) -> None:
+    got = {"bytes": len(out), "sha256": hashlib.sha256(out).hexdigest()}
+    if got != pin:
+        raise AssertionError(f"host contract, {name}: {got}; the JAX "
+                             f"package gives {pin}")
+
+
+def require_round_trip(name: str, d, stream: bytes, data: bytes, fmt: str,
+                       passes: int) -> float:
+    """Decode ``stream`` by ``d`` in both size modes; each must give
+    (SUCCESS, data, len(stream), len(data)).  Returns the known-size
+    decode's best seconds."""
+    want = (0, data, len(stream), len(data))
+    got, secs = best_call(lambda: d.decompress(stream, len(data), fmt, True),
+                          passes)
+    if got != want or d.decompress(stream, len(data), fmt, False) != want:
+        raise AssertionError(f"host contract, {name}: {fmt} does not decode "
+                             f"back in both size modes")
+    return secs
+
+
+def host_contract_phase(root: Path, corpus: bytes, chunks: np.ndarray,
+                        card: str) -> dict:
+    """The libdeflate contract (``Compressor``, ``Decompressor``, the host
+    checksums) on the host engine, held to the JAX package's pinned
+    answers (``experiments/host_engine_pins.json``) on the native codec and
+    on the forced Python path, and crossed with the card: K3 decodes the
+    engine's chunk streams, the host ``Decompressor`` decodes
+    ``gzip_compress_dp``'s output (K1, K2), and the host checksums equal
+    zlib and the device ones.  Returns the phase's launches and K3's
+    largest difference from its plain version."""
+    import libdeflate_tpu_torch as lt
+    from libdeflate_tpu_torch import native_backend as nb
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.experiments import host_contract as hc
+    from libdeflate_tpu_torch.ops import checksums as ck
+    from libdeflate_tpu_torch.parallel import file_codec as fc
+    from libdeflate_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    pk.reset_launch_counts()
+    dd.reset_launch_counts()
+    pins = json.loads((root / HOST_PINS).read_text())
+    cpu = cpu_model()
+    label = f"host CPU {cpu}; {card}"
+    cached = nb._cached_build_usable()
+    t0 = time.perf_counter()
+    if not nb.available():
+        raise AssertionError("host contract: the native codec did not build "
+                             "or load")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()[0]
+    print(f"host contract: native codec {'loaded' if cached else 'built'} "
+          f"in {time.perf_counter() - t0:.3f} s into {nb._SO}; {gxx}; CPU "
+          f"{cpu}", flush=True)
+    d = lt.Decompressor()
+
+    # the native codec: raw DEFLATE of the corpus, the formats on 1 MiB
+    head = corpus[:hc.FORMAT_SPAN]
+    with hc.on_backend("native", nb):
+        for level in hc.LEVELS:
+            c = lt.Compressor(level)
+            pin_level = str(c.get_compression_level())
+            passes = 3 if level in HOST_BEST_OF_3 else 1
+            out, c_s = best_call(lambda: c.deflate_compress(corpus), passes)
+            require_pin(f"native raw, level {level}", out,
+                        pins["native"]["raw"][pin_level])
+            d_s = require_round_trip(f"native, level {level}", d, out,
+                                     corpus, "deflate", passes)
+            for fmt in hc.FORMATS:
+                f_out = c.compress(head, fmt)
+                require_pin(f"native {fmt}, level {level}", f_out,
+                            pins["native"]["formats"][fmt][str(level)])
+                require_round_trip(f"native, level {level}", d, f_out, head,
+                                   fmt, 1)
+            print(f"host contract, native, level {level}: compress "
+                  f"{len(corpus) / c_s / 1e6:.6f} MB/s, decompress "
+                  f"{len(corpus) / d_s / 1e6:.6f} MB/s of output "
+                  f"({'best of 3 calls' if passes == 3 else 'one call'} on "
+                  f"{len(corpus)} bytes: {c_s:.6f} s, {d_s:.6f} s), "
+                  f"{len(out)} bytes, equal to the JAX package's pin; the "
+                  f"three formats of {len(head)} bytes equal theirs; each "
+                  f"decodes back in both size modes; {label}", flush=True)
+
+    # the Python path, forced as the CPU tests force it
+    with hc.on_backend("python", nb):
+        for level in hc.PY_LEVELS + hc.PY_OPT_LEVELS:
+            data = corpus[:hc.PY_SPAN if level in hc.PY_LEVELS
+                          else hc.PY_OPT_SPAN]
+            c = lt.Compressor(level)
+            passes = 3 if level in HOST_BEST_OF_3 else 1
+            out, c_s = best_call(lambda: c.deflate_compress(data), passes)
+            require_pin(f"Python raw, level {level}", out,
+                        pins["python"][str(level)])
+            d_s = require_round_trip(f"Python, level {level}", d, out, data,
+                                     "deflate", passes)
+            print(f"host contract, Python path, level {level}: compress "
+                  f"{len(data) / c_s / 1e6:.6f} MB/s, decompress "
+                  f"{len(data) / d_s / 1e6:.6f} MB/s of output "
+                  f"({'best of 3 calls' if passes == 3 else 'one call'} on "
+                  f"{len(data)} bytes: {c_s:.6f} s, {d_s:.6f} s), "
+                  f"{len(out)} bytes, equal to the JAX package's pin; "
+                  f"decodes back in both size modes; {label}", flush=True)
+
+    # (a) K3 decodes the native engine's streams of each 1 MiB chunk
+    dev = torch.device("cuda", 0)
+    nchunks = len(chunks)
+    chunks_d = torch.as_tensor(chunks.copy(), device=dev)
+    full = torch.full((nchunks,), CHUNK, dtype=torch.int32, device=dev)
+    err_dec = 0
+    with hc.on_backend("native", nb):
+        for level in CROSS_LEVELS:
+            c = lt.Compressor(level)
+            streams = [c.deflate_compress(ch.tobytes()) for ch in chunks]
+            words, clen = dd.pack_streams(streams)
+            words = torch.as_tensor(words.view(np.int32), device=dev)
+            clen_d = torch.as_tensor(clen, device=dev)
+            out, st, ol, cons = dd.decompress_chunks_words(words, clen_d,
+                                                           full, CHUNK)
+            if not (bool((st == 0).all()) and bool((ol == CHUNK).all())
+                    and torch.equal(cons, clen_d)
+                    and torch.equal(out, chunks_d)):
+                raise AssertionError(f"host contract: K3 does not decode "
+                                     f"the level-{level} chunk streams")
+            rows = torch.as_tensor(CROSS_PLAIN_CHUNKS, device=dev)
+            want = dd.decompress_chunks_words(
+                words[rows].cpu(), clen[CROSS_PLAIN_CHUNKS],
+                np.full(len(rows), CHUNK, np.int32), CHUNK, device="cpu")
+            err_dec = max(err_dec, require_equal(
+                f"decode_chunks (host contract, level {level})",
+                [g[rows].cpu() for g in (out, st, ol, cons)], want))
+            print(f"host contract, K3 on Compressor({level}) chunk streams: "
+                  f"all {nchunks} decode to the corpus in one known-size "
+                  f"call, status 0, consumed = stream lengths "
+                  f"({int(clen.sum())} bytes); chunks {CROSS_PLAIN_CHUNKS} "
+                  f"equal the plain version", flush=True)
+
+    # (b) the host Decompressor decodes gzip_compress_dp's output (K1, K2)
+    mesh = pm.make_chunk_mesh()
+    gz = fc.gzip_compress_dp(corpus, mesh, CHUNK, 6)
+    torch.cuda.synchronize()
+    for backend in ("native", "python"):
+        with hc.on_backend(backend, nb):
+            (res, out, ain, aout), secs = best_call(
+                lambda: d.gzip_decompress(gz, len(corpus), True), 1)
+        if (res, out, ain, aout) != (0, corpus, len(gz), len(corpus)):
+            raise AssertionError(f"host contract: the {backend} "
+                                 f"Decompressor does not decode "
+                                 f"gzip_compress_dp's level-6 output")
+        print(f"host contract, {backend} gzip_decompress of "
+              f"gzip_compress_dp(corpus, level 6) ({len(gz)} bytes): the "
+              f"corpus, actual_in = {ain}, "
+              f"{len(corpus) / secs / 1e6:.6f} MB/s of output (one call); "
+              f"{label}", flush=True)
+    launches = {"dp_parse": pk.dp_parse.launches,
+                "pack_groups": pk.pack_groups.launches,
+                "decode_chunks": dd.decompress_chunks_words.launches}
+    ndev = len(mesh.devices)
+    want = {"dp_parse": FILE_LEVELS[6][1] * ndev, "pack_groups": ndev,
+            "decode_chunks": len(CROSS_LEVELS)}
+    if launches != want:
+        raise AssertionError(f"host contract: launches {launches}, not "
+                             f"{want}")
+
+    # (c) the host checksums, zlib's and the device's, per chunk
+    lengths = torch.full((nchunks,), CHUNK, dtype=torch.int64, device=dev)
+    dev_crc = ck.crc32_chunks(chunks_d, lengths, dev).tolist()
+    dev_adler = ck.adler32_chunks(chunks_d, lengths, dev).tolist()
+    sums = {}
+    with hc.on_backend("native", nb):
+        sums["native"] = [(lt.crc32(ch), lt.adler32(ch)) for ch in chunks]
+    with hc.on_backend("python", nb):
+        sums["python"] = [(lt.crc32(chunks[i]), lt.adler32(chunks[i]))
+                          if i in CROSS_PLAIN_CHUNKS else sums["native"][i]
+                          for i in range(nchunks)]
+    ref = [(zlib.crc32(ch), zlib.adler32(ch)) for ch in chunks]
+    if not sums["native"] == sums["python"] == ref == list(zip(dev_crc,
+                                                               dev_adler)):
+        raise AssertionError("host contract: the host, zlib and device "
+                             "checksums disagree")
+    print(f"host contract: lt.crc32 and lt.adler32 of each of the "
+          f"{nchunks} chunks (native; the Python path on chunks "
+          f"{CROSS_PLAIN_CHUNKS}) equal zlib's and crc32_chunks/"
+          f"adler32_chunks on the card", flush=True)
+
+    # the damaged set's Decompressor 4-tuples, on both backends
+    with hc.on_backend("native", nb):
+        cases = hc.damaged_set(lt, corpus)
+    for backend in ("native", "python"):
+        with hc.on_backend(backend, nb):
+            if hc.decode_tuples(lt, cases) != pins["damaged"][backend]:
+                raise AssertionError(f"host contract: the {backend} "
+                                     f"Decompressor's tuples on the damaged "
+                                     f"set differ from the JAX package's")
+    print(f"host contract: the {len(cases)} damaged streams' 4-tuples in "
+          f"both size modes equal the JAX package's on both backends",
+          flush=True)
+    print(f"host contract launches: {json.dumps(launches)}", flush=True)
+    print(f"host contract phase: {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+    return {"launches": launches, "max_abs_err": err_dec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1194,6 +1443,10 @@ def main() -> int:
     err_dp = max(err_dp, file_launches["max_abs_err"]["dp_parse"])
     err_pack = max(err_pack, file_launches["max_abs_err"]["pack_groups"])
 
+    # ---- the libdeflate contract on the host engine, crossed with K1-K3
+    host = host_contract_phase(root, corpus, chunks, card)
+    err_dec = max(err_dec, host["max_abs_err"])
+
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
     tok_plain_s = {}
@@ -1405,6 +1658,7 @@ def main() -> int:
          "library_ms": None, "ladders": ladder_times,
          "whole_file_launches": {level: n["dp_parse"] for level, n in
                                  file_launches["compress"].items()},
+         "host_contract_launches": host["launches"]["dp_parse"],
          "dp_tier_launches": {name: row["launches"]["dp_parse"]
                               for name, row in dp_tiers.items()}},
         {"name": "pack_groups", "route": "cuda",
@@ -1420,7 +1674,8 @@ def main() -> int:
          "library_ms": graph_ms(index_add_call(*real_pack), 200),
          "tiers": pack_tier_times,
          "whole_file_launches": {level: n["pack_groups"] for level, n in
-                                 file_launches["compress"].items()}},
+                                 file_launches["compress"].items()},
+         "host_contract_launches": host["launches"]["pack_groups"]},
         {"name": "decode_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
          "replaces": "libdeflate_tpu/decompress/pallas_decode.py:943",
@@ -1434,7 +1689,8 @@ def main() -> int:
          "chain_lookups": int(chain3[1, top3]),
          "chain_floor_ms": chain3_floor_ms,
          "library_ms": None,
-         "whole_file_launches": file_launches["decode_chunks"]},
+         "whole_file_launches": file_launches["decode_chunks"],
+         "host_contract_launches": host["launches"]["decode_chunks"]},
         {"name": "tokenize_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/tokenize_chunks.cu",
          "replaces": "scripts/exp_tokenize_ceiling.py:351",

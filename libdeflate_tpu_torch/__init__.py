@@ -1,7 +1,11 @@
 """libdeflate_tpu_torch — the PyTorch/CUDA port of libdeflate_tpu.
 
 Counterpart of ``libdeflate_tpu/``.  The port goes slice by slice; this
-package holds the compress tiers (the JAX package's min-cost-DP tiers of
+package holds the libdeflate contract of ``api.py`` (result codes,
+``Compressor``, ``Decompressor``, the bounds and the checksums, exported
+under the JAX package's names) over the host engine (the native C++ codec
+built from ``native/ldtpu_native.cpp``, else the numpy/Python parsers and
+decoder), the compress tiers (the JAX package's min-cost-DP tiers of
 ``compress/tpu_optimal.py`` -- lean, optfast, optimal, optimal2, deep and
 ``compress_chunk_optimal`` at any of the mesh's keyword sets -- and the
 greedy/lazy static and dynamic tiers) with their two kernels, the scalar
@@ -12,10 +16,22 @@ all kernels written by hand in CUDA C++ for Hopper (``csrc/``).
 
 The package imports ``torch`` and ``numpy`` and nothing of JAX or of the
 JAX package.  Entry points run on the CUDA device unless the caller
-passes ``device="cpu"`` (the whole-file codec: a mesh of CPU devices).
+passes ``device="cpu"`` (the whole-file codec: a mesh of CPU devices);
+the contract runs on the host, as the JAX package's does, and takes no
+device.
 """
 
 from .api import (
+    BAD_DATA,
+    INSUFFICIENT_SPACE,
+    SHORT_OUTPUT,
+    SUCCESS,
+    Compressor,
+    Decompressor,
+    adler32,
+    adler32_combine,
+    crc32,
+    crc32_combine,
     deflate_compress_bound,
     gzip_compress_bound,
     zlib_compress_bound,
@@ -52,6 +68,14 @@ from .parallel.mesh import (
 )
 
 __all__ = [
+    "BAD_DATA",
+    "Compressor",
+    "Decompressor",
+    "INSUFFICIENT_SPACE",
+    "SHORT_OUTPUT",
+    "SUCCESS",
+    "adler32",
+    "adler32_combine",
     "compress_chunks_dp",
     "compress_chunks_dynamic",
     "compress_chunks_dynamic2",
@@ -63,6 +87,8 @@ __all__ = [
     "compress_chunks_optimal_deep",
     "compress_chunks_optimal_with",
     "compress_chunks_static",
+    "crc32",
+    "crc32_combine",
     "decompress_chunks",
     "decompress_chunks_dp",
     "decompress_chunks_host",
