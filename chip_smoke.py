@@ -59,9 +59,11 @@ two paths through their entry points:
   and peak memory; ``zlib_compress_dp`` and ``deflate_compress_dp`` at
   level 1 with zlib's checksums; ``compress_chunks_dp`` at level 6 with
   BFINAL on every chunk, then ``decompress_chunks_dp`` of its fragments
-  and of the zlib-6 streams (one K3 launch a shard, every chunk equal,
-  a corrupt chunk isolated, out_lens one short BAD_DATA); ``entry()``
-  on the card equal to the CPU and ``dryrun_multichip(1)``;
+  and of the zlib-6 streams (decoder "auto": one K3 launch a shard and
+  no F1 launch, every chunk equal, a corrupt chunk isolated, out_lens
+  one short BAD_DATA) and of the fragments with decoder "fsm" (one F1
+  launch a shard, no K3); ``entry()`` on the card equal to the CPU and
+  ``dryrun_multichip(1)``;
 - host contract: ``Compressor``, ``Decompressor``, ``crc32`` and
   ``adler32`` on the host engine, the native codec built from
   ``native/ldtpu_native.cpp`` into ``build/native/`` (asserted loaded)
@@ -76,6 +78,22 @@ two paths through their entry points:
   ``gzip_compress_dp``'s level-6 output (K1, K2); the host checksums equal
   zlib's and the device's per chunk; the damaged set's ``Decompressor``
   4-tuples equal the pinned ones on both backends;
+- FSM decoder (``fsm_phase``): F1 (``csrc/fsm_decode.cu``, the port of
+  the JAX package's ``decompress/tpu.py``) equal to its plain version on
+  the sets of ``experiments/fsm_cases.py`` (zlib levels and strategies,
+  damaged, incomplete codes, crafted bounds; B = 8 x 8 KiB) and on the
+  16 zlib-6 chunks, and every 4-tuple of the damaged, incomplete and
+  crafted sets equal to the JAX package's (pinned in
+  ``experiments/fsm_pins.json`` by ``tests/pin_fsm.py``); the main path:
+  the 16 zlib-6 and 16 lean streams through ``fsm.decompress_chunks``,
+  one B = 16 call each into 1 MiB rows, every chunk equal to the corpus,
+  best of 3 beside K3's; F1's chain (the plain version's symbols and
+  lookups); the programs on the corpus through their ``main``:
+  ``gzip_cli --tpu -6`` (bytes equal to the level-6 pin), ``benchmark
+  -C ours-tpu -D ours-tpu`` (F1) and ``-D ours-pallas`` (K3),
+  ``checksum -T`` (zlib's values); a ``utils.profiling.device_trace``
+  of one ``compress_chunks_lean`` call at B = 4, its top device ops by
+  self time and the device's idle share over the traced window;
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
@@ -108,8 +126,8 @@ inside them) and crafted inputs (every group on one start word, start
 words near the end, sparse start words, a run of 40 groups a word before
 sparse ones); the nodes of a CUDA graph captured around one wrapper call
 show that it runs its kernel and no other device op. It times each
-kernel beside its plain version: K1 (also as its bare launch), K3 and K4
-by CUDA events around back-to-back calls, K2 and K5-K7 (a few
+kernel beside its plain version: K1 (also as its bare launch), K3, K4
+and F1 by CUDA events around back-to-back calls, K2 and K5-K7 (a few
 microseconds each, less than their wrappers' host time) by replaying 200
 calls from a CUDA graph, K2 also as its bare launch and on the rand,
 runs and dense-then-sparse inputs beside index_add_. Any failure raises
@@ -153,6 +171,7 @@ GREEDY_BITS = "libdeflate_tpu_torch/experiments/greedy_total_bits.json"
 DP_BITS = "libdeflate_tpu_torch/experiments/dp_total_bits.json"
 FILE_PINS = "libdeflate_tpu_torch/experiments/file_codec_pins.json"
 HOST_PINS = "libdeflate_tpu_torch/experiments/host_engine_pins.json"
+FSM_PINS = "libdeflate_tpu_torch/experiments/fsm_pins.json"
 HOST_BEST_OF_3 = (1, 6, 12)   # host contract levels timed best of 3
 CROSS_LEVELS = (1, 6, 12)     # Compressor levels whose chunks K3 decodes
 CROSS_PLAIN_CHUNKS = [0, 12]  # chunks K3 is held to its plain version on
@@ -488,6 +507,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.decompress import fsm
     from libdeflate_tpu_torch.formats import gzip_fmt, zlib_fmt
     from libdeflate_tpu_torch.parallel import file_codec as fc
     from libdeflate_tpu_torch.parallel import mesh as pm
@@ -644,13 +664,17 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     for name, (cb, cl) in sets.items():
         dd.reset_launch_counts()
         pk.reset_launch_counts()
+        fsm.reset_launch_counts()
         out, olen, consumed, status, all_lens = pm.decompress_chunks_dp(
             mesh, cb, cl, lengths, CHUNK)
         torch.cuda.synchronize()
+        # "auto" on the card is K3: one launch a shard, F1 never
         if (dd.decompress_chunks_words.launches != ndev
+                or fsm.decompress_chunks.launches
                 or pk.pack_groups.launches or pk.dp_parse.launches):
             raise AssertionError(f"decompress_chunks_dp ({name}): launches "
-                                 f"{dd.decompress_chunks_words.launches}")
+                                 f"{dd.decompress_chunks_words.launches}, "
+                                 f"F1 {fsm.decompress_chunks.launches}")
         if not (bool((status == 0).all()) and bool((olen == CHUNK).all())
                 and torch.equal(all_lens, olen)
                 and torch.equal(consumed.cpu(), torch.as_tensor(cl).cpu())
@@ -678,8 +702,33 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
         print(f"whole file, decompress_chunks_dp ({name}): "
               f"{len(corpus) / best / 1e9:.6f} GB/s of output (best of 3 "
               f"calls, {best:.6f} s for {nchunks} x {CHUNK} bytes), every "
-              f"chunk equals the corpus, one decode_chunks launch a shard; "
-              f"{card}", flush=True)
+              f"chunk equals the corpus, one decode_chunks launch a shard "
+              f"and no fsm_decode launch (decoder \"auto\"); {card}",
+              flush=True)
+    # decoder="fsm": the FSM decoder (F1) on each shard
+    dd.reset_launch_counts()
+    fsm.reset_launch_counts()
+    out, olen, consumed, status, all_lens = pm.decompress_chunks_dp(
+        mesh, frag_bufs, frag_lens, lengths, CHUNK, decoder="fsm")
+    torch.cuda.synchronize()
+    fsm_launches = fsm.decompress_chunks.launches
+    if fsm_launches != ndev or dd.decompress_chunks_words.launches:
+        raise AssertionError(f"decompress_chunks_dp (fsm): F1 launches "
+                             f"{fsm_launches}, K3 "
+                             f"{dd.decompress_chunks_words.launches}")
+    if not (bool((status == 0).all()) and bool((olen == CHUNK).all())
+            and torch.equal(all_lens, olen)
+            and torch.equal(consumed, frag_lens)
+            and torch.equal(out, corpus_d)):
+        raise AssertionError("decompress_chunks_dp (fsm): a chunk does not "
+                             "decode to the corpus")
+    best = time_best(lambda: pm.decompress_chunks_dp(
+        mesh, frag_bufs, frag_lens, lengths, CHUNK, decoder="fsm"))
+    print(f"whole file, decompress_chunks_dp (level 6 fragments, decoder "
+          f"\"fsm\"): {len(corpus) / best / 1e9:.6f} GB/s of output (best "
+          f"of 3 calls, {best:.6f} s), every chunk equals the corpus, one "
+          f"fsm_decode launch a shard and no decode_chunks launch; {card}",
+          flush=True)
     print("whole file, decompress_chunks_dp: a corrupt chunk 3 fails alone; "
           "out_lens one short on chunk 1 is BAD_DATA", flush=True)
 
@@ -692,7 +741,233 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     print("entry(): dyn1 on the card equals the CPU; dryrun_multichip(1) "
           "passes", flush=True)
     return {"compress": file_launches, "decode_chunks": ndev,
-            "max_abs_err": errs}
+            "fsm_decode": fsm_launches, "max_abs_err": errs}
+
+
+def trace_summary(trace_file: Path, top: int = 15):
+    """(the ``top`` device ops by self time, as [name, ms, count], and the
+    device's idle share) of a Chrome trace written by ``torch.profiler``:
+    the share of the traced window (first event's start to last event's
+    end, host and device) in which no kernel, copy or memset ran."""
+    events = [e for e in json.loads(trace_file.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev_cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                  e["name"]) for e in events if e.get("cat") in dev_cats)
+    if not dev:
+        raise AssertionError("the trace holds no device op")
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
+    for s, e, _ in dev[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    by_name: dict[str, list] = {}
+    for s, e, name in dev:
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += (e - s) / 1e3
+        row[1] += 1
+    ops = sorted(([n[:80], round(ms, 6), c] for n, (ms, c) in by_name.items()),
+                 key=lambda r: -r[1])[:top]
+    return ops, 1 - busy / (end - start), (end - start) / 1e3
+
+
+def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
+              zbufs: np.ndarray, z_clen: np.ndarray, lean_bufs, lean_lens,
+              k3_rate: dict, batch0, lengths, bfinal, card: str) -> dict:
+    """The FSM decoder (F1) on the card: held to its plain version and to
+    the JAX package's pins (``experiments/fsm_pins.json``), its main path
+    (the 16 zlib-6 and 16 lean streams of the corpus through
+    ``fsm.decompress_chunks``, one B = 16 call each), then the programs on
+    the corpus through their ``main`` (``gzip_cli --tpu -6``, ``benchmark
+    -C ours-tpu -D ours-tpu`` and ``-D ours-pallas``, ``checksum -T``),
+    and a ``device_trace`` of one ``compress_chunks_lean`` call.  Returns
+    F1's launches, its largest difference from the plain version and its
+    times."""
+    import contextlib
+    import io
+    import tempfile
+
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import optimal as po
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.decompress import fsm
+    from libdeflate_tpu_torch.experiments import crafted_streams as cs
+    from libdeflate_tpu_torch.experiments import fsm_cases
+    from libdeflate_tpu_torch.experiments.timing import cuda_ms
+    from libdeflate_tpu_torch.programs import benchmark as pbench
+    from libdeflate_tpu_torch.programs import checksum as pck
+    from libdeflate_tpu_torch.programs import gzip_cli as pgz
+    from libdeflate_tpu_torch.utils.profiling import device_trace
+
+    t_phase = time.perf_counter()
+    nchunks = len(chunks)
+    dev = torch.device("cuda", 0)
+    corpus_d = torch.as_tensor(chunks.copy(), device=dev)
+
+    # ---- F1 against its plain version and the JAX package's 4-tuples ---
+    pins = json.loads((root / FSM_PINS).read_text())
+    err = 0
+    for name, cases in fsm_cases.sets(cs.repo_text(root)).items():
+        rows, n_bad = [], 0
+        for bufs, lens, n in fsm_cases.batches(cases):
+            got = [g.cpu() for g in fsm.decompress_chunks(bufs, lens,
+                                                          fsm_cases.OUT)]
+            want = fsm.decompress_chunks(bufs, lens, fsm_cases.OUT,
+                                         device="cpu")
+            err = max(err, require_equal(f"fsm_decode ({name})", got, want))
+            rows += fsm_cases.pin_rows(*got, n)
+            n_bad += int((got[3][:n] != 0).sum())
+        pinned = name in pins["sets"]
+        if pinned and rows != [r[1:] for r in pins["sets"][name]]:
+            raise AssertionError(f"fsm_decode ({name}): 4-tuples differ from "
+                                 f"the JAX package's pins")
+        print(f"F1 fsm_decode ({name}, {len(cases)} streams, B = "
+              f"{fsm_cases.B} x N = {fsm_cases.N}, out_cap "
+              f"{fsm_cases.OUT}): equal to its plain version"
+              f"{', every 4-tuple equal to the JAX pins' if pinned else ''}"
+              f", {len(cases) - n_bad} OK and {n_bad} failed", flush=True)
+    z_lens = torch.as_tensor(z_clen)
+    zb_d = torch.as_tensor(zbufs, device=dev)
+    zl_d = z_lens.to(dev)
+    got = [g.cpu() for g in fsm.decompress_chunks(zb_d, zl_d, CHUNK)]
+    chain = np.zeros((2, nchunks), np.int64)
+    t0 = time.perf_counter()
+    want = fsm.decode_chunks_fsm_plain(torch.as_tensor(zbufs), z_lens, CHUNK,
+                                       chain)
+    plain_s = time.perf_counter() - t0
+    err = max(err, require_equal("fsm_decode (zlib-6, 16 chunks)", got,
+                                 want))
+    print(f"F1 fsm_decode (zlib-6, {nchunks} x {CHUNK} bytes): equal to its "
+          f"plain version, plain {plain_s:.3f} s", flush=True)
+
+    # ---- the main path: full width through the entry point ------------
+    fsm.reset_launch_counts()
+    dd.reset_launch_counts()
+    pk.reset_launch_counts()
+    sets = {"zlib-6": (zb_d, zl_d), "lean": (lean_bufs, lean_lens)}
+    for name, (b, n) in sets.items():
+        out, ol, cons, res = fsm.decompress_chunks(b, n, CHUNK)
+        if not (bool((res == 0).all()) and bool((ol == CHUNK).all())
+                and torch.equal(cons, n) and torch.equal(out, corpus_d)):
+            raise AssertionError(f"fsm decode ({name}): a chunk does not "
+                                 f"decode to the corpus")
+    torch.cuda.synchronize()
+    launches = fsm.decompress_chunks.launches
+    if launches != len(sets) or dd.decompress_chunks_words.launches \
+            or pk.dp_parse.launches or pk.pack_groups.launches:
+        raise AssertionError(f"fsm decode main path: F1 launches {launches}")
+    rate = {}
+    for name, (b, n) in sets.items():
+        best = time_best(lambda: fsm.decompress_chunks(b, n, CHUNK))
+        k3_gbs, k3_best = k3_rate["zlib-6" if name == "zlib-6" else
+                                  "round trip"]
+        rate[name] = best
+        print(f"fsm decode main path ({name}, B = {nchunks}, out_cap "
+              f"{CHUNK}): {len(corpus) / best / 1e9:.6f} GB/s of output "
+              f"(best of 3 calls, {best:.6f} s), every chunk equals the "
+              f"corpus, status 0, consumed = stream lengths; K3 on the same "
+              f"streams {k3_gbs:.6f} GB/s ({k3_best:.6f} s); {card}",
+              flush=True)
+    print(f"fsm decode main path launches: "
+          f"{json.dumps({'fsm_decode': launches})}", flush=True)
+    ms = cuda_ms(lambda: fsm.decompress_chunks(zb_d, zl_d, CHUNK), 3)
+
+    # ---- the programs on the corpus -----------------------------------
+    pin6 = json.loads((root / FILE_PINS).read_text())["gzip"]["6"]
+    prog_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "corpus.bin"
+        path.write_bytes(corpus)
+        for mod in (pk, dd, fsm):
+            mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        if pgz.main(["gzip", "-k", "-6", "--tpu", str(path)]) != 0:
+            raise AssertionError("gzip_cli --tpu -6 failed")
+        gz = path.with_name("corpus.bin.gz").read_bytes()
+        gz_s = time.perf_counter() - t0
+        prog_launches["gzip_cli --tpu -6"] = {
+            "dp_parse": pk.dp_parse.launches,
+            "pack_groups": pk.pack_groups.launches}
+        if (len(gz), hashlib.sha256(gz).hexdigest()) != (pin6["bytes"],
+                                                         pin6["sha256"]):
+            raise AssertionError("gzip_cli --tpu -6: the bytes differ from "
+                                 "the JAX package's pin")
+        if zlib.decompress(gz, 31) != corpus:
+            raise AssertionError("gzip_cli --tpu -6 does not decode back")
+        print(f"gzip_cli --tpu -6 (corpus, {len(corpus)} bytes): {len(gz)} "
+              f"bytes with the JAX package's SHA-256 (file_codec_pins.json), "
+              f"inflates through zlib, {gz_s:.3f} s with start-up; launches "
+              f"{json.dumps(prog_launches['gzip_cli --tpu -6'])}", flush=True)
+        # -e: the corpus's random part expands
+        for argv in (["-s", str(CHUNK), "-e", "-C", "ours-tpu", "-D",
+                      "ours-tpu"],
+                     ["-s", str(CHUNK), "-e", "-D", "ours-pallas"]):
+            for mod in (pk, dd, fsm):
+                mod.reset_launch_counts()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = pbench.main([*argv, str(path)])
+            if rc != 0 or "Compressed" not in text.getvalue():
+                raise AssertionError(f"benchmark {' '.join(argv)} failed")
+            key = f"benchmark {' '.join(argv[3:])}"
+            prog_launches[key] = {
+                "dp_parse": pk.dp_parse.launches,
+                "pack_groups": pk.pack_groups.launches,
+                "decode_chunks": dd.decompress_chunks_words.launches,
+                "fsm_decode": fsm.decompress_chunks.launches}
+            lines = [ln.strip() for ln in text.getvalue().splitlines()
+                     if ln.strip().startswith(("Compressed", "Compression",
+                                               "Decompression"))]
+            print(f"{key} (corpus): {'; '.join(lines)}; launches "
+                  f"{json.dumps(prog_launches[key])}; {card}", flush=True)
+        for args, want_v in ((["-T"], zlib.crc32(corpus)),
+                             (["-A", "-T"], zlib.adler32(corpus))):
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = pck.main([*args, str(path)])
+            if rc != 0 or text.getvalue().split()[0] != f"{want_v:08x}":
+                raise AssertionError(f"checksum {' '.join(args)}: "
+                                     f"{text.getvalue()!r} is not zlib's "
+                                     f"{want_v:08x}")
+        print("checksum -T and -A -T (corpus): equal to zlib's CRC-32 and "
+              "Adler-32", flush=True)
+        if prog_launches["benchmark -C ours-tpu -D ours-tpu"]["fsm_decode"] \
+                != nchunks or prog_launches["benchmark -D ours-pallas"][
+                    "decode_chunks"] != nchunks:
+            raise AssertionError(f"the programs' decoders: launches "
+                                 f"{prog_launches}")
+
+        # ---- a device trace of one lean call --------------------------
+        po.compress_chunks_lean(batch0, lengths, bfinal)
+        torch.cuda.synchronize()
+        tdir = Path(tmp) / "trace"
+        with device_trace(str(tdir)) as prof:
+            po.compress_chunks_lean(batch0, lengths, bfinal)
+            torch.cuda.synchronize()
+        (trace_file,) = tdir.glob("trace_*.json")
+        ops, idle, window_ms = trace_summary(trace_file)
+        print(f"device_trace of one compress_chunks_lean call (B = "
+              f"{batch0.shape[0]} x {CHUNK}): traced window "
+              f"{window_ms:.3f} ms, device idle share {idle:.6f}; top "
+              f"{len(ops)} device ops by self time [name, ms, count]: "
+              f"{json.dumps(ops)}; {card}", flush=True)
+        avg = prof.key_averages()
+        key = ("self_device_time_total" if hasattr(avg[0],
+               "self_device_time_total") else "self_cuda_time_total")
+        top = sorted(avg, key=lambda e: -getattr(e, key))[:15]
+        print("device_trace, profiler ops by self CUDA time [op, ms, calls]: "
+              + json.dumps([[e.key[:60], round(getattr(e, key) / 1e3, 6),
+                             e.count] for e in top]), flush=True)
+    print(f"fsm phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    top_k = int(chain[0].argmax())
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": 1e3 * plain_s, "chain": chain, "top": top_k,
+            "programs": prog_launches, "rate": rate, "idle": idle}
 
 
 def cpu_model() -> str:
@@ -1447,6 +1722,11 @@ def main() -> int:
     host = host_contract_phase(root, corpus, chunks, card)
     err_dec = max(err_dec, host["max_abs_err"])
 
+    # ---- the FSM decoder (F1), the programs and a device trace ---------
+    fsm_res = fsm_phase(root, corpus, chunks, bufs, z_clen,
+                        rt_words.view(torch.uint8), rt_clen, dec_rate,
+                        batches[0], lengths, bfinal, card)
+
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
     tok_plain_s = {}
@@ -1705,6 +1985,28 @@ def main() -> int:
          "chain_floor_ms": chain_floor_ms,
          "library_ms": None},
     ]
+    chain_f1 = fsm_res["chain"][:, fsm_res["top"]]
+    kernels.append({
+        "name": "fsm_decode", "route": "cuda",
+        "source": "libdeflate_tpu_torch/csrc/fsm_decode.cu",
+        "replaces": "libdeflate_tpu/decompress/tpu.py:168",
+        "launches": fsm_res["launches"], "max_abs_err": fsm_res["max_abs_err"],
+        "ms": fsm_res["ms"], "plain_ms": fsm_res["plain_ms"],
+        "bound_ms": 1e3 * (int(z_clen.sum()) + nchunks * CHUNK)
+        / H100_BYTES_PER_S,
+        "bound_by": "bytes",
+        "chain_symbols": int(chain_f1[0]),
+        "chain_lookups": int(chain_f1[1]),
+        "chain_floor_ms": int(chain_f1[1]) * lat["ns"] / 1e6,
+        "library_ms": None,
+        "whole_file_launches": file_launches["fsm_decode"],
+        "program_launches": {k: v.get("fsm_decode", 0) for k, v in
+                             fsm_res["programs"].items()}})
+    print(f"F1 chain (zlib-6, 16 chunks): chunk {fsm_res['top']} has the most "
+          f"symbols, {int(chain_f1[0])}, and {int(chain_f1[1])} table "
+          f"lookups: chain floor {int(chain_f1[1]) * lat['ns'] / 1e6:.6f} ms "
+          f"at {lat['ns']:.4f} ns a lookup; F1 {fsm_res['ms']:.6f} ms a call",
+          flush=True)
     x_grid = torch.zeros(lo.STEP_COUNTS[-1] * lo.ROWS, lo.LANES,
                          dtype=torch.int32, device=dev)
     for name, source, replaces, fn, plain, x in (

@@ -10,9 +10,14 @@ decoder), the compress tiers (the JAX package's min-cost-DP tiers of
 ``compress_chunk_optimal`` at any of the mesh's keyword sets -- and the
 greedy/lazy static and dynamic tiers) with their two kernels, the scalar
 DEFLATE decoder (``decompress/pallas_decode.py``) with its kernel, the
+FSM decoder (``decompress/tpu.py``, exported as ``decompress_chunks_fsm``
+and ``deflate_decompress_chunk``) with a kernel of its own, the
 whole-file chunk-parallel codec over a device mesh (``parallel/``, the
-formats, and the entry module ``entry.py``), and the measurement path,
-all kernels written by hand in CUDA C++ for Hopper (``csrc/``).
+formats, and the entry module ``entry.py``), the programs
+(``programs/gzip_cli``, ``benchmark`` and ``checksum``, each run as
+``python -m libdeflate_tpu_torch.programs.<name>``) with
+``utils/profiling.py``, and the measurement path, all kernels written by
+hand in CUDA C++ for Hopper (``csrc/``).
 
 The package imports ``torch`` and ``numpy`` and nothing of JAX or of the
 JAX package.  Entry points run on the CUDA device unless the caller
@@ -20,6 +25,8 @@ passes ``device="cpu"`` (the whole-file codec: a mesh of CPU devices);
 the contract runs on the host, as the JAX package's does, and takes no
 device.
 """
+
+__version__ = "0.1.0"
 
 from .api import (
     BAD_DATA,
@@ -55,6 +62,8 @@ from .decompress.decode import (
     decompress_chunks_host,
     decompress_chunks_words,
 )
+from .decompress.fsm import decompress_chunks as decompress_chunks_fsm
+from .decompress.fsm import deflate_decompress_chunk
 from .device import from_numpy_batch, resolve_device
 from .parallel.file_codec import (
     deflate_compress_dp,
@@ -65,6 +74,7 @@ from .parallel.mesh import (
     compress_chunks_dp,
     decompress_chunks_dp,
     make_chunk_mesh,
+    resolve_decoder,
 )
 
 __all__ = [
@@ -91,15 +101,18 @@ __all__ = [
     "crc32_combine",
     "decompress_chunks",
     "decompress_chunks_dp",
+    "decompress_chunks_fsm",
     "decompress_chunks_host",
     "decompress_chunks_words",
     "deflate_compress_bound",
     "deflate_compress_dp",
+    "deflate_decompress_chunk",
     "device_stream_to_bytes",
     "from_numpy_batch",
     "gzip_compress_bound",
     "gzip_compress_dp",
     "make_chunk_mesh",
+    "resolve_decoder",
     "resolve_device",
     "zlib_compress_bound",
     "zlib_compress_dp",

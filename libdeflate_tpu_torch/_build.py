@@ -2,8 +2,9 @@
 
 No counterpart in ``libdeflate_tpu/``: Pallas kernels compile inside JAX.
 The sources are ``csrc/dp_parse.cu`` (K1), ``csrc/pack_groups.cu`` (K2),
-``csrc/decode_chunks.cu`` (K3), ``csrc/tokenize_chunks.cu`` (K4) and
-``csrc/launch_probes.cu`` (K5-K7); K3 and K4 share
+``csrc/decode_chunks.cu`` (K3), ``csrc/tokenize_chunks.cu`` (K4),
+``csrc/launch_probes.cu`` (K5-K7) and ``csrc/fsm_decode.cu`` (F1, the
+FSM decoder, which replaces XLA loop code); K3 and K4 share
 ``csrc/inflate_common.cuh``.  Each source has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so``
 at the repository root on first use (or when the source or a header it
@@ -25,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 KERNEL_SOURCES = ("dp_parse", "pack_groups", "decode_chunks",
-                  "tokenize_chunks", "launch_probes")
+                  "tokenize_chunks", "launch_probes", "fsm_decode")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], object] = {}

@@ -357,15 +357,20 @@ def deep_subtables():
     return pack_rows([s, s], [78, 77])
 
 
-def incomplete_codes():
+def incomplete_code_streams() -> list[bytes]:
     """An offset code of no codewords and litlen codes of one length-1
-    codeword (zlib-lax)."""
+    codeword (zlib-lax), 3 and 4 bytes of output."""
     s1 = craft_dynamic_stream({ord("a"): 1, 256: 1}, {},
                               [("lit", ord("a"))] * 3 + [("eob",)])
     s2 = craft_dynamic_stream(
         {ord("x"): 1, 256: 2, 257: 2}, {0: 1},
         [("lit", ord("x")), ("match", 257, 0, 0, 0, 0, 0), ("eob",)])
-    return pack_rows([s1, s2], [3, 4])
+    return [s1, s2]
+
+
+def incomplete_codes():
+    """``incomplete_code_streams`` as one batch."""
+    return pack_rows(incomplete_code_streams(), [3, 4])
 
 
 def out_len_one_off(text: bytes):

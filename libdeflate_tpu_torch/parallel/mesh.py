@@ -32,7 +32,7 @@ import torch
 from ..compress.dynamic import compress_chunks_dynamic
 from ..compress.optimal import MESH_LEVEL_OPTIONS, compress_chunks_optimal_with
 from ..compress.pipeline import compress_chunks_static
-from ..decompress.decode import decompress_chunks
+from ..decompress import decode, fsm
 from ..device import as_tensor, from_numpy_batch, resolve_device
 from ..ops.checksums import adler32_chunks, crc32_chunks
 
@@ -116,30 +116,46 @@ def compress_chunks_dp(mesh: ChunkMesh, bufs, lengths, bfinal,
     return words, total_bits, crcs, adlers, total_bits.clone()
 
 
+def resolve_decoder(decoder: str, devices) -> str:
+    """The decoder that ``decompress_chunks_dp`` runs on a mesh of
+    ``devices``: "fsm" (``decompress/fsm.py``, F1 on CUDA) or "pallas"
+    (``decompress/decode.py``, K3 on CUDA).  "auto" follows the JAX mesh
+    (``mesh.py:159-161``), which takes its scalar Pallas decoder on a TPU
+    and the FSM decoder elsewhere: here "pallas" when the first device is
+    CUDA, where K3 is the card's hand-written decoder as the Pallas
+    kernel is the TPU's, and "fsm" on CPU devices, which gives what the
+    JAX "auto" gives on a CPU mesh."""
+    if decoder == "auto":
+        return ("pallas" if torch.device(devices[0]).type == "cuda"
+                else "fsm")
+    if decoder not in ("fsm", "pallas"):
+        raise ValueError(f"unknown decoder {decoder!r}")
+    return decoder
+
+
 def decompress_chunks_dp(mesh: ChunkMesh, bufs, in_lens, out_lens,
                          out_cap: int, decoder: str = "auto"):
     """Decompress [B, N] raw-DEFLATE chunk fragments data-parallel over
     the mesh (the decode direction of ``compress_chunks_dp``; every chunk
     an independent stream).
 
-    ``decoder`` "auto" or "pallas": the port's ``decompress_chunks``
-    (K3 on CUDA, its plain version on the CPU).  Known-size contract at
-    the mesh layer: a chunk that decodes (status 0) to other than its
+    ``decoder`` "fsm", "pallas" or "auto" (``resolve_decoder``: K3 on a
+    CUDA mesh, the FSM decoder on CPU devices).  Each shard runs the
+    decoder's ``decompress_chunks`` on its device (the kernel on CUDA,
+    the plain version on the CPU).  Known-size contract at the mesh
+    layer: a chunk that decodes (status 0) to other than its
     ``out_lens`` is BAD_DATA (1).  Returns (out uint8[B, out_cap],
     out_lens [B], consumed [B], status [B], all_lens [B]) on the mesh's
     first device."""
-    if decoder == "fsm":
-        raise NotImplementedError(
-            "decoder='fsm' (decompress/tpu.py, the FSM decoder) is not "
-            "ported yet: ROADMAP.md queue 1 item 3")
-    if decoder not in ("auto", "pallas"):
-        raise ValueError(f"unknown decoder {decoder!r}")
+    decode_fn = {"fsm": fsm.decompress_chunks,
+                 "pallas": decode.decompress_chunks}[
+        resolve_decoder(decoder, mesh.devices)]
     bufs = as_tensor(bufs, np.uint8)
     in_lens = as_tensor(in_lens, np.int32)
     out_lens = as_tensor(out_lens, np.int32)
     outs = []
     for dev, part in _shards(mesh, bufs.shape[0]):
-        out, oplens, consumed, status = decompress_chunks(
+        out, oplens, consumed, status = decode_fn(
             bufs[part], in_lens[part], out_cap, device=dev)
         want = out_lens[part].to(dev, oplens.dtype)
         status = torch.where((status == 0) & (oplens != want),

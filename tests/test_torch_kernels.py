@@ -142,7 +142,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name", ["dp_parse", "pack_groups",
                                   "decode_chunks", "tokenize_chunks",
-                                  "launch_probes"])
+                                  "launch_probes", "fsm_decode"])
 def test_missing_nvcc_fails_every_build(name, monkeypatch, tmp_path):
     assert name in _build.KERNEL_SOURCES
     assert (_build.SRC_DIR / f"{name}.cu").is_file()

@@ -6,14 +6,18 @@ the JAX package's ``libdeflate_tpu.parallel.mesh``.
   keyword set (checked by which port entry and keywords it returns);
 - ``compress_chunks_dp`` gives the same words, total_bits and all_bits
   on meshes of 1, 3 and 8 CPU devices;
-- ``decompress_chunks_dp`` on 8 CPU devices equals the JAX mesh's with
-  the interpret-mode Pallas decoder (tests/test_parallel.py runs it so)
-  in all five outputs (``out`` up to each chunk's length where it
+- ``decompress_chunks_dp`` with ``decoder="pallas"`` on 8 CPU devices
+  equals the JAX mesh's with the interpret-mode Pallas decoder
+  (tests/test_parallel.py runs it so) in all five outputs (``out`` up to each chunk's length where it
   decodes, zeros past it in the port), on the cases of
   ``tests/test_parallel.py::TestChunkDecodeDP``: round trip, chunk
   boundary sizes, one corrupt chunk, ``out_lens`` off by 7.  The
   compressed rows are padded to one width, so that the JAX decoder
-  compiles once an output size.
+  compiles once an output size;
+- the decoder choice: "fsm" decodes, "auto" is "fsm" on CPU devices and
+  K3 ("pallas") on a CUDA mesh (``resolve_decoder``), and an unknown name
+  raises (``tests/test_torch_fsm_mesh.py`` holds "fsm" and "auto" to the
+  JAX mesh).
 
 Tolerance: exact.
 """
@@ -129,7 +133,7 @@ def _decode_both(cbufs, in_lens, out_lens, out_cap):
     """The port's five outputs and the JAX mesh's, as numpy arrays."""
     jmesh, pmesh = meshes()
     got = [x.numpy() for x in pm.decompress_chunks_dp(
-        pmesh, cbufs, in_lens, out_lens, out_cap)]
+        pmesh, cbufs, in_lens, out_lens, out_cap, decoder="pallas")]
     want = [np.asarray(x) for x in jm.decompress_chunks_dp(
         jmesh, cbufs, in_lens, out_lens, out_cap, decoder="pallas",
         interpret=True)]
@@ -203,15 +207,19 @@ def test_decompress_out_lens_mismatch_is_bad_data():
 
 def test_decoder_choice():
     _, pmesh = meshes()
-    args = (pmesh, np.zeros((8, 16), np.uint8), np.zeros(8, np.int32),
-            np.zeros(8, np.int32), 16)
-    with pytest.raises(NotImplementedError,
-                       match="FSM decoder.*queue 1 item 3"):
-        pm.decompress_chunks_dp(*args, decoder="fsm")
+    data = (b"decoder choice " * 40)[: 8 * 64]
+    args = (pmesh, *_compressed_chunks(data, 64)[:3], 64)
+    fsm_out = pm.decompress_chunks_dp(*args, decoder="fsm")
+    assert fsm_out[3].tolist() == [0] * 8
+    assert fsm_out[0].numpy().tobytes() == data
+    # "auto" on CPU devices is the FSM decoder, as the JAX "auto" is there
+    for a, b in zip(pm.decompress_chunks_dp(*args, decoder="auto"),
+                    fsm_out):
+        assert torch.equal(a, b)
+    assert pm.resolve_decoder("auto", pmesh.devices) == "fsm"
+    # and K3 on a CUDA mesh, resolved without a card
+    assert pm.resolve_decoder("auto", (torch.device("cuda"),)) == "pallas"
+    assert pm.resolve_decoder("auto", ["cuda:0", "cpu"]) == "pallas"
+    assert pm.resolve_decoder("pallas", pmesh.devices) == "pallas"
     with pytest.raises(ValueError):
         pm.decompress_chunks_dp(*args, decoder="xla")
-    auto, pallas = (pm.decompress_chunks_dp(*args, decoder=d)
-                    for d in ("auto", "pallas"))
-    for a, b in zip(auto, pallas):
-        assert torch.equal(a, b)
-    assert bool((auto[3] != 0).all())   # an empty stream does not decode
