@@ -2,9 +2,11 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against F]
 
-It builds the port's CUDA kernels from ``libdeflate_tpu_torch/csrc``,
+``--against F`` also times F, an earlier ``csrc/fsm_decode.cu`` (F1), in
+turns beside the as-built kernel on the FSM main path's streams; without
+it F1's ``parent_ms`` is null.  It builds the port's CUDA kernels from ``libdeflate_tpu_torch/csrc``,
 holds each kernel against its plain version on the card (random inputs
 and the main paths' real inputs, exact equality), and drives the port's
 two paths through their entry points:
@@ -81,9 +83,12 @@ two paths through their entry points:
 - FSM decoder (``fsm_phase``): F1 (``csrc/fsm_decode.cu``, the port of
   the JAX package's ``decompress/tpu.py``) equal to its plain version on
   the sets of ``experiments/fsm_cases.py`` (zlib levels and strategies,
-  damaged, incomplete codes, crafted bounds; B = 8 x 8 KiB) and on the
-  16 zlib-6 chunks, and every 4-tuple of the damaged, incomplete and
-  crafted sets equal to the JAX package's (pinned in
+  damaged, incomplete codes, crafted bounds, the edges of the kernel's
+  root tables, input ring and window; B = 8 x 8 KiB), on K3's crafted
+  sets as byte rows (out_cap 81920), on batches repacked into rows of
+  8191 bytes (out_cap 16383) and on the 16 zlib-6 chunks, and every
+  4-tuple of the damaged, incomplete, crafted and edge sets equal to the
+  JAX package's (pinned in
   ``experiments/fsm_pins.json`` by ``tests/pin_fsm.py``); the main path:
   the 16 zlib-6 and 16 lean streams through ``fsm.decompress_chunks``,
   one B = 16 call each into 1 MiB rows, every chunk equal to the corpus,
@@ -778,16 +783,21 @@ def trace_summary(trace_file: Path, top: int = 15):
 
 def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
               zbufs: np.ndarray, z_clen: np.ndarray, lean_bufs, lean_lens,
-              k3_rate: dict, batch0, lengths, bfinal, card: str) -> dict:
-    """The FSM decoder (F1) on the card: held to its plain version and to
-    the JAX package's pins (``experiments/fsm_pins.json``), its main path
-    (the 16 zlib-6 and 16 lean streams of the corpus through
-    ``fsm.decompress_chunks``, one B = 16 call each), then the programs on
-    the corpus through their ``main`` (``gzip_cli --tpu -6``, ``benchmark
-    -C ours-tpu -D ours-tpu`` and ``-D ours-pallas``, ``checksum -T``),
-    and a ``device_trace`` of one ``compress_chunks_lean`` call.  Returns
-    F1's launches, its largest difference from the plain version and its
-    times."""
+              k3_rate: dict, batch0, lengths, bfinal, card: str,
+              against: Path | None = None) -> dict:
+    """The FSM decoder (F1) on the card: held to its plain version on every
+    set of ``experiments/fsm_cases.py`` and to the JAX package's pins
+    (``experiments/fsm_pins.json``), on K3's crafted sets as byte rows
+    (out_cap 81920), on batches repacked into rows of an odd length (row
+    starts off alignment, an odd out_cap) and on the 16 zlib-6 chunks; its
+    main path (the 16 zlib-6 and 16 lean streams of the corpus through
+    ``fsm.decompress_chunks``, one B = 16 call each); with ``against``, an
+    earlier ``fsm_decode.cu`` timed beside the as-built kernel in turns;
+    then the programs on the corpus through their ``main`` (``gzip_cli
+    --tpu -6``, ``benchmark -C ours-tpu -D ours-tpu`` and ``-D
+    ours-pallas``, ``checksum -T``), and a ``device_trace`` of one
+    ``compress_chunks_lean`` call.  Returns F1's launches, its largest
+    difference from the plain version and its times."""
     import contextlib
     import io
     import tempfile
@@ -798,6 +808,7 @@ def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch.decompress import fsm
     from libdeflate_tpu_torch.experiments import crafted_streams as cs
     from libdeflate_tpu_torch.experiments import fsm_cases
+    from libdeflate_tpu_torch.experiments import fsm_variants as fv
     from libdeflate_tpu_torch.experiments.timing import cuda_ms
     from libdeflate_tpu_torch.programs import benchmark as pbench
     from libdeflate_tpu_torch.programs import checksum as pck
@@ -831,6 +842,22 @@ def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
               f"{fsm_cases.OUT}): equal to its plain version"
               f"{', every 4-tuple equal to the JAX pins' if pinned else ''}"
               f", {len(cases) - n_bad} OK and {n_bad} failed", flush=True)
+    text = cs.repo_text(root)
+    checks = [(f"crafted: {name}", bufs, lens, cs.DEC_OUT_BYTES)
+              for name, (bufs, lens, _) in
+              fsm_cases.crafted_batches(text).items()]
+    for name in ("zlib", "edges"):
+        bufs, lens, _ = fsm_cases.batches(fsm_cases.sets(text)[name])[0]
+        checks.append((f"{name}, rows of {fsm_cases.ODD_N} bytes",
+                       fsm_cases.repack(bufs), lens, fsm_cases.ODD_OUT))
+    for name, bufs, lens, cap in checks:
+        got = [g.cpu() for g in fsm.decompress_chunks(bufs, lens, cap)]
+        want = fsm.decompress_chunks(bufs, lens, cap, device="cpu")
+        err = max(err, require_equal(f"fsm_decode ({name})", got, want))
+        n_bad = int((got[3] != 0).sum())
+        print(f"F1 fsm_decode ({name}, B = {bufs.shape[0]} x N = "
+              f"{bufs.shape[1]}, out_cap {cap}): equal to its plain version, "
+              f"{bufs.shape[0] - n_bad} OK and {n_bad} failed", flush=True)
     z_lens = torch.as_tensor(z_clen)
     zb_d = torch.as_tensor(zbufs, device=dev)
     zl_d = z_lens.to(dev)
@@ -876,6 +903,22 @@ def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     print(f"fsm decode main path launches: "
           f"{json.dumps({'fsm_decode': launches})}", flush=True)
     ms = cuda_ms(lambda: fsm.decompress_chunks(zb_d, zl_d, CHUNK), 3)
+    turns = None
+    if against is not None:
+        # the earlier kernel and a copy of this one, by their bare launches
+        fns, lines = fv.build_all([fv.AS_BUILT], against)
+        fns = {"parent": fns["against"], "as built": fns[fv.AS_BUILT]}
+        for name, (b, n) in sets.items():
+            if not fv.equal(fv.launch(fns["parent"], b, n, CHUNK),
+                            fv.launch(fns["as built"], b, n, CHUNK)):
+                raise AssertionError(f"F1 and its parent ({against}) differ "
+                                     f"on the {name} streams")
+        turns = fv.in_turns({"parent": fns["parent"],
+                             "as built": fns["as built"]}, sets, CHUNK)
+        print(f"F1 beside its parent ({against}; build {lines['against']}),"
+              f" by CUDA events, mean of 3 calls a turn, in turns parent / "
+              f"as built / as built / parent: {json.dumps(turns)} ms; equal "
+              f"outputs; {card}", flush=True)
 
     # ---- the programs on the corpus -----------------------------------
     pin6 = json.loads((root / FILE_PINS).read_text())["gzip"]["6"]
@@ -967,7 +1010,8 @@ def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     top_k = int(chain[0].argmax())
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": 1e3 * plain_s, "chain": chain, "top": top_k,
-            "programs": prog_launches, "rate": rate, "idle": idle}
+            "programs": prog_launches, "rate": rate, "idle": idle,
+            "turns": turns}
 
 
 def cpu_model() -> str:
@@ -1204,6 +1248,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    argv = sys.argv[1:]
+    against = (Path(argv[argv.index("--against") + 1]).resolve()
+               if "--against" in argv else None)
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from libdeflate_tpu_torch import _build
@@ -1217,6 +1264,7 @@ def main() -> int:
     from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
     from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
     from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
+    from libdeflate_tpu_torch.experiments import fsm_variants as fv
     from libdeflate_tpu_torch.experiments.corpus import make_corpus
     from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
 
@@ -1725,7 +1773,7 @@ def main() -> int:
     # ---- the FSM decoder (F1), the programs and a device trace ---------
     fsm_res = fsm_phase(root, corpus, chunks, bufs, z_clen,
                         rt_words.view(torch.uint8), rt_clen, dec_rate,
-                        batches[0], lengths, bfinal, card)
+                        batches[0], lengths, bfinal, card, against)
 
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
@@ -1986,15 +2034,22 @@ def main() -> int:
          "library_ms": None},
     ]
     chain_f1 = fsm_res["chain"][:, fsm_res["top"]]
+    turns = fsm_res["turns"]
+    f1_build = logs.get("fsm_decode")
     kernels.append({
         "name": "fsm_decode", "route": "cuda",
         "source": "libdeflate_tpu_torch/csrc/fsm_decode.cu",
         "replaces": "libdeflate_tpu/decompress/tpu.py:168",
         "launches": fsm_res["launches"], "max_abs_err": fsm_res["max_abs_err"],
         "ms": fsm_res["ms"], "plain_ms": fsm_res["plain_ms"],
+        "parent_ms": (None if turns is None else
+                      sum(turns["zlib-6"]["parent"]) / 2),
+        "parent_turns": turns,
         "bound_ms": 1e3 * (int(z_clen.sum()) + nchunks * CHUNK)
         / H100_BYTES_PER_S,
         "bound_by": "bytes",
+        "build": None if f1_build is None else fv.build_lines(f1_build),
+        "dynamic_smem_bytes": _build.load("fsm_decode").fsm_decode_smem_bytes(),
         "chain_symbols": int(chain_f1[0]),
         "chain_lookups": int(chain_f1[1]),
         "chain_floor_ms": int(chain_f1[1]) * lat["ns"] / 1e6,

@@ -5,7 +5,8 @@ The sources are ``csrc/dp_parse.cu`` (K1), ``csrc/pack_groups.cu`` (K2),
 ``csrc/decode_chunks.cu`` (K3), ``csrc/tokenize_chunks.cu`` (K4),
 ``csrc/launch_probes.cu`` (K5-K7) and ``csrc/fsm_decode.cu`` (F1, the
 FSM decoder, which replaces XLA loop code); K3 and K4 share
-``csrc/inflate_common.cuh``.  Each source has a plain C interface and is
+``csrc/inflate_common.cuh``, and F1 keeps its own reader and tables,
+since its answers on damaged input are the JAX FSM's, not K3's.  Each source has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so``
 at the repository root on first use (or when the source or a header it
 includes is newer), then loaded with ``ctypes``.  A missing ``nvcc`` or a

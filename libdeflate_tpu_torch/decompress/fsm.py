@@ -20,6 +20,19 @@ but the TPU.  The mesh's ``decoder="fsm"`` names it.
   ``first_idx`` and the symbols sorted by (length, symbol), unused ones
   last), with the zlib-lax incomplete codes patched to a complete 1-bit
   code.
+- ``root_table``, ``pair_literals``, ``first_of`` and ``root_lookup``
+  mirror the kernel's root tables for the tests
+  (``tests/test_torch_fsm_table.py``): F1 decodes a symbol by one load
+  from a table over its first R bits (``ROOT_BITS``: 11 litlen, 10
+  offsets, 7 precode) built from those canonical tables, pairs two short
+  literals in one litlen entry, and takes ``_decode_sym``'s 15-length
+  compare only where the shortest matching length exceeds R.
+
+F1 (``csrc/fsm_decode.cu``) runs one warp a stream: the row staged into a
+shared-memory ring by ``cp.async`` under a 64-bit bit buffer, the root
+tables above, and the output in a 64 KiB shared-memory window flushed to
+``out`` a 32 KiB half at a time.  Its launch takes about 113 KiB of
+dynamic shared memory a block (``fsm_decode_smem_bytes``).
 
 The observable result is all four outputs, so the plain version and the
 kernel keep ``deflate_decompress_chunk``'s control flow step by step:
@@ -181,6 +194,107 @@ def _decode_sym(tab: _Table, bits: int):
         idx = min(max(tab.first_idx[ln] + off, 0), MAXSYMS - 1)
         hit = tab.memo[bits] = (tab.sorted_syms[idx], ln, ok)
     return hit
+
+
+# --------------------------------------------------------------------------
+# the kernel's root tables, mirrored for the tests
+# --------------------------------------------------------------------------
+# F1's root widths (``csrc/fsm_decode.cu`` kLLR, kOFR, kPreR)
+ROOT_BITS = {"litlen": 11, "offset": 10, "precode": 7}
+PAIR_BIT = 26  # above a length symbol's base (bits 17-25)
+_REV15_NP = np.asarray(_REV15, np.int64)
+
+
+def _entries(role: str, sym: np.ndarray, ln: np.ndarray) -> np.ndarray:
+    """The kernel's ``make_entry``: bits 0-3 the length, 4-12 the symbol,
+    13-16 the extra bits and 17-31 the base of a length or offset symbol
+    (an offset symbol past 29 takes slot 29's)."""
+    e = ln.astype(np.int64) | (sym.astype(np.int64) << 4)
+    if role == "litlen":
+        s = np.clip(sym - 257, 0, 28)
+        is_len = (sym >= 257) & (sym <= 285)
+        e |= np.where(is_len, (LENGTH_SLOT_EXTRA[s].astype(np.int64) << 13)
+                      | (LENGTH_SLOT_BASE[s].astype(np.int64) << 17), 0)
+    elif role == "offset":
+        s = np.minimum(sym, 29)
+        e |= (OFFSET_SLOT_EXTRA[s].astype(np.int64) << 13) \
+            | (OFFSET_SLOT_BASE[s].astype(np.int64) << 17)
+    return e.astype(np.uint32)
+
+
+def _shortest(tab: _Table, rev: np.ndarray, width: int, lengths):
+    """(length, offset) of the shortest length among ``lengths`` whose
+    prefix of the width-bit codes ``rev`` (first bit highest) lies in its
+    code range; length 0 where none does."""
+    ln = np.zeros(rev.shape, np.int64)
+    off = np.zeros(rev.shape, np.int64)
+    for cand in sorted(lengths, reverse=True):
+        o = (rev >> (width - cand)) - tab.first_code[cand]
+        hit = (o >= 0) & (o < tab.count[cand])
+        ln = np.where(hit, cand, ln)
+        off = np.where(hit, o, off)
+    return ln, off
+
+
+def pair_literals(root: np.ndarray) -> np.ndarray:
+    """The kernel's ``pair_literals`` on a litlen root: each literal entry
+    whose length l1 is below the root width and whose window's rest (w >>
+    l1) holds a literal of length l2 <= R - l1 becomes a pair entry (bits
+    0-3 l1 + l2, 4-11 the first literal, 13-16 l1, 17-24 the second, bit
+    ``PAIR_BIT``, which no single litlen entry sets)."""
+    R = ROOT_BITS["litlen"]
+    e1 = root.astype(np.int64)
+    l1, s1 = e1 & 15, (e1 >> 4) & 511
+    e2 = e1[np.arange(len(e1)) >> l1]
+    l2, s2 = e2 & 15, (e2 >> 4) & 511
+    pair = (l1 != 0) & (s1 < 256) & (l1 < R) & (l2 != 0) & (s2 < 256) \
+        & (l1 + l2 <= R)
+    paired = (l1 + l2) | (s1 << 4) | (l1 << 13) | (s2 << 17) | (1 << PAIR_BIT)
+    return np.where(pair, paired, e1).astype(np.uint32)
+
+
+def first_of(e: np.ndarray) -> np.ndarray:
+    """The kernel's ``first_of``: a pair entry's first literal as a single
+    entry, other entries as they are."""
+    e = np.asarray(e, np.int64)
+    return np.where((e >> PAIR_BIT) & 1, ((e >> 13) & 15) | (e & 0xFF0),
+                    e).astype(np.uint32)
+
+
+def root_table(tab: _Table, role: str) -> np.ndarray:
+    """The kernel's ``build_root`` (and, for litlen, ``pair_literals``)
+    for the tests: uint32 [2**R] entries (R = ``ROOT_BITS[role]``), for
+    each R-bit window (LSB first) the entry of the shortest length up to R
+    whose prefix lies in its code range, 0 where none does."""
+    R = ROOT_BITS[role]
+    rev = _REV15_NP[:1 << R] >> (15 - R)
+    ln, off = _shortest(tab, rev, R, range(1, R + 1))
+    idx = np.minimum(np.asarray(tab.first_idx)[ln] + off, MAXSYMS - 1)
+    sym = np.asarray(tab.sorted_syms)[idx]
+    root = np.where(ln > 0, _entries(role, sym, ln), 0).astype(np.uint32)
+    return pair_literals(root) if role == "litlen" else root
+
+
+def root_lookup(tab: _Table, role: str, root: np.ndarray,
+                bits: np.ndarray):
+    """The kernel's ``lookup`` of 15-bit windows ``bits`` (LSB first):
+    (entry uint32, ok bool) arrays, the root's entry where it has one (a
+    pair's first literal),
+    else the entry of ``decode_sym``'s 15-length compare (ok false where
+    no length matches: length 1 and the symbol its index reaches)."""
+    bits = np.asarray(bits, np.int64)
+    e = root[bits & ((1 << ROOT_BITS[role]) - 1)]
+    if role == "litlen":
+        e = first_of(e)
+    rev = _REV15_NP[bits]
+    ln, off = _shortest(tab, rev, 15, range(1, 16))
+    ok = ln > 0
+    off = np.where(ok, off, (rev >> 14) - tab.first_code[1])
+    ln = np.where(ok, ln, 1)
+    idx = np.clip(np.asarray(tab.first_idx)[ln] + off, 0, MAXSYMS - 1)
+    slow = _entries(role, np.asarray(tab.sorted_syms)[idx], ln)
+    hit = (e & 15) != 0
+    return np.where(hit, e, slow).astype(np.uint32), hit | ok
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,9 @@ to its plain version and to the pins on the card.  Every set is decoded in
 batches of B = 8 rows of N = 8192 bytes into OUT = 16384 bytes a row, the
 shape of ``tests/test_tpu_decode.py``, so that the JAX decoder compiles
 once.  A case is (name, stream, in_len): the stream's first N bytes go in
-its row, and in_len may differ from its length.
+its row, and in_len may differ from its length.  ``repack`` cuts a batch
+to rows of ODD_N bytes (unaligned row starts, decoded into ODD_OUT), and
+``crafted_batches`` turns K3's crafted sets into FSM batches.
 
 - ``zlib_set``: zlib levels 0, 1, 6 and 9, Z_FIXED, Z_HUFFMAN_ONLY and
   Z_RLE of repository text, and level 6 of random bytes;
@@ -18,6 +20,16 @@ its row, and in_len may differ from its length.
 - ``incomplete_set``: the zlib-lax incomplete codes
   (``crafted_streams.incomplete_codes`` and the streams of
   ``tests/test_incomplete_codes.py``), and the shapes that are rejected;
+- ``edges_set``: the edges of the kernel's design (F1's root widths R =
+  11 for litlen and 10 for offsets, its 2048-byte ring segments): literals,
+  length and offset symbols whose codes are R, R + 1 and 15 bits long;
+  offsets of 25 and 27 bits (code and extra bits) each before a literal
+  of a long code;
+  stored blocks that jump the input cursor across ring segments and land
+  the next header on a segment edge, one byte before and one past it;
+  stored blocks of LEN 0-3 in a row (the jump stays within the bit
+  buffer); matches of every distance 1-40 and length 258 right after a
+  stored block;
 - ``trap_set``: one crafted case for each place where the decoder's
   bounds show: in_len 0, N, past N and negative, an EOB and a literal in
   the 49-bit overread, an empty precode, stored LEN past out_cap (with the
@@ -38,7 +50,9 @@ import numpy as np
 from . import crafted_streams as cs
 
 B, N, OUT = 8, 8192, 16384
-PINNED_SETS = ("damaged", "incomplete", "traps")
+PINNED_SETS = ("damaged", "incomplete", "traps", "edges")
+SEGMENT = 2048   # bytes a segment of F1's input ring
+ODD_N, ODD_OUT = 8191, 16383     # a repacked batch: unaligned rows
 DAMAGE_SEED = 7
 
 
@@ -272,10 +286,100 @@ def _overfull_precode() -> bytes:
     return bw.bytes()
 
 
+# complete codes of one symbol at each length 1-14 and two at 15; the
+# offset code's symbol k is k + 1 bits long (14 and 15 both 15)
+_DEEP_OFFSETS = {k: min(k + 1, 15) for k in range(16)}
+_DEEP_LITERALS = dict(zip((97, 257, 256, *range(98, 111)),
+                          (*range(1, 15), 15, 15)))
+_DEEP_LENGTHS = dict(zip((97, 98, 256, *range(99, 106), 266, 270, 274, 278,
+                          284, 285), (*range(1, 15), 15, 15)))
+
+
+def _deep_literals() -> bytes:
+    """Literals of every code length 1-15 (105, 106, 109 and 110 at 11,
+    12, 15 and 15 bits), then matches through offset symbols 9, 10, 14 and
+    15 (10, 11, 15 and 15 bits)."""
+    lits = [("lit", s) for s in (97, 98, 99, 100, 101, 102, 103, 104, 105,
+                                 106, 107, 108, 109, 110)] * 20
+    matches = [("match", 257, 0, 0, osym, oxb, oxv)
+               for osym, oxb, oxv in ((9, 3, 3), (10, 4, 5), (14, 6, 40),
+                                      (15, 6, 63), (9, 3, 0), (15, 6, 0))]
+    return cs.craft_dynamic_stream(_DEEP_LITERALS, _DEEP_OFFSETS,
+                                   lits + matches * 4 + lits[:30] + [("eob",)])
+
+
+def _deep_lengths() -> bytes:
+    """Length symbols of code lengths 11-15 (266, 270 at R, R + 1; 284 and
+    285 at 15 bits) with their extra bits, at offsets of 10, 11 and 15
+    bits."""
+    lits = [("lit", s) for s in range(97, 106)] * 30
+    matches = []
+    for lsym, lxb, lxv in ((266, 1, 1), (270, 2, 3), (274, 3, 5),
+                           (278, 4, 9), (284, 5, 30), (285, 0, 0),
+                           (284, 5, 0)):
+        for osym, oxb, oxv in ((9, 3, 1), (10, 4, 7), (14, 6, 11)):
+            matches.append(("match", lsym, lxb, lxv, osym, oxb, oxv))
+    return cs.craft_dynamic_stream(_DEEP_LENGTHS, _DEEP_OFFSETS,
+                                   lits + matches * 3 + [("eob",)])
+
+
+def _far_offsets() -> bytes:
+    """Matches whose offset takes 27 or 25 bits (a 15-bit code and 12 extra
+    bits, a 14-bit code and 11), each followed by a literal of an 11-, 12-
+    or 15-bit code: the next lookup after the longest offsets."""
+    ll = dict(zip((97, 285, 257, 256, *range(98, 104), *range(105, 111)),
+                  (*range(1, 15), 15, 15)))
+    of = {**{k: k + 1 for k in range(13)}, 25: 14, 26: 15, 27: 15}
+    body = [("lit", 97)] + [("match", 285, 0, 0, 0, 0, 0)] * 32
+    for k in range(120):
+        body += [("match", 257, 0, 0, 26 - k % 2, 12 - k % 2, (37 * k) % 64),
+                 ("lit", (105, 106, 109)[k % 3])]
+    return cs.craft_dynamic_stream(ll, of, body + [("eob",)])
+
+
+def _stored_landing(land: int, head, tail, seed: int) -> bytes:
+    """A Huffman block of the head tokens, a stored block whose data ends
+    at byte land (where the next header starts), then a final block of the
+    tail tokens."""
+    bw = cs.BitWriter()
+    cs.put_token_block(bw, head, False)
+    start = (len(bw.out) * 8 + bw.n + 3 + 7) // 8 + 4
+    data = np.random.default_rng(seed).integers(0, 256, land - start,
+                                                np.uint8).tobytes()
+    cs.put_stored(bw, data, False)
+    cs.put_token_block(bw, tail)
+    return bw.bytes()
+
+
+def edges_set(text: bytes) -> list:
+    rng = np.random.default_rng(13)
+    lits = [("lit", int(v)) for v in rng.integers(0, 256, 300)]
+    every = [("match", 258, d) for d in range(1, 41)]
+    out = [("litlen and offset codes of R, R + 1 and 15 bits",
+            _deep_literals()),
+           ("length codes of R, R + 1 and 15 bits", _deep_lengths()),
+           ("offsets of 25 and 27 bits, each before a long literal code",
+            _far_offsets()),
+           ("stored onto a segment edge, then distances 1-40 x 258",
+            _stored_landing(2 * SEGMENT, lits, every, 1)),
+           ("stored across two segments to one byte before an edge",
+            _stored_landing(3 * SEGMENT - 1, lits, every[:20], 2)),
+           ("stored to one byte past a segment edge",
+            _stored_landing(SEGMENT + 1, lits[:40], every[::3], 3)),
+           ("stored LEN 0, 1, 2, 3 in a row, then matches",
+            cs.blocks_stream(("tokens", lits[:50]), ("stored", b""),
+                             ("stored", b"x"), ("stored", b"yz"),
+                             ("stored", b"abc"), ("tokens", every[:8]))),
+           ("distances 1-40 x 258 right after a stored block",
+            cs.blocks_stream(("stored", text[:100]), ("tokens", every)))]
+    return [(name, s, len(s)) for name, s in out]
+
+
 def sets(text: bytes) -> dict:
     """{set name: cases}."""
     return {"zlib": zlib_set(text), "damaged": damaged_set(text),
-            "incomplete": incomplete_set(), "traps": trap_set(text)}
+            "incomplete": incomplete_set(), "traps": trap_set(text),
+            "edges": edges_set(text)}
 
 
 def batches(cases):
@@ -291,6 +395,30 @@ def batches(cases):
             bufs[k, :len(s)] = np.frombuffer(s, np.uint8)
             lens[k] = n
         out.append((bufs, lens, len(part)))
+    return out
+
+
+def repack(bufs: np.ndarray, n: int = ODD_N) -> np.ndarray:
+    """The batch's rows cut to their first n bytes, contiguous: row b
+    starts b * n bytes into the buffer, so with n odd no row after the
+    first starts on a 4-byte boundary."""
+    return np.ascontiguousarray(bufs[:, :n])
+
+
+def crafted_batches(text: bytes) -> dict:
+    """K3's crafted sets (``crafted_streams.decode_sets``: distance 32768
+    into the flushed half, items across 32 KiB boundaries, stored blocks
+    longer than the ring, output past 81920 bytes, ...) as FSM batches
+    decoded into ``crafted_streams.DEC_OUT_BYTES`` a row: {name: (bufs
+    uint8 [DEC_B, 4 * W], in_lens int32 [DEC_B], n real rows)}."""
+    out = {}
+    for name, (streams, _, _) in cs.decode_sets(text).items():
+        bufs = np.zeros((cs.DEC_B, 4 * cs.W), np.uint8)
+        lens = np.zeros(cs.DEC_B, np.int32)
+        for k, st in enumerate(streams):
+            bufs[k, :len(st)] = np.frombuffer(st, np.uint8)
+            lens[k] = len(st)
+        out[name] = (bufs, lens, len(streams))
     return out
 
 

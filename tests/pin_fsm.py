@@ -1,7 +1,7 @@
 """Pin the JAX FSM decoder's answers for the port's chip check.
 
 Writes ``libdeflate_tpu_torch/experiments/fsm_pins.json``: for each case
-of the damaged, incomplete and trap sets of
+of the damaged, incomplete, trap and edge sets of
 ``libdeflate_tpu_torch/experiments/fsm_cases.py``, the 4-tuple of
 ``libdeflate_tpu.decompress.tpu.decompress_chunks`` at the sets' batch
 shape (B = 8, N = 8192, out_cap 16384): the SHA-256 of the whole output

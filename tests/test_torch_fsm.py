@@ -6,7 +6,8 @@ N = 8192 bytes, out_cap 16384), so the JAX decoder compiles once.  The
 plain version (what the wrapper runs for CPU tensors) must equal
 ``decompress_chunks`` in all four outputs, whole ``out`` rows included,
 on the sets of ``experiments/fsm_cases.py`` (zlib levels and strategies,
-the damaged set, the incomplete codes, one crafted case for each bound),
+the damaged set, the incomplete codes, one crafted case for each bound,
+the edges of the kernel's root widths, input ring and window),
 40 random blobs and a hypothesis property of random damage to random
 zlib streams; ``experiments/fsm_pins.json`` (the pins ``chip_smoke.py``
 holds the card to) must equal both.  The canonical table helpers equal
@@ -76,8 +77,9 @@ def test_sets_equal_jax(name):
             assert out[k, :int(ol[k])].numpy().tobytes() == raw
     # each set holds failures and successes
     results = {r[3] for r in rows}
-    assert results == ({0} if name == "zlib" else {0, 1} if name in (
-        "damaged", "incomplete") else {0, 1, 3}), results
+    assert results == ({0} if name in ("zlib", "edges") else {0, 1}
+                       if name in ("damaged", "incomplete") else {0, 1, 3}), \
+        results
 
 
 def test_pins_equal_jax_and_the_plain_version():
