@@ -39,6 +39,20 @@ two paths through their entry points:
   with a match-cost table a chunk), K2 on optfast's (capw + 1 = 62), and
   K3 decodes the optfast streams back; GB/s (optfast best of 3, optimal,
   optimal2 and deep one pass after a warm-up), ratio and stage ms;
+- options (``options_phase``): the compress options only ``scripts/``
+  reaches, through ``compress_chunks_optimal_pallas_with``,
+  ``compress_chunks_optimal_with`` and ``compress_chunks_dynamic_with``
+  on the same corpus, B = 4 a call, the chunks not final: leanD (the
+  46-rung LEN_LADDER_DENSE), leanI (flat_lit1), lean1XR (row_lit1),
+  lean1X8 and lean1XR8 (lcp 8), rowlit+lcp12, the deep tier with round
+  probes, dyn-lcp8-d4, lean, lean with pm_group=64 and lean and leanD
+  with emit_blocks=4: every chunk's total_bits equal to the JAX
+  package's (pinned in ``experiments/option_total_bits.json`` by
+  ``tests/pin_option_total_bits.py``), every chunk inflating through
+  zlib, pm_group=64's words equal to lean's, K1 once a cost pass and K2
+  once a call; GB/s and ratio a configuration; K1 at LEN_LADDER_DENSE
+  held to its plain version and timed beside the other two ladders, K2
+  at capw + 1 = 59, 62 and 24 beside index_add_;
 - decode: the compress path's own streams, left on the card and padded
   there, and zlib level-6 streams of the same 16 chunks, each set decoded
   in one known-size ``decompress_chunks_words`` call of B = 16; the zlib
@@ -177,6 +191,7 @@ DP_BITS = "libdeflate_tpu_torch/experiments/dp_total_bits.json"
 FILE_PINS = "libdeflate_tpu_torch/experiments/file_codec_pins.json"
 HOST_PINS = "libdeflate_tpu_torch/experiments/host_engine_pins.json"
 FSM_PINS = "libdeflate_tpu_torch/experiments/fsm_pins.json"
+OPTION_BITS = "libdeflate_tpu_torch/experiments/option_total_bits.json"
 HOST_BEST_OF_3 = (1, 6, 12)   # host contract levels timed best of 3
 CROSS_LEVELS = (1, 6, 12)     # Compressor levels whose chunks K3 decodes
 CROSS_PLAIN_CHUNKS = [0, 12]  # chunks K3 is held to its plain version on
@@ -423,13 +438,14 @@ def greedy_pack_inputs(tier: str, bufs, lengths):
     tier, built by the stage functions its entry calls."""
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import pipeline as pp
-    options, refine = pd.TIERS.get(tier, ({}, 0))
-    bp, pos, cm, cl, eff, dist = pp.parse_chunk(bufs, lengths, **options)
     if tier == "static":
+        bp, pos, cm, cl, eff, dist = pp.parse_chunk(bufs, lengths)
         val, nb = pp.static_items(bp, cm, cl, eff, dist)
         offs = pp.exclusive_bit_offsets(nb)[0] + 3
         return (*pp.group_premerge(val, nb, offs, capw=pp.GROUP_CAPW),
                 pp.static_nwords(bufs.shape[1]))
+    options, refine = pd.greedy_options(**pd.TIERS[tier])
+    bp, pos, cm, cl, eff, dist = pp.parse_chunk(bufs, lengths, **options)
     (val, nb, offs), _ = pd.emit_dynamic_pre(bp, cm, cl, eff, dist, refine)
     return (*pp.group_premerge(val, nb, offs, capw=pd.DYN_CAPW_DEEP
                                if refine else pd.DYN_CAPW),
@@ -497,6 +513,188 @@ class StageClock:
             self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
             return out
         return timed
+
+
+def option_entries() -> dict:
+    """The options phase's configurations: name -> (entry, K1 launches a
+    call, the pin it is held to in ``experiments/option_total_bits.json``).
+    ``scripts/tier_matrix.py``'s names through
+    ``experiments/tier_matrix.py``'s table; ``scripts/ratio_ab.py``'s
+    rowlit+lcp12 and the deep tier with round probes through
+    ``compress_chunks_optimal_with``; ``scripts/exp_r5_speed.py``'s
+    dyn-lcp8-d4; the lean tier, and its keywords with ``pm_group=64``
+    (held to lean's pin) and with ``emit_blocks=4``, and leanD's with
+    ``emit_blocks=4``."""
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import optimal as po
+    from libdeflate_tpu_torch.experiments import tier_matrix as tm
+    named = tm.tier_configs()
+    out = {name: (named[name], tm.CONFIGS[name]["passes"], name)
+           for name in ("leanD(C+dense)", "leanI(D+flatlit1)",
+                        "lean1XR(p1,rawC,rowlit)", "lean1X8(p1,rawC,lcp8)",
+                        "lean1XR8(rawC,rowlit,lcp8)")}
+    p1 = tm.CONFIGS["lean1X(p1,rawC)"]
+    lean = dict(p1, strides2=(), refine=0, lit_sample=32)
+    with_ = po.compress_chunks_optimal_pallas_with
+    out.update({
+        "rowlit+lcp12": (functools.partial(po.compress_chunks_optimal_with,
+                                           **p1, row_lit1=True, lcp=12),
+                         1, "rowlit+lcp12"),
+        "deep+round_probes": (functools.partial(
+            po.compress_chunks_optimal_with, depth=12, two_pass=True,
+            hash3=True, passes=3, content_doublings=2,
+            ladder=pk.LEN_LADDER_DENSE2, match_bias16=po.SHORT_BIAS16,
+            content_round_probes=True), 3, "deep+round_probes"),
+        "dyn-lcp8-d4": (functools.partial(pd.compress_chunks_dynamic_with,
+                                          lcp=8, depth=4), 0, "dyn-lcp8-d4"),
+        "lean": (po.compress_chunks_lean, 1, "lean"),
+        "lean+pm_group64": (functools.partial(with_, **lean, pm_group=64), 1,
+                            "lean"),
+        "lean+emit_blocks4": (functools.partial(with_, **lean, emit_blocks=4),
+                              1, "lean+emit_blocks4"),
+        "leanD+emit_blocks4": (functools.partial(
+            with_, **tm.CONFIGS["leanD(C+dense)"], emit_blocks=4), 2,
+            "leanD+emit_blocks4")})
+    return out
+
+
+def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
+                  lengths, card: str) -> dict:
+    """The compress options only ``scripts/`` reaches, at full width: each
+    configuration of ``option_entries`` over the corpus in 1 MiB chunks,
+    B = 4 a call, the chunks not final (as ``scripts/tier_matrix.py``
+    calls them), the launch counts set to 0 before each configuration and
+    read after it; every chunk's total_bits equal to its pin, every chunk
+    inflating through zlib, lean+pm_group64's words equal to lean's; the
+    pass time (host clock, best of 3 after the checked pass) and ratio a
+    configuration.  K1 at LEN_LADDER_DENSE held to its plain version on
+    leanD's two passes and leanI's first, and timed (CUDA events, mean of
+    20) beside the 80- and 28-rung ladders on leanD's pass-1 inputs and
+    beside each ladder's bounds; K2 at capw + 1 = 59, 62 and 24 (lean and
+    leanD with four blocks, lean with 64-item groups) held to its plain
+    version and timed by graph replay beside index_add_.  Returns the
+    launches, the largest errors and the times for the kernel line."""
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import optimal as po
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
+    t_phase = time.perf_counter()
+    dev = lengths.device
+    pinned = json.loads((root / OPTION_BITS).read_text())["total_bits"]
+    nchunks = len(chunks)
+    bfinal = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+    entries = option_entries()
+    launches, words = {}, {}
+    for name, (entry, dp_calls, pin) in entries.items():
+        pk.reset_launch_counts()
+        dd.reset_launch_counts()
+        outs = [entry(b, lengths, bfinal) for b in batches]
+        torch.cuda.synchronize()
+        got = {"dp_parse": pk.dp_parse.launches,
+               "pack_groups": pk.pack_groups.launches}
+        want = {"dp_parse": dp_calls * len(batches),
+                "pack_groups": len(batches)}
+        if got != want or dd.decompress_chunks_words.launches:
+            raise AssertionError(f"options, {name}: launches {got}, not "
+                                 f"{want}")
+        launches[name] = got
+        w_all = torch.cat([w for w, _ in outs])
+        if pin == "lean":
+            words[name] = w_all
+        bits = torch.cat([t for _, t in outs])
+        if bits.tolist() != pinned[pin]:
+            raise AssertionError(f"options, {name}: total_bits "
+                                 f"{bits.tolist()} differ from the JAX "
+                                 f"package's {pinned[pin]}")
+        w_cpu = w_all.cpu()
+        for k in range(nchunks):
+            stream = pp.device_stream_to_bytes(w_cpu[k], bits[k])
+            # no BFINAL: the stream ends in a sync flush, not a final block
+            if zlib.decompressobj(-15).decompress(stream) != \
+                    chunks[k].tobytes():
+                raise AssertionError(f"options, {name}: chunk {k} does not "
+                                     f"inflate to its input")
+        best = time_best(lambda: [entry(b, lengths, bfinal)
+                                  for b in batches])
+        ratio = int(((bits + 7) // 8).sum()) / len(corpus)
+        print(f"options, {name}: {len(corpus) / best / 1e9:.6f} GB/s (best "
+              f"of 3 passes over {len(corpus)} bytes after the checked one, "
+              f"{best:.6f} s), ratio {ratio:.6f}; all {nchunks} total_bits "
+              f"equal the JAX package's ({pin}), every chunk inflates "
+              f"through zlib; launches {json.dumps(got)} for {len(batches)} "
+              f"calls; {card}", flush=True)
+    if not torch.equal(words["lean+pm_group64"], words["lean"]):
+        raise AssertionError("options: lean with pm_group=64 gives other "
+                             "words than lean")
+    total = {k: sum(n[k] for n in launches.values())
+             for k in ("dp_parse", "pack_groups")}
+    print(f"options launches: {json.dumps(total)}; lean+pm_group64's words "
+          f"equal lean's", flush=True)
+
+    # K1 at LEN_LADDER_DENSE on leanD's and leanI's own inputs
+    err_dp = 0
+    dps = {}
+    for name in ("leanD(C+dense)", "leanI(D+flatlit1)"):
+        _, calls = record_calls(pk, "dp_parse", lambda: entries[name][0](
+            batches[0], lengths, bfinal))
+        dps[name] = calls
+        for i, args in enumerate(calls[:2 if name.startswith("leanD") else 1]):
+            if args[14] != pk.LEN_LADDER_DENSE:
+                raise AssertionError(f"{name}: the DP ran at another ladder")
+            err_dp = max(err_dp, require_equal(
+                f"dp_parse ({name}, pass {i + 1}, 46 rungs)",
+                pk.dp_parse(*args), pk.dp_parse_plain(*args)))
+    a = dps["leanD(C+dense)"][0][:14]
+    lanes = BATCH * CHUNK // po.DP_SEG
+    span = torch.empty(BATCH, CHUNK, dtype=torch.int64, device=dev)
+    dist = torch.empty_like(span)
+    dp_bytes = (sum(x.numel() * x.element_size() for x in a[:13])
+                + 2 * 8 * BATCH * CHUNK)
+    ladders = {}
+    for ladder in (pk.LEN_LADDER_DENSE, pk.LEN_LADDER_DENSE2, pk.LEN_LADDER):
+        ops = feasible_rungs(ladder, po.DP_SEG) * lanes * DP_OPS_PER_RUNG
+        row = {"inputs": "leanD(C+dense), pass 1, text batch",
+               "ms": cuda_ms(lambda: pk.dp_parse(*a, ladder), 20),
+               "kernel_ms": cuda_ms(lambda: pk.dp_parse_into(
+                   a[:12], a[12], po.DP_SEG, span, dist, ladder), 20),
+               "bytes_bound_ms": 1e3 * dp_bytes / H100_BYTES_PER_S,
+               "ops_bound_ms": 1e3 * ops / H100_INT32_OPS_PER_S}
+        if ladder == pk.LEN_LADDER_DENSE:
+            row["plain_ms"] = cuda_ms(lambda: pk.dp_parse_plain(*a, ladder),
+                                      1)
+        ladders[f"{len(ladder)} rungs"] = row
+        print(f"K1 ({len(ladder)} rungs, leanD's inputs): {json.dumps(row)}; "
+              f"{card}", flush=True)
+    print("K1 dp_parse: equal to its plain version at LEN_LADDER_DENSE on "
+          "leanD's two passes and leanI's first (text batch)", flush=True)
+
+    # K2 at the new widths, on each configuration's own inputs
+    err_pack = 0
+    widths = {}
+    for name in ("lean+emit_blocks4", "leanD+emit_blocks4",
+                 "lean+pm_group64"):
+        _, calls = record_calls(pk, "pack_groups", lambda: entries[name][0](
+            batches[0], lengths, bfinal))
+        sb, g, nw = calls[0]
+        err_pack = max(err_pack, require_equal(
+            f"pack_groups ({name})", [pk.pack_groups(sb, g, nw)],
+            [pp.group_place(sb, g, nw)]))
+        row = {"sbuf": list(sb.shape), "nwords": nw,
+               "launches": launches[name]["pack_groups"],
+               "ms": graph_ms(lambda: pk.pack_groups(sb, g, nw), 200),
+               "library_ms": graph_ms(index_add_call(sb, g, nw), 200),
+               "bound_ms": 1e3 * 8 * (sb.numel() + g.numel() + BATCH * nw)
+               / H100_BYTES_PER_S}
+        widths[f"{sb.shape[2]} ({name})"] = row
+        print(f"K2 ({name}, capw + 1 = {sb.shape[2]}, graph replay): equal "
+              f"to the plain version; {json.dumps(row)}; {card}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"options phase: {seconds:.3f} s", flush=True)
+    return {"launches": total, "per_config": launches, "err_dp": err_dp,
+            "err_pack": err_pack, "ladders": ladders, "widths": widths,
+            "seconds": seconds}
 
 
 def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
@@ -1658,6 +1856,11 @@ def main() -> int:
     print("K3 decode_chunks: the 16 optfast streams decode to the corpus, "
           "status 0", flush=True)
 
+    # ---- the compress options only scripts/ reaches ---------------------
+    opt = options_phase(root, corpus, chunks, batches, lengths, card)
+    err_dp = max(err_dp, opt["err_dp"])
+    err_pack = max(err_pack, opt["err_pack"])
+
     # ---- K3: the decoder against its plain version ---------------------
     zstreams = [zlib6(chunks[i].tobytes()) for i in range(nchunks)]
     z_comp, z_clen = dd.pack_streams(zstreams, pad_w)
@@ -1983,7 +2186,10 @@ def main() -> int:
                                dp_ops / H100_INT32_OPS_PER_S),
          "bound_by": ("operations" if dp_ops / H100_INT32_OPS_PER_S
                       > dp_bytes / H100_BYTES_PER_S else "bytes"),
-         "library_ms": None, "ladders": ladder_times,
+         "library_ms": None,
+         "ladders": {**ladder_times, "46 rungs": opt["ladders"]["46 rungs"]},
+         "options_ladders": opt["ladders"],
+         "options_launches": opt["launches"]["dp_parse"],
          "whole_file_launches": {level: n["dp_parse"] for level, n in
                                  file_launches["compress"].items()},
          "host_contract_launches": host["launches"]["dp_parse"],
@@ -2001,6 +2207,8 @@ def main() -> int:
          "bound_by": "bytes",
          "library_ms": graph_ms(index_add_call(*real_pack), 200),
          "tiers": pack_tier_times,
+         "widths": opt["widths"],
+         "options_launches": opt["launches"]["pack_groups"],
          "whole_file_launches": {level: n["pack_groups"] for level, n in
                                  file_launches["compress"].items()},
          "host_contract_launches": host["launches"]["pack_groups"]},

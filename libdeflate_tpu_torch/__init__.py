@@ -7,8 +7,10 @@ under the JAX package's names) over the host engine (the native C++ codec
 built from ``native/ldtpu_native.cpp``, else the numpy/Python parsers and
 decoder), the compress tiers (the JAX package's min-cost-DP tiers of
 ``compress/tpu_optimal.py`` -- lean, optfast, optimal, optimal2, deep and
-``compress_chunk_optimal`` at any of the mesh's keyword sets -- and the
-greedy/lazy static and dynamic tiers) with their two kernels, the scalar
+``compress_chunk_optimal`` at any keywords, and
+``_compress_chunks_optimal_pallas`` with every option ``scripts/`` uses --
+and the greedy/lazy static and dynamic tiers, with their ``lcp`` and
+``depth``) with their two kernels, the scalar
 DEFLATE decoder (``decompress/pallas_decode.py``) with its kernel, the
 FSM decoder (``decompress/tpu.py``, exported as ``decompress_chunks_fsm``
 and ``deflate_decompress_chunk``) with a kernel of its own, the
@@ -47,6 +49,7 @@ from .compress.dynamic import (
     compress_chunks_dynamic,
     compress_chunks_dynamic2,
     compress_chunks_dynamic3,
+    compress_chunks_dynamic_with,
 )
 from .compress.optimal import (
     compress_chunks_lean,
@@ -54,6 +57,7 @@ from .compress.optimal import (
     compress_chunks_optimal,
     compress_chunks_optimal2,
     compress_chunks_optimal_deep,
+    compress_chunks_optimal_pallas_with,
     compress_chunks_optimal_with,
 )
 from .compress.pipeline import compress_chunks_static, device_stream_to_bytes
@@ -90,11 +94,13 @@ __all__ = [
     "compress_chunks_dynamic",
     "compress_chunks_dynamic2",
     "compress_chunks_dynamic3",
+    "compress_chunks_dynamic_with",
     "compress_chunks_lean",
     "compress_chunks_optfast",
     "compress_chunks_optimal",
     "compress_chunks_optimal2",
     "compress_chunks_optimal_deep",
+    "compress_chunks_optimal_pallas_with",
     "compress_chunks_optimal_with",
     "compress_chunks_static",
     "crc32",

@@ -1,19 +1,21 @@
 """Dynamic-Huffman blocks and the dynamic compress tiers, on batched
 tensors.
 
-Counterpart of ``libdeflate_tpu/compress/tpu_dynamic.py`` without its
-multi-block emission: the constants (lines 62-74), ``_rev_bits_np``,
+Counterpart of ``libdeflate_tpu/compress/tpu_dynamic.py``: the constants
+(lines 62-74), ``_rev_bits_np``,
 ``_static_packed_tables`` and ``_header_consts`` (81-130),
 ``_build_code_lens`` and ``_build_code_lens_pair`` (140-275, with the
 refinement passes and 15-bit codes), ``_canonical_table`` (277), the
 histogram ``_hist_matmul`` (303) and table translate ``_tree_translate``
 (325), ``compress_chunk_dynamic`` and ``emit_dynamic_block`` (362-401),
 ``_p19_fixed`` (403), ``_precode_rle_items`` and ``_precode_rle_header``
-(427-533), ``_dyn_nwords`` (688), ``_emit_dynamic_pre`` (696),
-``_emit_dynamic_post`` (814) and the entries
-``compress_chunks_dynamic{,2,3}`` (843-874) with their ``_pallas`` twins
-(880-932), which compute the same bits: in the port both are one path
-whose bit placement is the pack kernel on CUDA.
+(427-533), ``_fixed_hdr_items`` and the static header items (534-549),
+the multi-block emission ``_emit_dynamic_pre_blocks`` (552-686),
+``_dyn_nwords`` (688), ``_emit_dynamic_pre`` (696), ``_emit_dynamic_post``
+(814) and the entries ``compress_chunks_dynamic{,2,3}`` (843-874) with
+their ``_pallas`` twins (880-932; ``_compress_chunks_dynamic_pallas`` as
+``compress_chunks_dynamic_with``), which compute the same bits: in the
+port both are one path whose bit placement is the pack kernel on CUDA.
 
 The one-hot matmul histogram becomes ``torch.bincount``, the select-tree
 translate becomes indexing, and the duplicate-index ``.at[].add`` header
@@ -37,6 +39,7 @@ from .pipeline import (
     behind,
     commit_items,
     exclusive_bit_offsets,
+    GROUP,
     greedy_candidates,
     group_premerge,
 )
@@ -49,6 +52,9 @@ MAX_CODE_LEN = 11
 MAX_CODE_LEN_DEEP = 15
 DYN_CAPW = (128 * MAX_CODE_LEN + 31) // 32 + 1        # 45
 DYN_CAPW_DEEP = (128 * MAX_CODE_LEN_DEEP + 31) // 32 + 1   # 61
+# multi-block emission: the worst premerge group is 128 RLE header items
+# of <= 14 bits
+BLOCKS_CAPW = 58
 
 
 def _rev_bits_np(x: np.ndarray, nbits: np.ndarray) -> np.ndarray:
@@ -123,10 +129,10 @@ def _const(x, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.int64), device=dev)
 
 
-def dyn_nwords(n: int) -> int:
-    """Word count of one chunk's output buffer (``_dyn_nwords``, one
-    block)."""
-    return (9 * n + 2 * HDR_BITS + 256 + 16 + 31) // 32
+def dyn_nwords(n: int, blocks: int = 1) -> int:
+    """Word count of one chunk's output buffer (``_dyn_nwords``): 9 bits
+    a position, and a fixed-size header and an EOB a block."""
+    return (9 * n + (1 + blocks) * HDR_BITS + 256 + blocks * 16 + 31) // 32
 
 
 def batched_hist(sym: torch.Tensor, nclasses: int) -> torch.Tensor:
@@ -324,6 +330,142 @@ def precode_rle_header(all_lens: torch.Tensor):
                                 device=vals.device), vals, offs), total
 
 
+def fixed_hdr_items(all_lens: torch.Tensor):
+    """The constant 1338-bit header layout as [R, 339] emission items
+    (``_fixed_hdr_items``): the prelude and precode lengths, then each of
+    the 316 code lengths bit-reversed in 4 bits.  Returns (vals, bits)."""
+    R = all_lens.shape[0]
+    dev = all_lens.device
+    vals = torch.cat([_const(HDR_VALS, dev).expand(R, len(HDR_VALS)),
+                      rev16(all_lens.to(torch.int64)) >> 12], 1)
+    bits = _const([3, 5, 5, 4] + [3] * 19 + [4] * NSYM_ALL, dev)
+    return vals, bits.expand(R, -1)
+
+
+# a static block's header as 339 items: BTYPE 01 and nothing else
+STATIC_HDR_ITEM_VALS = np.zeros(339, np.int64)
+STATIC_HDR_ITEM_VALS[0] = 0b010
+STATIC_HDR_ITEM_BITS = np.zeros(339, np.int64)
+STATIC_HDR_ITEM_BITS[0] = 3
+
+
+def item_sym(bp, commit_match, commit_lit, oslot, lslot):
+    """The combined alphabet a position emits: its literal byte, 257 +
+    the length slot at a match start, 286 + the offset slot one position
+    after it, else DONT_CARE."""
+    return torch.where(
+        commit_match, 257 + lslot,
+        torch.where(behind(commit_match, False), NSYM + behind(oslot),
+                    torch.where(commit_lit, bp.to(torch.int64), DONT_CARE)))
+
+
+def body_columns(code_at, commit_match, commit_lit, eff, dist, lbase,
+                 lextra, obase, oextra):
+    """(val, nb) a position emits from its code-table entry ``code_at``
+    (rev<<4 | len): slot A (a literal, or a match start's length code and
+    extra bits) or slot B (the position after a match start: the offset
+    code and extra bits)."""
+    clen = code_at & 15
+    ccode = code_at >> 4
+    lx = torch.where(commit_match, eff - lbase, 0)
+    val_a = ccode | (lx << clen)
+    nb_a = torch.where(commit_match, clen + lextra,
+                       torch.where(commit_lit, clen, 0))
+    ox_b = behind((dist - obase) & M32)
+    val_b = ccode | (ox_b << clen)
+    nb_b = clen + behind(oextra)
+    prev_match = behind(commit_match, False)
+    val = torch.where(prev_match, val_b,
+                      torch.where(commit_match | commit_lit, val_a, 0)) & M32
+    return val, torch.where(prev_match, nb_b, nb_a)
+
+
+def code_hists(sym: torch.Tensor):
+    """Litlen [R, 286] and offset [R, 30] histograms of [R, n] symbols,
+    EOB counted once and symbols 0 (litlen) and 0, 1 (offset) forced to
+    1 where unused."""
+    hist = batched_hist(sym, NSYM_ALL)
+    hist_lit = hist[:, :NSYM].clone()
+    hist_lit[:, 256] += 1                                      # EOB
+    hist_lit[:, 0] += (hist_lit[:, 0] == 0).to(torch.int64)
+    hist_dist = hist[:, NSYM:].clone()
+    hist_dist[:, 0] += (hist_dist[:, 0] == 0).to(torch.int64)
+    hist_dist[:, 1] += (hist_dist[:, 1] == 0).to(torch.int64)
+    return hist_lit, hist_dist
+
+
+def emit_dynamic_pre_blocks(bp, commit_match, commit_lit, eff, dist,
+                            blocks: int, refine_passes: int = 0):
+    """Multi-block emission (``_emit_dynamic_pre_blocks``): each chunk of
+    [B, n_pad] commit arrays as ``blocks`` DEFLATE blocks of n_pad /
+    blocks positions with a code of their own, over the chunk's one LZ
+    window.  Per-block histograms, one code-length build over 2 * blocks
+    rows a chunk, per-block canonical tables, the RLE, fixed or static
+    header, and one entry stream ``[header 339][body][EOB 1]`` a block,
+    zero-padded to a multiple of 128 entries only.  Returns ((val, nb,
+    offs), aux) with aux shaped for ``emit_dynamic_post`` (no header
+    words, the EOBs in the stream).  n_pad must be a multiple of blocks *
+    128, and each block of 1024 positions (a DP segment), as the
+    reference asserts."""
+    B, n_pad = bp.shape
+    dev = bp.device
+    nb_blk = n_pad // blocks
+    if n_pad % (blocks * 128) or nb_blk % 1024:
+        raise AssertionError(f"emit_dynamic_pre_blocks: {n_pad} positions "
+                             f"do not split into {blocks} blocks of a "
+                             f"multiple of 1024")
+    eff = eff.to(torch.int64)
+    dist = dist.to(torch.int64)
+    lslot, lbase, lextra = length_slot(torch.clamp(eff, min=3))
+    oslot, obase, oextra = offset_slot(torch.clamp(dist, min=1))
+    sym = item_sym(bp, commit_match, commit_lit, oslot, lslot)
+
+    # per-block code tables: rows (chunk, block)
+    R = B * blocks
+    hist_lit, hist_dist = code_hists(sym.reshape(R, nb_blk))
+    max_len = MAX_CODE_LEN_DEEP if refine_passes else MAX_CODE_LEN
+    lit_lens, dist_lens, ok_l, ok_d = build_code_lens_pair(
+        hist_lit, hist_dist, refine_passes, max_len)
+    t_lit = canonical_table(lit_lens)
+    t_dist = canonical_table(dist_lens)
+    all_lens = torch.cat([lit_lens, dist_lens], 1)           # [R, 316]
+    rle_v, rle_b, rle_tot = precode_rle_items(all_lens)
+    fix_v, fix_b = fixed_hdr_items(all_lens)
+    use_rle = rle_tot < HDR_BITS
+    hdr_dyn_bits = torch.where(use_rle, rle_tot, HDR_BITS)
+    dyn_cost = ((hist_lit * lit_lens).sum(1) + (hist_dist * dist_lens).sum(1)
+                + hdr_dyn_bits)
+    static_cost = ((hist_lit * _const(STATIC_LIT_LENS, dev)).sum(1)
+                   + 5 * hist_dist.sum(1) + 3)
+    use_dyn = (ok_l & ok_d & (dyn_cost < static_cost))[:, None]
+    table = torch.where(use_dyn, torch.cat([t_lit, t_dist], 1),
+                        _const(T_STATIC_ALL, dev))
+    hv = torch.where(use_dyn, torch.where(use_rle[:, None], rle_v, fix_v),
+                     _const(STATIC_HDR_ITEM_VALS, dev))
+    hb = torch.where(use_dyn, torch.where(use_rle[:, None], rle_b, fix_b),
+                     _const(STATIC_HDR_ITEM_BITS, dev))
+
+    # body columns through each block's table
+    code_at = torch.cat([table, torch.zeros_like(table[:, :1])], 1).gather(
+        1, sym.reshape(R, nb_blk)).reshape(B, n_pad)
+    val, nb = body_columns(code_at, commit_match, commit_lit, eff, dist,
+                           lbase, lextra, obase, oextra)
+
+    # one entry stream: [header 339][body nb_blk][EOB 1] a block
+    tbl_eob = table[:, 256:257]
+    vals = torch.cat([hv, val.reshape(R, nb_blk), tbl_eob >> 4], 1)
+    nbits = torch.cat([hb, nb.reshape(R, nb_blk), tbl_eob & 15], 1)
+    ent = blocks * (339 + nb_blk + 1)
+    pad = (-ent) % 128
+    vals = torch.nn.functional.pad(vals.reshape(B, ent), (0, pad))
+    nbits = torch.nn.functional.pad(nbits.reshape(B, ent), (0, pad))
+    offs, total_bits = exclusive_bit_offsets(nbits)
+    zero = torch.zeros(B, dtype=torch.int64, device=dev)
+    aux = (torch.zeros(B, 44, dtype=torch.int64, device=dev), zero, zero,
+           zero, total_bits)
+    return (vals, nbits, offs), aux
+
+
 def emit_dynamic_pre(bp, commit_match, commit_lit, eff, dist,
                      refine_passes: int = 0):
     """Symbol translation, code tables, emission columns, bit offsets and
@@ -337,22 +479,8 @@ def emit_dynamic_pre(bp, commit_match, commit_lit, eff, dist,
     dist = dist.to(torch.int64)
     lslot, lbase, lextra = length_slot(torch.clamp(eff, min=3))
     oslot, obase, oextra = offset_slot(torch.clamp(dist, min=1))
-
-    # combined alphabet: literal byte | 257+len_slot | 286+dist_slot at the
-    # match's second position
-    prev_match = behind(commit_match, False)
-    sym = torch.where(
-        commit_match, 257 + lslot,
-        torch.where(prev_match, NSYM + behind(oslot),
-                    torch.where(commit_lit, bp.to(torch.int64), DONT_CARE)))
-
-    hist = batched_hist(sym, NSYM_ALL)
-    hist_lit = hist[:, :NSYM].clone()
-    hist_lit[:, 256] += 1                                      # EOB
-    hist_lit[:, 0] += (hist_lit[:, 0] == 0).to(torch.int64)
-    hist_dist = hist[:, NSYM:].clone()
-    hist_dist[:, 0] += (hist_dist[:, 0] == 0).to(torch.int64)
-    hist_dist[:, 1] += (hist_dist[:, 1] == 0).to(torch.int64)
+    sym = item_sym(bp, commit_match, commit_lit, oslot, lslot)
+    hist_lit, hist_dist = code_hists(sym)
 
     max_len = MAX_CODE_LEN_DEEP if refine_passes else MAX_CODE_LEN
     lit_lens, dist_lens, ok_l, ok_d = build_code_lens_pair(
@@ -375,21 +503,8 @@ def emit_dynamic_pre(bp, commit_match, commit_lit, eff, dist,
     # DONT_CARE positions (sym == 316) read a zero entry and emit nothing
     code_at = torch.cat([table, torch.zeros_like(table[:, :1])], 1).gather(
         1, sym)
-
-    clen = code_at & 15
-    ccode = code_at >> 4
-    # slot A (match start or literal): litlen code + length extra
-    lx = torch.where(commit_match, eff - lbase, 0)
-    val_a = ccode | (lx << clen)
-    nb_a = torch.where(commit_match, clen + lextra,
-                       torch.where(commit_lit, clen, 0))
-    # slot B (position after a match start): dist code + offset extra
-    ox_b = behind((dist - obase) & M32)
-    val_b = ccode | (ox_b << clen)
-    nb_b = clen + behind(oextra)
-    val = torch.where(prev_match, val_b,
-                      torch.where(commit_match | commit_lit, val_a, 0)) & M32
-    nb = torch.where(prev_match, nb_b, nb_a)
+    val, nb = body_columns(code_at, commit_match, commit_lit, eff, dist,
+                           lbase, lextra, obase, oextra)
 
     hdr_bits_n = torch.where(use_dyn, hdr_dyn_bits, 3)
     offs, body_bits = exclusive_bit_offsets(nb)
@@ -430,40 +545,68 @@ def emit_dynamic_post(words: torch.Tensor, aux, bfinal: torch.Tensor):
 
 def emit_dynamic_block(bp, bfinal, commit_match, commit_lit, eff, dist,
                        n: int, refine_passes: int = 0,
-                       mark: Callable[[str], None] = lambda name: None):
+                       mark: Callable[[str], None] = lambda name: None,
+                       blocks: int = 1, group: int = GROUP):
     """Entropy-code and pack committed items into one byte-aligned
-    fragment a chunk (``emit_dynamic_block``): ``emit_dynamic_pre``, the
-    group premerge, the pack kernel (``group_place`` on the CPU) and
-    ``emit_dynamic_post``, with a ``mark`` at each stage.  Returns (words
-    int32 [B, W], total_bits int64 [B])."""
+    fragment a chunk (``emit_dynamic_block``, and the back end of
+    ``_compress_chunks_optimal_pallas``): ``emit_dynamic_pre`` (or
+    ``emit_dynamic_pre_blocks`` for ``blocks`` > 1), the premerge of
+    ``group``-item groups (their rows scaled from 128 items' width), the
+    pack kernel (``group_place`` on the CPU) and ``emit_dynamic_post``,
+    with a ``mark`` at each stage.  Returns (words int32 [B, W],
+    total_bits int64 [B])."""
     mark("emit_pre")
-    (val, nb, offs), aux = emit_dynamic_pre(bp, commit_match, commit_lit,
-                                            eff, dist, refine_passes)
+    capw = DYN_CAPW_DEEP if refine_passes else DYN_CAPW
+    if blocks > 1:
+        (val, nb, offs), aux = emit_dynamic_pre_blocks(
+            bp, commit_match, commit_lit, eff, dist, blocks, refine_passes)
+        capw = max(capw, BLOCKS_CAPW)
+    else:
+        (val, nb, offs), aux = emit_dynamic_pre(
+            bp, commit_match, commit_lit, eff, dist, refine_passes)
     mark("premerge")
-    sbuf, gw = group_premerge(val, nb, offs, capw=DYN_CAPW_DEEP
-                              if refine_passes else DYN_CAPW)
+    sbuf, gw = group_premerge(val, nb, offs, (capw - 1) * group // GROUP + 1,
+                              group)
     mark("pack")
-    words = kernels.pack_groups(sbuf, gw, dyn_nwords(n))
+    words = kernels.pack_groups(sbuf, gw, dyn_nwords(n, blocks))
     mark("post")
     words, total_bits = emit_dynamic_post(words, aux, bfinal)
     return to_i32(words), total_bits
 
 
-# each dynamic tier's parser options (``greedy_candidates``) and
-# refinement passes, as compress_chunk_dynamic{,2,3} set them: the quality
-# tiers add the rescue pass, 64 KiB segments, the A/B chain extension, 16
-# refinement passes and 15-bit codes
+# the keywords of ``compress_chunks_dynamic_with`` that each dynamic tier
+# sets, as compress_chunk_dynamic{,2,3} do
 TIERS = {
-    "dyn1": (dict(lazy=True, depth=6, wide_window=True), 0),
-    "dyn2": (dict(lazy=True, two_pass=True, depth=6, wide_ext=True), 16),
-    "dyn3": (dict(lazy=True, two_pass=True, depth=12, hash3=True,
-                  wide_ext=True), 16),
+    "dyn1": {},
+    "dyn2": dict(two_pass=True),
+    "dyn3": dict(two_pass=True, depth=12, hash3=True),
 }
 
 
-def _compress_greedy(tier, bufs, lengths, bfinal, device, on_stage):
-    """``compress_chunk_dynamic`` over a batch, for one of ``TIERS``."""
-    options, refine_passes = TIERS[tier]
+def greedy_options(two_pass: bool = False, depth: int = 6,
+                   hash3: bool = False, lcp: int = 16):
+    """(``greedy_candidates`` keywords, refinement passes) of
+    ``_compress_chunks_dynamic_pallas``: a lazy parse, the rescue pass
+    with ``two_pass``, 64 KiB segments and the A/B chain extension with
+    ``two_pass`` or ``hash3`` (then 16 refinement passes and 15-bit
+    codes), else 128 KiB segments and 11-bit codes."""
+    quality = two_pass or hash3
+    return (dict(lazy=True, two_pass=two_pass, depth=depth, hash3=hash3,
+                 wide_ext=quality, wide_window=not quality, lcp=lcp),
+            16 if quality else 0)
+
+
+def compress_chunks_dynamic_with(
+        bufs, lengths, bfinal, device=None,
+        on_stage: Callable[[str], None] | None = None, *,
+        two_pass: bool = False, depth: int = 6, hash3: bool = False,
+        lcp: int = 16):
+    """``_compress_chunks_dynamic_pallas`` with its keywords: the greedy
+    parser's options (``greedy_options``; ``lcp`` 8 or 12 gives the
+    matchfind 8-byte payloads), then one dynamic block a chunk.  The
+    A/B chain extension follows ``two_pass or hash3`` here, as on that
+    path.  Same contract as ``compress_chunks_dynamic``."""
+    options, refine_passes = greedy_options(two_pass, depth, hash3, lcp)
     mark = on_stage or (lambda name: None)
     bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
     mark("candidates")
@@ -487,8 +630,8 @@ def compress_chunks_dynamic(bufs, lengths, bfinal, device=None,
     empty stored block carrying BFINAL.  Runs on CUDA unless ``device``
     names another device; ``on_stage(name)`` marks each stage's start
     and the end."""
-    return _compress_greedy("dyn1", bufs, lengths, bfinal, device,
-                            on_stage)
+    return compress_chunks_dynamic_with(bufs, lengths, bfinal, device,
+                                        on_stage, **TIERS["dyn1"])
 
 
 def compress_chunks_dynamic2(bufs, lengths, bfinal, device=None,
@@ -497,8 +640,8 @@ def compress_chunks_dynamic2(bufs, lengths, bfinal, device=None,
     ``_dynamic2_pallas``): as ``compress_chunks_dynamic`` with the rescue
     pass, 64 KiB segments, the A/B chain extension, 16 refinement passes
     and 15-bit codes."""
-    return _compress_greedy("dyn2", bufs, lengths, bfinal, device,
-                            on_stage)
+    return compress_chunks_dynamic_with(bufs, lengths, bfinal, device,
+                                        on_stage, **TIERS["dyn2"])
 
 
 def compress_chunks_dynamic3(bufs, lengths, bfinal, device=None,
@@ -506,5 +649,5 @@ def compress_chunks_dynamic3(bufs, lengths, bfinal, device=None,
     """Deep-probe dynamic tier, dyn3 (``compress_chunks_dynamic3`` and
     ``_dynamic3_pallas``): as ``compress_chunks_dynamic2`` with depth 12
     and len-3 matches (``hash3_matchfind``)."""
-    return _compress_greedy("dyn3", bufs, lengths, bfinal, device,
-                            on_stage)
+    return compress_chunks_dynamic_with(bufs, lengths, bfinal, device,
+                                        on_stage, **TIERS["dyn3"])

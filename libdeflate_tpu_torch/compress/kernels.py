@@ -29,14 +29,19 @@ from .pipeline import MAX_LEN, group_place
 # (tpu_optimal.LEN_LADDER)
 LEN_LADDER = (3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 16, 18, 22, 26, 30, 34, 42,
               50, 58, 66, 82, 98, 114, 130, 162, 194, 226, 258)
+# every length 3..34, then the band tops above (tpu_optimal.LEN_LADDER_DENSE)
+LEN_LADDER_DENSE = tuple(range(3, 35)) + (38, 42, 46, 50, 58, 66, 82, 98,
+                                          114, 130, 162, 194, 226, 258)
 # every length 3..66, then half-band steps (tpu_optimal.LEN_LADDER_DENSE2)
 LEN_LADDER_DENSE2 = tuple(range(3, 67)) + (74, 82, 90, 98, 106, 114, 122,
                                            130, 146, 162, 178, 194, 210,
                                            226, 242, 258)
 # the ladders csrc/dp_parse.cu instantiates (each rung table computed
 # arithmetically there), told apart by their rung counts
-LADDERS = {len(lad): lad for lad in (LEN_LADDER, LEN_LADDER_DENSE2)}
+LADDERS = {len(lad): lad for lad in (LEN_LADDER, LEN_LADDER_DENSE,
+                                     LEN_LADDER_DENSE2)}
 WIN = 512                  # circular cost-window rows (>= 259, power of 2)
+PACK_MAX_CAPW1 = 82        # pack_groups_pallas's widest row (128 - 46)
 _BIG = 1 << 28
 _BIG2 = 1 << 29
 _LC_ENTRIES = 259
@@ -90,11 +95,11 @@ def _split_choice(choice: torch.Tensor):
 
 def ladder_rungs(ladder) -> int:
     """The rung count that names ``ladder`` to the kernel; a ladder other
-    than LEN_LADDER and LEN_LADDER_DENSE2 raises."""
+    than LEN_LADDER, LEN_LADDER_DENSE and LEN_LADDER_DENSE2 raises."""
     ladder = tuple(int(f) for f in ladder)
     if LADDERS.get(len(ladder)) != ladder:
-        raise ValueError("dp_parse: the ladder must be LEN_LADDER or "
-                         "LEN_LADDER_DENSE2")
+        raise ValueError("dp_parse: the ladder must be LEN_LADDER, "
+                         "LEN_LADDER_DENSE or LEN_LADDER_DENSE2")
     return len(ladder)
 
 
@@ -189,8 +194,8 @@ def dp_parse_into(arrs, lc_len, S: int, span: torch.Tensor,
     """The bare launch of the DP kernel on CUDA tensors: the twelve
     [B, n_pad] contiguous int64 arrays ``arrs``, lc_len contiguous int32
     or int64 [259] or [B, 259] (non-negative), span and dist int64
-    [B, n_pad], every element written, ``ladder`` LEN_LADDER or
-    LEN_LADDER_DENSE2.  Counts nothing: ``dp_parse`` is the wrapper."""
+    [B, n_pad], every element written, ``ladder`` one of ``LADDERS``.
+    Counts nothing: ``dp_parse`` is the wrapper."""
     B, n_pad = arrs[0].shape
     P, I = _build.PTR, _build.INT
     fn = _build.kernel("dp_parse", "dp_parse_launch",
@@ -206,8 +211,8 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
              lc_len, S: int, ladder=LEN_LADDER_DENSE2):
     """Backwards min-cost DP (``dp_parse_pallas``): [B, n_pad] candidate
     and cost arrays plus the [259] or [B, 259] per-length match costs ->
-    (span, dist) int64 [B, n_pad], over ``ladder`` (LEN_LADDER or
-    LEN_LADDER_DENSE2; another ladder raises).  CUDA kernel for CUDA tensors
+    (span, dist) int64 [B, n_pad], over ``ladder`` (one of ``LADDERS``;
+    another ladder raises).  CUDA kernel for CUDA tensors
     (contiguous int64 arrays, an int32 or int64 lc_len of non-negative
     costs, read as they are: the wrapper allocates the outputs and
     launches, nothing else), the plain version for CPU tensors."""
@@ -258,10 +263,15 @@ def pack_groups(sbuf: torch.Tensor, gw: torch.Tensor,
     groups' bits are disjoint, so OR and add agree.  CUDA kernel for CUDA
     tensors (contiguous int64, read as they are: the wrapper allocates the
     output and launches, nothing else), the plain version
-    (``group_place``) for CPU tensors."""
+    (``group_place``) for CPU tensors.  A row wider than 82 words raises
+    AssertionError on both, where ``pack_groups_pallas`` asserts."""
     B, m, capw1 = sbuf.shape
     if gw.shape != (B, m):
         raise ValueError("pack_groups: gw must have shape [B, m]")
+    if capw1 > PACK_MAX_CAPW1:
+        raise AssertionError(f"pack_groups: capw + 1 = {capw1} is past "
+                             f"{PACK_MAX_CAPW1}, as pack_groups_pallas "
+                             f"asserts")
     if sbuf.device.type == "cpu":
         return group_place(sbuf, gw, nwords)
     _require_cuda((sbuf, gw), "pack_groups")

@@ -6,15 +6,19 @@ sample, with ``table`` and ``cache``), ``_dist_cost`` (182),
 ``_seed_lc_len`` (191-207), ``_SHORT_BIAS16`` (217), ``_lc_len_from_lens``
 (220), ``_take30`` (232), ``_commit`` (349), ``_code_lens_from_items``
 (358), ``parse_chunk_optimal`` and ``compress_chunk_optimal`` (383-482,
-batched as ``compress_chunks_optimal_with``), and the entries
+with ``row_lit1``; batched as ``compress_chunks_optimal_with``),
+``_compress_chunks_optimal_pallas`` (524-684, with every keyword, as
+``compress_chunks_optimal_pallas_with``), and the entries
 ``compress_chunks_optimal``, ``compress_chunks_optimal2``,
 ``compress_chunks_optimal_deep`` (485-521) with their ``_pallas`` twins
 (687-716), ``compress_chunks_optfast_pallas`` (719) and
 ``compress_chunks_lean_pallas`` (733), all through one function,
-``_compress_dp``, which mirrors ``_compress_chunks_optimal_pallas``
-(524-684): candidates, seed costs, the DP kernel, commit, then each
-further cost pass (code lengths from the items, re-translated costs, the
-DP and commit again), then the emission.
+``_compress_dp``, which mirrors ``_compress_chunks_optimal_pallas``:
+candidates, seed costs (or pass 1's mean literal cost a chunk or a row),
+the DP kernel, commit, then each further cost pass (code lengths from the
+items, re-translated costs, the DP and commit again), then the emission
+(one block or several a chunk, premerged in groups of 128 items or
+another size).
 
 ``_dp_parse`` (244-346), the XLA DP, has its counterpart in
 ``kernels.dp_parse_plain``, the plain version of the DP kernel; the
@@ -39,19 +43,18 @@ from ..device import from_numpy_batch
 from . import kernels
 from .bits import bsr, length_slot, offset_slot
 from .dynamic import (
-    DONT_CARE,
     MAX_CODE_LEN_DEEP,
-    NDIST,
-    NSYM,
     batched_hist,
     build_code_lens_pair,
+    code_hists,
     emit_dynamic_block,
+    item_sym,
 )
 from .kernels import LEN_LADDER, LEN_LADDER_DENSE2
 from .pipeline import (
+    GROUP,
     LEAN_CANDIDATES,
     STRIDES,
-    behind,
     commit_items,
     parse_candidates,
 )
@@ -195,6 +198,24 @@ def seed_costs(h: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return torch.where(h > 0, cost, 15 * BIT)
 
 
+def mean_literal_costs(cache: torch.Tensor, n_pad: int,
+                       per_row: bool) -> torch.Tensor:
+    """Pass 1's literal cost as a mean: the seeded cost of each byte
+    weighted by its count and floor-divided by the count, over the whole
+    ``literal_hist_rows`` cache [B, rows, 257] of a chunk (``flat_lit1``)
+    or over each row (``row_lit1``: a row is a contiguous 64 KiB span of
+    the sampled bytes), broadcast over the chunk's or row's [B, n_pad]
+    positions, past ``length`` too (``tpu_optimal.py:412-422, 575-611``)."""
+    h = cache[..., :256]
+    if not per_row:
+        h = h.sum(1, keepdim=True)
+    B, m, _ = h.shape
+    total = torch.clamp(h.sum(2), min=1)
+    c = seed_costs(h.reshape(B * m, 256), total.reshape(B * m))
+    mean = (h * c.reshape(B, m, 256)).sum(2) // total
+    return mean.repeat_interleave(n_pad // m, dim=1)
+
+
 def literal_costs(bp: torch.Tensor, length: torch.Tensor,
                   table: torch.Tensor) -> torch.Tensor:
     """Per-position literal cost: table[byte] before ``length``, else 0."""
@@ -259,15 +280,8 @@ def code_lens_from_items(bp, commit_match, commit_lit, eff, dist):
     passes."""
     lslot = length_slot(torch.clamp(eff, min=3))[0]
     oslot = offset_slot(torch.clamp(dist, min=1))[0]
-    sym = torch.where(
-        commit_match, 257 + lslot,
-        torch.where(behind(commit_match, False), NSYM + behind(oslot),
-                    torch.where(commit_lit, bp.to(torch.int64), DONT_CARE)))
-    hist = batched_hist(sym, NSYM + NDIST)
-    hist_lit, hist_dist = hist[:, :NSYM].clone(), hist[:, NSYM:].clone()
-    hist_lit[:, 256] += 1
-    for h, k in ((hist_lit, 0), (hist_dist, 0), (hist_dist, 1)):
-        h[:, k] += (h[:, k] == 0).long()
+    hist_lit, hist_dist = code_hists(item_sym(bp, commit_match, commit_lit,
+                                              oslot, lslot))
     lit_lens, dist_lens, _, _ = build_code_lens_pair(
         hist_lit, hist_dist, 16, MAX_CODE_LEN_DEEP)
     return lit_lens, dist_lens
@@ -282,17 +296,21 @@ def commit(span, dist, pos, length, S_eff: int):
 
 def _compress_dp(bufs, lengths, bfinal, device, on_stage, *,
                  candidates: dict, passes: int, ladder, lit_sample: int,
-                 match_bias16, refine: int, S: int = DP_SEG):
+                 match_bias16, refine: int, S: int = DP_SEG,
+                 lit1: str | None = None, blocks: int = 1,
+                 pm_group: int = GROUP):
     """The DP tiers' pipeline (``_compress_chunks_optimal_pallas``):
     candidates (``parse_candidates(**candidates)``), seed costs (literal
-    histogram every ``lit_sample``-th byte, seeded offset costs, the
-    seed match costs less ``match_bias16``), the DP kernel over
-    ``ladder`` and the commit; then ``passes - 1`` times code lengths
-    from the items, literal, match and offset costs from them (one
-    match-cost table a chunk), the DP and the commit again; then one
-    dynamic block a chunk with ``refine`` refinement passes (15-bit codes
-    if any, else 11-bit).  ``on_stage(name)`` marks each stage's start
-    and the end; a further pass's stages are named with its number
+    histogram every ``lit_sample``-th byte, or with ``lit1`` "flat" or
+    "row" its mean a chunk or a row, ``mean_literal_costs``; seeded
+    offset costs; the seed match costs less ``match_bias16``), the DP
+    kernel over ``ladder`` and the commit; then ``passes - 1`` times code
+    lengths from the items, literal, match and offset costs from them
+    (one match-cost table a chunk), the DP and the commit again; then
+    ``blocks`` dynamic blocks a chunk with ``refine`` refinement passes
+    (15-bit codes if any, else 11-bit), premerged in groups of
+    ``pm_group`` items.  ``on_stage(name)`` marks each stage's start and
+    the end; a further pass's stages are named with its number
     ("dp_2")."""
     mark = on_stage or (lambda name: None)
     bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
@@ -306,7 +324,11 @@ def _compress_dp(bufs, lengths, bfinal, device, on_stage, *,
     dists = (dA, dB, dC, d3)
 
     mark("costs")
-    cost_lit, _ = literal_costs_with(bp, lengths, sample=lit_sample)
+    if lit1:
+        cost_lit = mean_literal_costs(
+            literal_hist_rows(bp, lengths, lit_sample), n_pad, lit1 == "row")
+    else:
+        cost_lit, _ = literal_costs_with(bp, lengths, sample=lit_sample)
     cds = [dist_cost(d) for d in dists]
     lc_len = torch.as_tensor(seed_lc_len(match_bias16), device=bp.device)
     for k in range(1, passes + 1):
@@ -327,7 +349,7 @@ def _compress_dp(bufs, lengths, bfinal, device, on_stage, *,
         mark("commit" + sfx)
         cm, cl, eff = commit(span, dist, pos, lengths, S_eff)
     words, total_bits = emit_dynamic_block(bp, bfinal, cm, cl, eff, dist, n,
-                                           refine, mark)
+                                           refine, mark, blocks, pm_group)
     mark("end")
     return words, total_bits
 
@@ -417,6 +439,13 @@ def compress_chunks_optimal_deep(
                         **TIERS["deep"])
 
 
+def candidate_options(**options) -> dict:
+    """``parse_candidates``' keywords of an entry's options: the windows
+    64 KiB with ``two_pass`` or ``hash3``, 128 KiB otherwise."""
+    return dict(options, wide_window=not (options["two_pass"]
+                                          or options["hash3"]))
+
+
 def compress_chunks_optimal_with(bufs, lengths, bfinal, device=None,
                                  on_stage: Callable[[str], None] | None = None,
                                  depth: int = 6, two_pass: bool = False,
@@ -434,21 +463,55 @@ def compress_chunks_optimal_with(bufs, lengths, bfinal, device=None,
     (its ``jax.vmap``), as the mesh ladder calls it at levels 5-12:
     ``parse_chunk_optimal``'s options, the windows 64 KiB with
     ``two_pass`` or ``hash3`` and 128 KiB otherwise.  ``lit_sample`` is
-    accepted and ignored, as there (the seed histogram takes every
-    byte).  ``row_lit1`` is an option of the JAX package's experiments
-    only and raises; so do ``lcp`` other than 16 and
-    ``content_round_probes``.  Same contract as
-    ``compress_chunks_lean``."""
-    if row_lit1:
-        raise NotImplementedError("compress_chunks_optimal_with: row_lit1 "
-                                  "is not ported")
-    candidates = dict(depth=depth, two_pass=two_pass, hash3=hash3,
-                      wide_window=not (two_pass or hash3),
-                      use_content=use_content, use_wide=use_wide, ext_c=ext_c,
-                      lcp=lcp, strides2=strides2, strides1=strides1,
-                      content_doublings=content_doublings,
-                      content_round_probes=content_round_probes)
+    accepted and ignored, as there: the seed histogram takes every byte,
+    and ``row_lit1``'s 64 KiB rows are rows of every byte.  Same contract
+    as ``compress_chunks_lean``."""
+    candidates = candidate_options(
+        depth=depth, two_pass=two_pass, hash3=hash3, use_content=use_content,
+        use_wide=use_wide, ext_c=ext_c, lcp=lcp, strides2=strides2,
+        strides1=strides1, content_doublings=content_doublings,
+        content_round_probes=content_round_probes)
     return _compress_dp(bufs, lengths, bfinal, device, on_stage,
                         candidates=candidates, passes=passes, ladder=ladder,
                         lit_sample=1, match_bias16=match_bias16,
-                        refine=refine_passes, S=S)
+                        refine=refine_passes, S=S,
+                        lit1="row" if row_lit1 else None)
+
+
+def compress_chunks_optimal_pallas_with(
+        bufs, lengths, bfinal, device=None,
+        on_stage: Callable[[str], None] | None = None, *, depth: int,
+        two_pass: bool, hash3: bool, passes: int = 1,
+        use_content: bool = True, use_wide: bool = True, ladder=LEN_LADDER,
+        refine: int = 16, flat_lit1: bool = False, row_lit1: bool = False,
+        ext_c: bool = True, lcp8: bool = False, lcp: int = 16,
+        strides2=STRIDES, strides1=STRIDES, lit_sample: int = 1,
+        pm_group: int = GROUP, content_doublings: int = 0,
+        content_round_probes: bool = False, match_bias16=0,
+        emit_blocks: int = 1):
+    """``_compress_chunks_optimal_pallas`` with every keyword under its
+    own name, as ``scripts/`` calls it: the candidates' options (``lcp8``
+    is ``lcp`` 8), the seed histogram of every ``lit_sample``-th byte,
+    pass 1's literal cost as its mean a chunk (``flat_lit1``) or a 64 KiB
+    row of the sampled bytes (``row_lit1``), ``passes`` cost passes over
+    ``ladder``, ``refine`` refinement passes, the premerge in groups of
+    ``pm_group`` items and ``emit_blocks`` blocks a chunk.  Where this
+    path and the XLA entries differ the port follows the XLA ones (one
+    match-cost table a chunk in a further pass; the same bits at 1 MiB
+    chunks).  A ``pm_group`` that does not divide the item stream raises
+    TypeError, a premerge row wider than 82 words AssertionError, and
+    ``emit_blocks`` blocks not of a multiple of 1024 positions
+    AssertionError, where the reference fails.  Same contract as
+    ``compress_chunks_lean``."""
+    candidates = candidate_options(
+        depth=depth, two_pass=two_pass, hash3=hash3, use_content=use_content,
+        use_wide=use_wide, ext_c=ext_c, lcp=8 if lcp8 else lcp,
+        strides2=strides2, strides1=strides1,
+        content_doublings=content_doublings,
+        content_round_probes=content_round_probes)
+    lit1 = "flat" if flat_lit1 else "row" if row_lit1 else None
+    return _compress_dp(bufs, lengths, bfinal, device, on_stage,
+                        candidates=candidates, passes=passes, ladder=ladder,
+                        lit_sample=lit_sample, match_bias16=match_bias16,
+                        refine=refine, lit1=lit1, blocks=emit_blocks,
+                        pm_group=pm_group)

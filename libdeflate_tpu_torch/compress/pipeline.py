@@ -6,7 +6,7 @@ Counterpart of ``libdeflate_tpu/compress/tpu_pipeline.py``: the constants
 ``_segment_sizes`` (175), ``_sorted_matchfind`` (192-395; its
 ``return_triple`` branches are ``sorted_matchfind_lean`` and
 ``sorted_matchfind_triple``), ``_row_cummax`` (397, as ``cummax``),
-``_content_sorted_matchfind`` (410-538, without ``round_probes``),
+``_content_sorted_matchfind`` (410-538), ``_pay_better`` (541),
 ``_pool_probe`` (549), ``_chain_extend`` (631), ``_chain_extend2`` (654),
 ``_chain_extend_multi`` (690), ``_parse_candidates`` (1086-1235, as
 ``parse_candidates``), ``_greedy_commit_merge`` (771),
@@ -215,14 +215,14 @@ def sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 2,
     return chain_extend2(*_unpay(pa), *_unpay(pb))
 
 
-def sorted_matchfind_lean(h, w, w4, w8, w12, seg: int, depth: int = DEPTH):
+def sorted_matchfind_lean(h, ws, seg: int, depth: int = DEPTH):
     """Lean branch of ``_sorted_matchfind`` (``return_triple=True``,
-    16-byte payloads, ``wide=None``): the best, the best at another
-    distance, and the nearest same-hash candidate per position, each as
-    word-granular (mlen, dist, fine) [B, n] triples.  Candidate C keeps
-    the JAX path's packing loss: its length is capped to 12 in steps of 4
-    and its ``fine`` is 0."""
-    order, probe = _segment_probe(h, (w, w4, w8, w12), seg)
+    ``wide=None``) over the payload words ``ws``, (w, w4, w8, w12) or (w,
+    w4): the best, the best at another distance, and the nearest
+    same-hash candidate per position, each as word-granular (mlen, dist,
+    fine) [B, n] triples.  Candidate C keeps the JAX path's packing loss:
+    its length is capped to 12 in steps of 4 and its ``fine`` is 0."""
+    order, probe = _segment_probe(h, ws, seg)
     mlenC, distC, fineC = probe(1)
     pays = [_pack_inv(mlenC, distC, fineC)]
     pays += [_pack_inv(*probe(d)) for d in range(2, depth + 1)]
@@ -300,14 +300,27 @@ def _pool_probe(sjunk, slp, sws, depth: int):
     return _pay(mlen, dist, fine), _pay(mlen2, dist2, fine2)
 
 
+def pay_better(x, y):
+    """Is packed candidate x (mlen<<18 | fine<<16 | dist) better than y
+    (``_pay_better``): longer, then a longer remainder, then a smaller
+    nonzero distance."""
+    dx, dy = x & 0xFFFF, y & 0xFFFF
+    return ((x >> 16) > (y >> 16)) | (((x >> 16) == (y >> 16)) & (dx < dy)
+                                      & (dx > 0))
+
+
 def content_sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 6,
-                             wide=(), doublings: int = 0):
-    """The content-ordered candidate pass (``_content_sorted_matchfind``
-    without ``round_probes``): every ``seg``-position segment sorted by
-    (hash, the next 17 content bits), then bytes 6..9 in byte order, then
-    position, so that suffixes sharing long prefixes sit side by side;
-    with ``doublings`` each round first re-ranks by (rank, rank h ahead),
-    h = 10, 20, ...  Returns the raw (mlen, dist, fine) triples of the
+                             wide=(), doublings: int = 0,
+                             round_probes: bool = False):
+    """The content-ordered candidate pass (``_content_sorted_matchfind``):
+    every ``seg``-position segment sorted by (hash, the next 17 content
+    bits), then bytes 6..9 in byte order, then position, so that suffixes
+    sharing long prefixes sit side by side; with ``doublings`` each round
+    first re-ranks by (rank, rank h ahead), h = 10, 20, ...  With
+    ``round_probes`` each round's order is probed too (16-byte payloads)
+    and its pools are merged into the final one, round by round, A then
+    B, by ``pay_better``; as in the reference, that merge can leave A and
+    B at one distance.  Returns the raw (mlen, dist, fine) triples of the
     best and the best at a distinct distance of the +-depth neighbour
     probes, [B, n] each."""
     shape = h.shape
@@ -326,12 +339,21 @@ def content_sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 6,
     lpj = col | (is_junk.long() << 17)
     ka, kb = k1, k2
     h_cov = 10
+    round_pools = []           # each round's (pay A, pay B), position order
     for _ in range(doublings):
         order = _sort3(ka, kb, lpj)
         ska, skb = ka.gather(1, order), kb.gather(1, order)
         newg = (ska != behind(ska)) | (skb != behind(skb)) | (col == 0)
         rank_sorted = torch.cummax(torch.where(newg, col, 0), 1).values
-        rank, = _unpermute(order, (rows, seg), rank_sorted)
+        if round_probes:
+            rpa, rpb = _pool_probe(is_junk.gather(1, order), order,
+                                   [x.gather(1, order)
+                                    for x in (w, w4, w8, w12)], depth)
+            rank, rpa, rpb = _unpermute(order, (rows, seg), rank_sorted,
+                                        rpa, rpb)
+            round_pools.append((rpa, rpb))
+        else:
+            rank, = _unpermute(order, (rows, seg), rank_sorted)
         ka = rank
         kb = torch.cat([rank[:, h_cov:],
                         torch.full_like(rank[:, :h_cov], 1 << 17)], 1)
@@ -343,8 +365,14 @@ def content_sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 6,
     sws = [x.reshape(rows, seg).gather(1, order)
            for x in (w, w4, w8, w12, *wide)]
     pay_a, pay_b = _pool_probe(is_junk.gather(1, order), order, sws, depth)
-    pa, pb = _unpermute(order, shape, pay_a, pay_b)
-    return _unpay(pa), _unpay(pb)
+    pa, pb = _unpermute(order, (rows, seg), pay_a, pay_b)
+    for q in (q for pool in round_pools for q in pool):
+        better = pay_better(q, pa)
+        disp = torch.where(better, pa, q)          # the displaced candidate
+        keep_b = (disp & 0xFFFF) != (torch.where(better, q, pa) & 0xFFFF)
+        pb = torch.where(keep_b & pay_better(disp, pb), disp, pb)
+        pa = torch.where(better, q, pa)
+    return _unpay(pa.reshape(shape)), _unpay(pb.reshape(shape))
 
 
 def chain_extend(mlen, dist, fine):
@@ -474,35 +502,33 @@ def parse_candidates(b: torch.Tensor, length: torch.Tensor, depth: int = 6,
     runner-up at another distance and nearest candidates (``use_wide``:
     32-byte payloads, C in full; else 16-byte ones, C packed lean); with
     ``use_content`` the content-ordered pass adds two more, and all five
-    are relaxed over both stride rounds; else A and B (with ``ext_c`` also
-    C) are relaxed over ``strides1`` then ``strides2``.  The pool keeps A
+    are relaxed over both stride rounds (``content_doublings`` rounds of
+    suffix-rank doubling, each probed with ``content_round_probes``);
+    else A and B (with ``ext_c`` also C) are relaxed over ``strides1``
+    then ``strides2``.  ``lcp`` 8 or 12 drops the position pass's 16-byte
+    payloads to 8-byte ones (and the wide ones with them): as in the
+    reference, which keeps its deep payloads only with both w8 and w12,
+    12 gives 8's candidates.  The pool keeps A
     = longest (ties: nearest), B = second-longest at another distance, C
     = nearest with len >= 4; the rescue pass (``two_pass``) merges into
     A/B on strictly longer matches; then the cap at the chunk's end and,
     with ``hash3``, the len-3 distances.
 
     Returns (bp, pos, lenA, dA, lenB, dB, lenC, dC, d3), each [B, n_pad]
-    (pos [1, n_pad]); d3 is zero without ``hash3``.  ``lcp`` other than
-    16 and ``content_round_probes`` are options of the JAX package's
-    experiments only, and raise."""
-    if lcp != 16 or content_round_probes:
-        raise NotImplementedError(
-            "parse_candidates: lcp other than 16 and content_round_probes "
-            "are not ported")
+    (pos [1, n_pad]); d3 is zero without ``hash3``."""
     (bp, pos, length, words, w4, w8, w12, h, sort_seg, _,
      junk_val) = _positions(b, length, wide_window)
     wide = tuple(ahead(words, k) for k in (16, 20, 24, 28)) \
         if use_wide else ()
+    ws = (words, w4) + ((w8, w12) + wide if lcp > 12 else ())
     if use_wide:
-        rawA, rawB, rawC = sorted_matchfind_triple(
-            h, (words, w4, w8, w12) + wide, sort_seg, depth)
+        rawA, rawB, rawC = sorted_matchfind_triple(h, ws, sort_seg, depth)
     else:
-        rawA, rawB, rawC = sorted_matchfind_lean(h, words, w4, w8, w12,
-                                                 sort_seg, depth)
+        rawA, rawB, rawC = sorted_matchfind_lean(h, ws, sort_seg, depth)
     if use_content:
         rawD, rawE = content_sorted_matchfind(
             h, words, w4, w8, w12, sort_seg, max(depth * 2 // 3, 4), wide,
-            content_doublings)
+            content_doublings, content_round_probes)
         ext = chain_extend_multi([rawA, rawB, rawC, rawD, rawE])
     elif ext_c:
         ext = chain_extend_multi([rawA, rawB, rawC], strides2, strides1)
@@ -714,15 +740,20 @@ def exclusive_bit_offsets(nb: torch.Tensor):
     return cs - nb, cs[..., -1]
 
 
-def group_premerge(values, nbits, offs, capw: int):
-    """Merge 128-position runs of [B, n] (value, nbits) items into
+def group_premerge(values, nbits, offs, capw: int, group: int = GROUP):
+    """Merge ``group``-position runs of [B, n] (value, nbits) items into
     (capw+1)-word buffers shifted to the group's in-word bit offset
-    (``_group_premerge``).  Returns (sbuf [B, m, capw+1], gw [B, m])."""
+    (``_group_premerge``).  Returns (sbuf [B, m, capw+1], gw [B, m]).  A
+    group that does not divide n raises TypeError, as the reference's
+    reshape does."""
     B, n = values.shape
-    m = n // GROUP
-    v = values.reshape(B, m, GROUP)
-    nb = nbits.to(torch.int64).reshape(B, m, GROUP)
-    o = offs.to(torch.int64).reshape(B, m, GROUP)
+    if n % group:
+        raise TypeError(f"group_premerge: the group ({group}) must divide "
+                         f"the stream ({n} items)")
+    m = n // group
+    v = values.reshape(B, m, group)
+    nb = nbits.to(torch.int64).reshape(B, m, group)
+    o = offs.to(torch.int64).reshape(B, m, group)
     goff = o[..., :1]
     loff = o - goff
     vm = v & ((1 << nb) - 1)

@@ -22,8 +22,9 @@
 // so a dist of 65536 or more spills into span.
 //
 // The ladder is a template argument: LEN_LADDER_DENSE2 (80 rungs, the
-// lean, optfast and deep tiers) or LEN_LADDER (28 rungs, the optimal
-// tiers), each rung table a constexpr function.
+// lean, optfast and deep tiers), LEN_LADDER_DENSE (46 rungs, options of
+// the experiments) or LEN_LADDER (28 rungs, the optimal tiers), each rung
+// table a constexpr function.
 //
 // What bounds it on this card: bytes, then the serial recurrence.  The
 // work the function needs is 2 adds and 1 min per feasible rung, 317 M
@@ -43,12 +44,13 @@
 //   takes rungs g, g+G, g+2G, ... with each rung's length and its
 //   (lc[f] << 9 | order << 2) in registers (a lane's chunk is fixed).
 //   The sparse ladder's 28 rungs give threads 0-3 four rungs and
-//   threads 4-7 three and a padding slot, selected away at its min (a
-//   compile-time no-op on the dense ladder), so that no rung's order
-//   moves and the rung work a lane stays 28.
+//   threads 4-7 three and a padding slot (the 46-rung ladder: threads
+//   0-5 six, 6-7 five and a padding slot), selected away at its min (a
+//   compile-time no-op on the 80-rung ladder), so that no rung's order
+//   moves and the rung work a lane stays the ladder's.
 // - A candidate is one integer key, cost << 9 | order << 2 | which:
 //   order 0 is the literal, 1..R the rungs in ladder order, R + 1 the
-//   tail (R = 80 or 28); which is 0-2
+//   tail (R = 80, 46 or 28); which is 0-2
 //   for A/B/C and 3 for d3.  The first minimum of the reference is the
 //   minimum key, so each rung costs one add of three terms and one min,
 //   and the group reduces its keys with __shfl_xor_sync.
@@ -106,8 +108,8 @@ constexpr int kWarps = 4;          // warps a block
 constexpr int kPos = 2;            // positions a thread stages a tile
 constexpr int kKey32MaxS = 8192;   // longest segment for 32-bit keys
 
-// The two length ladders (tpu_optimal.py:75-87), one instantiation each.
-// LEN_LADDER_DENSE2: every length 3..66, then 74..130 step 8, 146..258
+// The three length ladders (tpu_optimal.py:75-87), one instantiation
+// each.  LEN_LADDER_DENSE2: every length 3..66, then 74..130 step 8, 146..258
 // step 16.
 struct Dense2 {
   static constexpr int kRungs = 80;
@@ -118,6 +120,26 @@ struct Dense2 {
 static_assert(Dense2::rung(63) == 66 && Dense2::rung(64) == 74 &&
                   Dense2::rung(71) == 130 && Dense2::rung(72) == 146 &&
                   Dense2::rung(Dense2::kRungs - 1) == 258,
+              "denser ladder");
+
+// LEN_LADDER_DENSE: every length 3..34, then 38..50 step 4, 58 and 66,
+// 82..130 step 16, 162..258 step 32.  46 rungs: with G = 8, threads 0-5
+// take six and threads 6-7 five and a padding slot.
+struct Dense {
+  static constexpr int kRungs = 46;
+  __host__ __device__ static constexpr int rung(int i) {
+    return i < 32   ? i + 3
+           : i < 36 ? 34 + 4 * (i - 31)
+           : i < 38 ? 50 + 8 * (i - 35)
+           : i < 42 ? 66 + 16 * (i - 37)
+                    : 130 + 32 * (i - 41);
+  }
+};
+static_assert(Dense::rung(31) == 34 && Dense::rung(32) == 38 &&
+                  Dense::rung(35) == 50 && Dense::rung(36) == 58 &&
+                  Dense::rung(37) == 66 && Dense::rung(38) == 82 &&
+                  Dense::rung(41) == 130 && Dense::rung(42) == 162 &&
+                  Dense::rung(Dense::kRungs - 1) == 258,
               "dense ladder");
 
 // LEN_LADDER: 3..10, then four tops of each extra-bit band b = 0..4,
@@ -401,8 +423,9 @@ int launch(const Inputs& in, const void* lc, int lc_is64, int lc_rows,
 // (lane l's positions are l*S .. l*S + S-1), lc the [lc_rows][259] match
 // costs (int32, or int64 if lc_is64; lc_rows 1 or B) with lc >= 0; span
 // and dist int64 [B, n_pad], every element written; nrungs the ladder,
-// 80 for LEN_LADDER_DENSE2 or 28 for LEN_LADDER.  Returns the CUDA error
-// of the launch (0 on success; cudaErrorInvalidValue for another ladder).
+// 80 for LEN_LADDER_DENSE2, 46 for LEN_LADDER_DENSE or 28 for
+// LEN_LADDER.  Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidValue for another ladder).
 extern "C" int dp_parse_launch(
     const long long* cost_lit, const long long* lenA, const long long* dA,
     const long long* cdA, const long long* lenB, const long long* dB,
@@ -412,7 +435,8 @@ extern "C" int dp_parse_launch(
     long long* dist, int S, int lanes, int lpc, int nrungs, void* stream) {
   const Inputs in = {{cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC,
                       d3, cd3}};
-  if (nrungs != Dense2::kRungs && nrungs != Sparse::kRungs)
+  if (nrungs != Dense2::kRungs && nrungs != Dense::kRungs &&
+      nrungs != Sparse::kRungs)
     return (int)cudaErrorInvalidValue;
   if (lanes <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -422,6 +446,13 @@ extern "C" int dp_parse_launch(
                                                   span, dist, S, lanes, lpc,
                                                   st)
                : launch<kGroup, Dense2, unsigned long long>(
+                     in, lc, lc_is64, lc_rows, span, dist, S, lanes, lpc,
+                     st);
+  if (nrungs == Dense::kRungs)
+    return k32 ? launch<kGroup, Dense, unsigned>(in, lc, lc_is64, lc_rows,
+                                                 span, dist, S, lanes, lpc,
+                                                 st)
+               : launch<kGroup, Dense, unsigned long long>(
                      in, lc, lc_is64, lc_rows, span, dist, S, lanes, lpc,
                      st);
   return k32 ? launch<kGroup, Sparse, unsigned>(in, lc, lc_is64, lc_rows,

@@ -11,7 +11,8 @@ bytes), bfinal mixed; the text chunk alone for B = 1; the two chunks cut
 short (``small_batch``).  A test file takes
 a few tiers, so that the suite's workers share the JAX compiles.  Also
 the candidate generation of ``tpu_pipeline._parse_candidates`` in the
-four configurations the entries use.
+four configurations the entries use and with the options only
+``scripts/`` uses.
 """
 
 import functools
@@ -138,6 +139,16 @@ CANDIDATES = {
     "level10": DEEP,
 }
 CANDIDATE_LENGTHS = [(N, 40000), (511, 4095)]
+# the options only scripts/ uses: 8- and 12-byte position-pass payloads
+# on the lean and the default configurations, and the content pass's
+# round probes after one and two doublings
+OPTION_CANDIDATES = {
+    "lean+lcp8": dict(pipeline.LEAN_CANDIDATES, lcp=8),
+    "lean+lcp12": dict(pipeline.LEAN_CANDIDATES, lcp=12),
+    "defaults+lcp8": dict(lcp=8),
+    "round_probes1": dict(content_doublings=1, content_round_probes=True),
+    "round_probes2": dict(content_doublings=2, content_round_probes=True),
+}
 
 
 def jax_candidates(config):
@@ -145,7 +156,8 @@ def jax_candidates(config):
     integer only, so the eager ops give the jitted function's values, in
     a fifth of its compile time."""
     return jax.vmap(functools.partial(tp._parse_candidates,
-                                      **CANDIDATES[config]))
+                                      **{**CANDIDATES,
+                                         **OPTION_CANDIDATES}[config]))
 
 
 def check_candidates(config, lengths, one_row=False):
@@ -159,13 +171,46 @@ def check_candidates(config, lengths, one_row=False):
         bufs = np.tile(bufs[0, :20000], 7)[None, :2 * N].copy()
     want = jax_candidates(config)(jnp.asarray(bufs),
                                   jnp.asarray(lengths, jnp.int32))
+    options = {**CANDIDATES, **OPTION_CANDIDATES}[config]
     got = pipeline.parse_candidates(torch.from_numpy(bufs.copy()),
-                                    torch.tensor(lengths),
-                                    **CANDIDATES[config])
+                                    torch.tensor(lengths), **options)
     names = "bp pos lenA dA lenB dB lenC dC d3".split()
     for name, g, w in zip(names, got, want):
         w = np.asarray(w)[:1] if name == "pos" else np.asarray(w)
         assert np.array_equal(g.numpy(), w.astype(g.numpy().dtype)), name
     assert int((got[2] >= 4).sum()) > 100
-    if CANDIDATES[config].get("hash3"):
+    if options.get("hash3"):
         assert bool((got[8] > 0).any())
+    return got
+
+
+# scripts/tier_matrix.py's keyword sets of the options' tests
+LEAN_D = dict(depth=6, two_pass=False, hash3=False, passes=2,
+              use_content=False, use_wide=False, ladder=to.LEN_LADDER_DENSE)
+P1 = dict(depth=6, two_pass=False, hash3=False, passes=1, use_content=False,
+          use_wide=False, ladder=to.LEN_LADDER_DENSE2, ext_c=False)
+LEAN = dict(P1, strides2=(), refine=0, lit_sample=32)
+
+
+def check_pallas_with(options, args):
+    """``compress_chunks_optimal_pallas_with(**options)`` on the batch
+    ``args`` against ``_compress_chunks_optimal_pallas(**options)`` in
+    interpret mode run on each chunk alone (B = 1: with a further cost
+    pass the Pallas twin reads one chunk's match costs for a 1024-lane
+    block, the port each chunk's own, as the XLA entries do); words and
+    total_bits equal, every fragment inflates to its chunk.  Returns the
+    port's (words, total_bits)."""
+    bufs, lengths, bfinal = args
+    fn = jax.jit(functools.partial(to._compress_chunks_optimal_pallas,
+                                   interpret=True, **options))
+    words, total_bits = lt.compress_chunks_optimal_pallas_with(
+        *args, device="cpu", **options)
+    for k in range(bufs.shape[0]):
+        w_j, t_j = fn(*(jnp.asarray(x[k:k + 1]) for x in args))
+        assert int(total_bits[k]) == int(t_j[0])
+        assert np.array_equal(words[k].numpy().view(np.uint32),
+                              np.asarray(w_j[0]))
+        stream = lt.device_stream_to_bytes(words[k], total_bits[k])
+        assert zlib.decompressobj(-15).decompress(stream) == \
+            bufs[k, :lengths[k]].tobytes()
+    return words, total_bits

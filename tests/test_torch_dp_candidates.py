@@ -14,22 +14,20 @@ bytes) and on the same chunks at 511 and 4095 live bytes.  Level
 10-12's configuration also runs on one 128 KiB row of a 20000-byte
 period of the text, two 64 KiB segments, where only the rescue pass
 gives the second segment's first positions their matches.  The options
-that no entry uses (lcp 8 and 12, the content pass's round probes)
-raise.  Tolerance: exact.
+that only ``scripts/`` uses (lcp 8 and 12, the content pass's round
+probes) are held in tests/test_torch_options_candidates.py.  Tolerance:
+exact.
 """
 
 import pytest
-import torch
 
 from dp_tier_cases import (  # noqa: F401
     CANDIDATE_LENGTHS,
     CANDIDATES,
     N,
-    batch,
     check_candidates,
     one_torch_thread,
 )
-from libdeflate_tpu_torch.compress import pipeline
 
 
 @pytest.mark.parametrize("lengths", CANDIDATE_LENGTHS, ids=str)
@@ -40,12 +38,3 @@ def test_parse_candidates(config, lengths):
 
 def test_rescue_pass_across_segments():
     check_candidates("level10", (2 * N - 1,), one_row=True)
-
-
-@pytest.mark.parametrize("option", [dict(lcp=8), dict(lcp=12),
-                                    dict(content_round_probes=True)],
-                         ids=str)
-def test_unported_options_raise(option):
-    bufs = torch.from_numpy(batch()[0][:, :1024].copy())
-    with pytest.raises(NotImplementedError):
-        pipeline.parse_candidates(bufs, torch.tensor([1024, 1024]), **option)
