@@ -11,15 +11,24 @@ holds each kernel against its plain version on the card (random inputs
 and the main paths' real inputs, exact equality), and drives the port's
 two paths through their entry points:
 
+- the loop kernels (``scan_phase``): C1, the commit FSM
+  (``csrc/commit_fsm.cu``), and C2, the code-length build
+  (``csrc/code_lens.cu``), each of which replaces a ``lax.scan`` of the
+  JAX package, equal to their plain versions (the torch loops) on every
+  commit of a lean pass (seg 1024) and a dyn1 pass (seg 512), every
+  build of a lean, an optfast and a dyn2 pass, and the crafted sets of
+  ``experiments/crafted_scan.py``; one kernel node a wrapper call in a
+  CUDA graph; each timed beside its parent, the torch loop, in turns;
 - compress: lean min-cost-DP raw-DEFLATE compress of a 16 MiB corpus in
-  1 MiB chunks, 4 chunks per call, through ``compress_chunks_lean``; every
-  chunk round-trips through zlib, and one chunk's CUDA output equals the
-  CPU output;
+  1 MiB chunks, 4 chunks per call, through ``compress_chunks_lean``; K1,
+  K2, C1 and C2 each launched; every chunk round-trips through zlib, and
+  one chunk's CUDA output equals the CPU output;
 - greedy tiers: the same corpus and batches through
   ``compress_chunks_static``, ``compress_chunks_dynamic``,
   ``compress_chunks_dynamic2`` and ``compress_chunks_dynamic3``: one pack
-  launch (K2) a call and no DP, every chunk inflates through zlib, every
-  chunk's total_bits equals the JAX package's (pinned in
+  launch (K2), one C1 and (but static) one C2 a call and no DP, every
+  chunk inflates through zlib, every chunk's total_bits equals the JAX
+  package's (pinned in
   ``experiments/greedy_total_bits.json`` by
   ``tests/pin_greedy_total_bits.py``), CUDA equals the CPU on chunk 0
   and a 40000-byte tail chunk, K2 equals its plain version on each
@@ -29,9 +38,9 @@ two paths through their entry points:
   ``compress_chunks_optfast``, ``compress_chunks_optimal``,
   ``compress_chunks_optimal2``, ``compress_chunks_optimal_deep`` and
   ``compress_chunks_optimal_with`` at the mesh's level 5-7, 8-9 and
-  10-12 keywords: K1 launched once a cost pass and K2 once a call, every
-  chunk inflates through zlib, every chunk's total_bits equals the JAX
-  package's (pinned in ``experiments/dp_total_bits.json`` by
+  10-12 keywords: K1, C1 and C2 launched once a cost pass and K2 once a
+  call, every chunk inflates through zlib, every chunk's total_bits
+  equals the JAX package's (pinned in ``experiments/dp_total_bits.json`` by
   ``tests/pin_dp_total_bits.py``), CUDA equals the CPU on chunk 0 and a
   40000-byte tail chunk for optfast and deep, K1 equals its plain
   version at both ladders (LEN_LADDER, LEN_LADDER_DENSE2) on every pass's
@@ -182,6 +191,9 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 # integer adds and mins: 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper
 # architecture white paper)
 H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# one dependent step a cycle at the SM's boost clock: the floor of a
+# chain of steps that each need the one before
+H100_CLOCK = 1.98e9
 # what a feasible DP rung needs: cd + lc[f] + D[t+f] (two adds) and one min
 DP_OPS_PER_RUNG = 3
 LOOP_TILE_COUNTS = (1, 7, 133, 256, 1000)  # K6 checks; 256 is its main shape
@@ -215,8 +227,10 @@ def require_equal(name: str, got, want) -> int:
             diff = int((g != w).sum()) if g.shape == w.shape else -1
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version ({diff} elements differ)")
-    return max(int((g - w).abs().max()) if g.numel() else 0
-               for g, w in zip(got, want))
+    # bool tensors (C1's heads, C2's ok) have no difference of their own
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()
+                   if g.dtype == torch.bool else (g - w).abs().max())
+               if g.numel() else 0 for g, w in zip(got, want))
 
 
 def main_path_kernel_inputs(bufs, lengths):
@@ -578,6 +592,7 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
     t_phase = time.perf_counter()
@@ -589,13 +604,20 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
     launches, words = {}, {}
     for name, (entry, dp_calls, pin) in entries.items():
         pk.reset_launch_counts()
+        sk.reset_launch_counts()
         dd.reset_launch_counts()
         outs = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
         got = {"dp_parse": pk.dp_parse.launches,
-               "pack_groups": pk.pack_groups.launches}
+               "pack_groups": pk.pack_groups.launches,
+               "commit_fsm": sk.commit_fsm.launches,
+               "code_lens": sk.code_lens.launches}
+        # a commit and a code-length build a cost pass (the last build is
+        # the emission's), one each for the greedy configuration
         want = {"dp_parse": dp_calls * len(batches),
-                "pack_groups": len(batches)}
+                "pack_groups": len(batches),
+                "commit_fsm": max(dp_calls, 1) * len(batches),
+                "code_lens": max(dp_calls, 1) * len(batches)}
         if got != want or dd.decompress_chunks_words.launches:
             raise AssertionError(f"options, {name}: launches {got}, not "
                                  f"{want}")
@@ -629,7 +651,7 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
         raise AssertionError("options: lean with pm_group=64 gives other "
                              "words than lean")
     total = {k: sum(n[k] for n in launches.values())
-             for k in ("dp_parse", "pack_groups")}
+             for k in ("dp_parse", "pack_groups", "commit_fsm", "code_lens")}
     print(f"options launches: {json.dumps(total)}; lean+pm_group64's words "
           f"equal lean's", flush=True)
 
@@ -709,6 +731,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch import entry as pe
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
     from libdeflate_tpu_torch.formats import gzip_fmt, zlib_fmt
@@ -745,11 +768,14 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
             setattr(pk, name, rec)
         try:
             pk.reset_launch_counts()
+            sk.reset_launch_counts()
             dd.reset_launch_counts()
             out = fc.gzip_compress_dp(corpus, mesh, CHUNK, level)
             torch.cuda.synchronize()
             launches = {"pack_groups": pk.pack_groups.launches,
                         "dp_parse": pk.dp_parse.launches,
+                        "commit_fsm": sk.commit_fsm.launches,
+                        "code_lens": sk.code_lens.launches,
                         "decode_chunks": dd.decompress_chunks_words.launches}
         finally:
             for name, rec in recs.items():
@@ -790,7 +816,10 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
         finally:
             for name, fn in originals.items():
                 setattr(pm, name, fn)
+        passes = max(dp_calls, 1)
         want = {"pack_groups": ndev, "dp_parse": dp_calls * ndev,
+                "commit_fsm": passes * ndev,
+                "code_lens": 0 if pin_name == "static" else passes * ndev,
                 "decode_chunks": 0}
         if launches != want:
             raise AssertionError(f"whole file, level {level}: launches "
@@ -947,38 +976,6 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
             "fsm_decode": fsm_launches, "max_abs_err": errs}
 
 
-def trace_summary(trace_file: Path, top: int = 15):
-    """(the ``top`` device ops by self time, as [name, ms, count], and the
-    device's idle share) of a Chrome trace written by ``torch.profiler``:
-    the share of the traced window (first event's start to last event's
-    end, host and device) in which no kernel, copy or memset ran."""
-    events = [e for e in json.loads(trace_file.read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    dev_cats = ("kernel", "gpu_memcpy", "gpu_memset")
-    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                  e["name"]) for e in events if e.get("cat") in dev_cats)
-    if not dev:
-        raise AssertionError("the trace holds no device op")
-    start = min(float(e["ts"]) for e in events)
-    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
-    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
-    for s, e, _ in dev[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    by_name: dict[str, list] = {}
-    for s, e, name in dev:
-        row = by_name.setdefault(name, [0.0, 0])
-        row[0] += (e - s) / 1e3
-        row[1] += 1
-    ops = sorted(([n[:80], round(ms, 6), c] for n, (ms, c) in by_name.items()),
-                 key=lambda r: -r[1])[:top]
-    return ops, 1 - busy / (end - start), (end - start) / 1e3
-
-
 def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
               zbufs: np.ndarray, z_clen: np.ndarray, lean_bufs, lean_lens,
               k3_rate: dict, batch0, lengths, bfinal, card: str,
@@ -1007,6 +1004,7 @@ def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch.experiments import crafted_streams as cs
     from libdeflate_tpu_torch.experiments import fsm_cases
     from libdeflate_tpu_torch.experiments import fsm_variants as fv
+    from libdeflate_tpu_torch.experiments.pass_turns import trace_summary
     from libdeflate_tpu_torch.experiments.timing import cuda_ms
     from libdeflate_tpu_torch.programs import benchmark as pbench
     from libdeflate_tpu_torch.programs import checksum as pck
@@ -1191,10 +1189,11 @@ def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
             po.compress_chunks_lean(batch0, lengths, bfinal)
             torch.cuda.synchronize()
         (trace_file,) = tdir.glob("trace_*.json")
-        ops, idle, window_ms = trace_summary(trace_file)
+        ops, idle, window_ms, n_ops = trace_summary(trace_file)
         print(f"device_trace of one compress_chunks_lean call (B = "
               f"{batch0.shape[0]} x {CHUNK}): traced window "
-              f"{window_ms:.3f} ms, device idle share {idle:.6f}; top "
+              f"{window_ms:.3f} ms, device idle share {idle:.6f}, {n_ops} "
+              f"device ops (kernels, copies, memsets); top "
               f"{len(ops)} device ops by self time [name, ms, count]: "
               f"{json.dumps(ops)}; {card}", flush=True)
         avg = prof.key_averages()
@@ -1441,6 +1440,138 @@ def host_contract_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     return {"launches": launches, "max_abs_err": err_dec}
 
 
+def scan_phase(batches, lengths, bfinal, card: str) -> dict:
+    """C1 (``csrc/commit_fsm.cu``) and C2 (``csrc/code_lens.cu``), the
+    kernels of the compress paths' two loops, held to their plain
+    versions on the card: C1 on every commit of one lean pass (K1's span
+    and dist, seg 1024) and of one dyn1 pass (the greedy parser's, seg
+    512), and on ``experiments/crafted_scan.py``'s segments at both
+    lengths; C2 on the histograms of every ``build_code_lens_pair`` call
+    of one lean pass (refine 0, 11 bits), one optfast pass (refine 16, 15
+    bits, two builds a call) and one dyn2 pass, and on crafted_scan's
+    histograms at both configurations.  A CUDA graph captured around one
+    wrapper call holds its one kernel node.  Times on the lean call's
+    inputs (and C1 on dyn1's, C2 on optfast's), by CUDA events: the
+    wrapper, its bare launch, and the plain version (the torch loop the
+    path ran before, its parent) in turns with it (kernel, parent,
+    parent, kernel).  Returns the largest errors, times and bounds."""
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import optimal as po
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
+    from libdeflate_tpu_torch.experiments import crafted_scan as cs
+    from libdeflate_tpu_torch.experiments.timing import cuda_ms
+    t_phase = time.perf_counter()
+    dev = lengths.device
+
+    def record(name, entry):
+        calls = []
+        for b in batches:
+            calls += record_calls(sk, name, lambda: entry(b, lengths,
+                                                          bfinal))[1]
+        return calls
+
+    commit_sets = {f"lean pass, call {i + 1}": a for i, a in
+                   enumerate(record("commit_fsm", po.compress_chunks_lean))}
+    commit_sets.update({f"dyn1 pass, call {i + 1}": a for i, a in enumerate(
+        record("commit_fsm", pd.compress_chunks_dynamic))})
+    for name, arrs in cs.commit_sets().items():
+        t = tuple(torch.as_tensor(a, device=dev) for a in arrs)
+        for seg in cs.COMMIT_SEGS:
+            commit_sets[f"crafted: {name}, seg {seg}"] = t + (seg,)
+    err_c1 = 0
+    for name, args in commit_sets.items():
+        err_c1 = max(err_c1, require_equal(
+            f"commit_fsm ({name})", sk.commit_fsm(*args),
+            pp.greedy_commit_merge(*args)))
+    print(f"C1 commit_fsm: equal to its plain version on {len(commit_sets)} "
+          f"sets (every commit of a lean pass at seg 1024 and of a dyn1 "
+          f"pass at seg 512, crafted_scan's segments at 512 and 1024)",
+          flush=True)
+
+    lens_sets = {}
+    for tier, entry in (("lean", po.compress_chunks_lean),
+                        ("optfast", po.compress_chunks_optfast),
+                        ("dyn2", pd.compress_chunks_dynamic2)):
+        for i, a in enumerate(record("code_lens", entry)):
+            lens_sets[f"{tier} pass, build {i + 1}"] = a
+    for name, hist in cs.hist_sets().items():
+        for cfg in cs.CODE_LENS_CFGS:
+            lens_sets[f"crafted: {name}, refine {cfg[0]}, {cfg[1]} bits"] = (
+                torch.as_tensor(hist, device=dev), *cfg)
+    err_c2 = 0
+    for name, args in lens_sets.items():
+        err_c2 = max(err_c2, require_equal(
+            f"code_lens ({name})", sk.code_lens(*args),
+            pd.build_code_lens(*args)))
+    print(f"C2 code_lens: equal to its plain version on {len(lens_sets)} "
+          f"sets (every build of a lean, an optfast and a dyn2 pass, "
+          f"crafted_scan's histograms at refine 0 / 11 bits and 16 / 15)",
+          flush=True)
+
+    lean_c1 = commit_sets["lean pass, call 1"]
+    lean_c2 = lens_sets["lean pass, build 1"]
+    for name, fn in (("commit_fsm", lambda: sk.commit_fsm(*lean_c1)),
+                     ("code_lens", lambda: sk.code_lens(*lean_c2))):
+        ops = graph_node_types(fn)
+        if ops != ["kernel"]:
+            raise AssertionError(f"{name}: one call's graph is {ops}, not "
+                                 f"its one kernel launch")
+    print("C1, C2 wrappers, device ops of one call (CUDA graph nodes): "
+          "[\"kernel\"] each", flush=True)
+
+    def times(fn, bare, plain):
+        turns = {"kernel": [], "parent": []}
+        for who in ("kernel", "parent", "parent", "kernel"):
+            turns[who].append(cuda_ms(fn, 20) if who == "kernel"
+                              else cuda_ms(plain, 1))
+        return {"ms": sum(turns["kernel"]) / 2,
+                "kernel_ms": cuda_ms(bare, 20),
+                "plain_ms": cuda_ms(plain, 1),
+                "parent_ms": sum(turns["parent"]) / 2, "parent_turns": turns}
+
+    out = {"err": {"commit_fsm": err_c1, "code_lens": err_c2}}
+    for name, args in (("lean", lean_c1),
+                       ("dyn1", commit_sets["dyn1 pass, call 1"])):
+        span, is_match, dist, seg = args
+        heads = torch.empty_like(is_match)
+        eff = torch.empty_like(span)
+        row = times(lambda: sk.commit_fsm(*args),
+                    lambda: sk.commit_fsm_into(*args, heads, eff),
+                    lambda: pp.greedy_commit_merge(*args))
+        # bytes: span, is_match, dist read once, heads and eff written
+        # once; the carried chain: the most heads of one lane, a step each
+        nbytes = span.numel() * (8 + 1 + 8 + 1 + 8)
+        hmax = int(heads.reshape(-1, seg).sum(1).max())
+        row.update(inputs=f"{name} pass, call 1: {list(span.shape)}, seg "
+                   f"{seg}", bytes_bound_ms=1e3 * nbytes / H100_BYTES_PER_S,
+                   chain_steps=hmax, chain_bound_ms=1e3 * hmax / H100_CLOCK)
+        out[f"commit_fsm {name}"] = row
+        print(f"C1 commit_fsm ({name}): {json.dumps(row)}; {card}",
+              flush=True)
+    for name, args in (("lean", lean_c2),
+                       ("optfast", lens_sets["optfast pass, build 2"])):
+        hist, refine, max_len = args
+        lens = torch.empty_like(hist)
+        ok = torch.empty(hist.shape[0], dtype=torch.bool, device=dev)
+        row = times(lambda: sk.code_lens(*args),
+                    lambda: sk.code_lens_into(*args, lens, ok),
+                    lambda: pd.build_code_lens(*args))
+        # bytes: the counts read and the lengths written as int64, ok
+        # once; the chain: the spend of the row with the most used
+        # symbols, one dependent step each
+        nbytes = hist.numel() * 16 + hist.shape[0]
+        spend = int((hist > 0).sum(1).max())
+        row.update(inputs=f"{name} pass, build: {list(hist.shape)}, refine "
+                   f"{refine}, {max_len} bits",
+                   bytes_bound_ms=1e3 * nbytes / H100_BYTES_PER_S,
+                   chain_steps=spend, chain_bound_ms=1e3 * spend / H100_CLOCK)
+        out[f"code_lens {name}"] = row
+        print(f"C2 code_lens ({name}): {json.dumps(row)}; {card}", flush=True)
+    print(f"scan phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1456,6 +1587,7 @@ def main() -> int:
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.experiments import crafted_dp as cdp
     from libdeflate_tpu_torch.experiments import crafted_streams as cs
@@ -1593,6 +1725,9 @@ def main() -> int:
         raise AssertionError("dp_parse: one call's graph is not its one "
                              "kernel launch and nothing else")
 
+    # ---- C1, C2: the loop kernels against their plain versions ---------
+    scan = scan_phase(batches, lengths, bfinal, card)
+
     # ---- literal cost tables: CUDA against the CPU --------------------
     for b in batches:
         tab = po.literal_cost_table(b, lengths)
@@ -1602,6 +1737,7 @@ def main() -> int:
 
     # ---- the compress main path, through the entry point ---------------
     pk.reset_launch_counts()
+    sk.reset_launch_counts()
     dd.reset_launch_counts()
     outs = [po.compress_chunks_lean(b, lengths, bfinal) for b in batches]
     torch.cuda.synchronize()
@@ -1609,7 +1745,9 @@ def main() -> int:
                               for b in batches])
     lean_stages = stage_ms(po.compress_chunks_lean, batches, lengths, bfinal)
     launches = {"dp_parse": pk.dp_parse.launches,
-                "pack_groups": pk.pack_groups.launches}
+                "pack_groups": pk.pack_groups.launches,
+                "commit_fsm": sk.commit_fsm.launches,
+                "code_lens": sk.code_lens.launches}
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -1667,15 +1805,21 @@ def main() -> int:
     greedy = {}
     for name, entry in tiers.items():
         pk.reset_launch_counts()
+        sk.reset_launch_counts()
         dd.reset_launch_counts()
         outs_t = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
         t_launch = {"pack_groups": pk.pack_groups.launches,
-                    "dp_parse": pk.dp_parse.launches}
-        if t_launch != {"pack_groups": len(batches), "dp_parse": 0} \
-                or dd.decompress_chunks_words.launches:
+                    "dp_parse": pk.dp_parse.launches,
+                    "commit_fsm": sk.commit_fsm.launches,
+                    "code_lens": sk.code_lens.launches}
+        want = {"pack_groups": len(batches), "dp_parse": 0,
+                "commit_fsm": len(batches),
+                "code_lens": 0 if name == "static" else len(batches)}
+        if t_launch != want or dd.decompress_chunks_words.launches:
             raise AssertionError(f"{name}: launches {t_launch}, not one "
-                                 f"pack_groups a call and nothing else")
+                                 f"pack_groups, commit_fsm and (but static) "
+                                 f"code_lens a call and nothing else")
         words_t = torch.cat([w for w, _ in outs_t])
         bits_t = torch.cat([t for _, t in outs_t])
         if bits_t.tolist() != pinned[name]:
@@ -1760,15 +1904,22 @@ def main() -> int:
     dp_tiers = {}
     for name, entry in dp_entries.items():
         pk.reset_launch_counts()
+        sk.reset_launch_counts()
         dd.reset_launch_counts()
         t0 = time.perf_counter()
         outs_t = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         t_launch = {"dp_parse": pk.dp_parse.launches,
-                    "pack_groups": pk.pack_groups.launches}
+                    "pack_groups": pk.pack_groups.launches,
+                    "commit_fsm": sk.commit_fsm.launches,
+                    "code_lens": sk.code_lens.launches}
+        # a commit a cost pass; a code-length build a further pass and
+        # one for the emission
         want = {"dp_parse": dp_passes[name] * len(batches),
-                "pack_groups": len(batches)}
+                "pack_groups": len(batches),
+                "commit_fsm": dp_passes[name] * len(batches),
+                "code_lens": dp_passes[name] * len(batches)}
         if t_launch != want or dd.decompress_chunks_words.launches:
             raise AssertionError(f"{name}: launches {t_launch}, not {want}")
         words_t = torch.cat([w for w, _ in outs_t])
@@ -2294,6 +2445,38 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": graph_ms(lambda: (x + 1 if name != "grid_copy"
                                             else x.clone()), 200)})
+    # C1 and C2 on the lean call's inputs (C1 also at seg 512 on dyn1's,
+    # C2 also at refine 16 on optfast's); the parent is the plain version,
+    # the torch loop these paths ran before the kernels
+    for name, source, replaces, other in (
+            ("commit_fsm", "commit_fsm.cu",
+             "libdeflate_tpu/compress/tpu_pipeline.py:771", "dyn1"),
+            ("code_lens", "code_lens.cu",
+             "libdeflate_tpu/compress/tpu_dynamic.py:140", "optfast")):
+        row = scan[f"{name} lean"]
+        by_bytes = row["bytes_bound_ms"] >= row["chain_bound_ms"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"libdeflate_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": scan["err"][name], "ms": row["ms"],
+            "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "parent_ms": row["parent_ms"],
+            "parent_turns": row["parent_turns"],
+            "bound_ms": max(row["bytes_bound_ms"], row["chain_bound_ms"]),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bytes_bound_ms": row["bytes_bound_ms"],
+            "chain_steps": row["chain_steps"],
+            "chain_bound_ms": row["chain_bound_ms"],
+            "library_ms": None, "inputs": row["inputs"],
+            other: scan[f"{name} {other}"],
+            "greedy_tier_launches": {n: r["launches"][name]
+                                     for n, r in greedy.items()},
+            "dp_tier_launches": {n: r["launches"][name]
+                                 for n, r in dp_tiers.items()},
+            "options_launches": opt["launches"][name],
+            "whole_file_launches": {level: n[name] for level, n in
+                                    file_launches["compress"].items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card, flush=True)

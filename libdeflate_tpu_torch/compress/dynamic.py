@@ -20,8 +20,10 @@ port both are one path whose bit placement is the pack kernel on CUDA.
 The one-hot matmul histogram becomes ``torch.bincount``, the select-tree
 translate becomes indexing, and the duplicate-index ``.at[].add`` header
 and tail scatters become ``scatter_add`` on int64 followed by a 32-bit
-mask.  The sequential scans of the code-length build stay sequential
-loops over the symbols and levels, batched over chunks.
+mask.  The sequential scans of the code-length build are a CUDA kernel
+on the card (``scan_kernels.code_lens``, ``csrc/code_lens.cu``); their
+plain version, ``build_code_lens``, keeps them as loops over the symbols
+and levels, batched over chunks.
 """
 
 from __future__ import annotations
@@ -229,11 +231,14 @@ def build_code_lens_pair(hist_lit: torch.Tensor, hist_dist: torch.Tensor,
                          refine_passes: int = 0,
                          max_len: int = MAX_CODE_LEN):
     """Both alphabets in one batched build (``_build_code_lens_pair``):
-    the distance histogram is zero-padded to 286 symbols."""
+    the distance histogram is zero-padded to 286 symbols.  The build is
+    ``scan_kernels.code_lens``: its kernel on CUDA, the plain
+    ``build_code_lens`` on the CPU."""
+    from . import scan_kernels     # scan_kernels imports this module
     B = hist_lit.shape[0]
     h = torch.stack([hist_lit, torch.nn.functional.pad(
         hist_dist, (0, NSYM - NDIST))], 1).reshape(2 * B, NSYM)
-    lens, ok = build_code_lens(h, refine_passes, max_len)
+    lens, ok = scan_kernels.code_lens(h, refine_passes, max_len)
     lens, ok = lens.reshape(B, 2, NSYM), ok.reshape(B, 2)
     return lens[:, 0], lens[:, 1, :NDIST], ok[:, 0], ok[:, 1]
 

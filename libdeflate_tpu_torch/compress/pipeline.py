@@ -9,7 +9,8 @@ Counterpart of ``libdeflate_tpu/compress/tpu_pipeline.py``: the constants
 ``_content_sorted_matchfind`` (410-538), ``_pay_better`` (541),
 ``_pool_probe`` (549), ``_chain_extend`` (631), ``_chain_extend2`` (654),
 ``_chain_extend_multi`` (690), ``_parse_candidates`` (1086-1235, as
-``parse_candidates``), ``_greedy_commit_merge`` (771),
+``parse_candidates``), ``_greedy_commit_merge`` (771; on the card its
+kernel, ``scan_kernels.commit_fsm``),
 ``_exclusive_bit_offsets`` (828), ``_group_premerge`` (861),
 ``_group_place`` (909), ``_hash3_matchfind`` (934), ``_parse_chunk``
 (965-1083, as ``greedy_candidates`` and ``commit_items``),
@@ -716,8 +717,11 @@ def greedy_commit_merge(span, is_match, dist, seg: int):
 def commit_items(span, is_match, dist, pos, length, seg: int):
     """Commit with same-distance merging over ``seg``-position segments,
     items past ``length`` ([B]) dropped: (commit_match, commit_lit, eff)
-    as ``_parse_chunk`` and ``tpu_optimal._commit`` form them."""
-    committed, eff = greedy_commit_merge(span, is_match, dist, seg)
+    as ``_parse_chunk`` and ``tpu_optimal._commit`` form them.  The FSM
+    is ``scan_kernels.commit_fsm``: its kernel on CUDA, the plain
+    ``greedy_commit_merge`` on the CPU."""
+    from . import scan_kernels     # scan_kernels imports this module
+    committed, eff = scan_kernels.commit_fsm(span, is_match, dist, seg)
     live = pos < length[:, None]
     return (committed & (eff >= 3) & live, committed & (eff < 3) & live,
             eff)

@@ -11,8 +11,11 @@ tensors take the plain versions and launch nothing, the decode wrapper
 reject shapes and types their kernels do not take; without CUDA the
 entry points refuse to run unless asked for the CPU, and a missing nvcc
 fails the build of every kernel source (and a header change rebuilds the
-sources that include it); a launch function's ctypes signature is set
-once, on its first use; the port and chip_smoke.py import neither JAX
+sources that include it); the loop kernels' wrappers
+(compress/scan_kernels.py: C1, the commit FSM, and C2, the code-length
+build) take their plain versions on the CPU and are what commit_items
+and build_code_lens_pair call; a launch function's ctypes signature is
+set once, on its first use; the port and chip_smoke.py import neither JAX
 nor the JAX package, nor bench.py or scripts/.  The CUDA kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py.  Tolerance: exact.
@@ -142,7 +145,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name", ["dp_parse", "pack_groups",
                                   "decode_chunks", "tokenize_chunks",
-                                  "launch_probes", "fsm_decode"])
+                                  "launch_probes", "fsm_decode",
+                                  "commit_fsm", "code_lens"])
 def test_missing_nvcc_fails_every_build(name, monkeypatch, tmp_path):
     assert name in _build.KERNEL_SOURCES
     assert (_build.SRC_DIR / f"{name}.cu").is_file()
@@ -187,6 +191,8 @@ def _stand_in_library(monkeypatch, fn_name):
     ("tokenize_chunks", "tokenize_chunks_launch"),
     ("launch_probes", "grid_add_one_launch"),
     ("launch_probes", "loop_add_one_launch"),
+    ("commit_fsm", "commit_fsm_launch"),
+    ("code_lens", "code_lens_launch"),
 ])
 def test_kernel_signature_is_set_once(name, fn_name, monkeypatch):
     """The second kernel() call returns the same function without loading
@@ -209,6 +215,86 @@ def test_pack_launch_sets_its_signature_once(monkeypatch):
     out = torch.empty(2, 50, dtype=torch.int64)
     for _ in range(2):
         kernels.pack_groups_into(sbuf, gw, out)
+    assert fn.calls == 2 and fn.sets == ["argtypes", "restype"]
+    assert len(fn.argtypes) == 8
+
+
+def _scan_inputs(which):
+    """Small CPU inputs of C1 (the commit FSM) or C2 (the code lengths)."""
+    rng = np.random.default_rng(3)
+    if which == "commit_fsm":
+        return (torch.from_numpy(rng.integers(1, 40, (2, 2048))),
+                torch.from_numpy(rng.random((2, 2048)) < 0.6),
+                torch.from_numpy(rng.integers(0, 5, (2, 2048))), 512)
+    return torch.from_numpy(rng.integers(0, 300, (4, 286))), 16, 15
+
+
+@pytest.mark.parametrize("which", ["commit_fsm", "code_lens"])
+def test_cpu_scan_wrappers_take_plain_versions_and_launch_nothing(which):
+    from libdeflate_tpu_torch.compress import dynamic, scan_kernels
+    args = _scan_inputs(which)
+    plain = {"commit_fsm": pipeline.greedy_commit_merge,
+             "code_lens": dynamic.build_code_lens}[which]
+    scan_kernels.reset_launch_counts()
+    got = getattr(scan_kernels, which)(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, plain(*args)))
+    assert scan_kernels.commit_fsm.launches == 0
+    assert scan_kernels.code_lens.launches == 0
+
+
+@pytest.mark.parametrize("which", ["commit_fsm", "code_lens"])
+def test_compress_stages_call_the_scan_wrappers(which, monkeypatch):
+    """commit_items and build_code_lens_pair reach their loops only
+    through the wrappers, which launch the kernels on CUDA tensors."""
+    from libdeflate_tpu_torch.compress import dynamic, scan_kernels
+    calls = []
+    orig = getattr(scan_kernels, which)
+    monkeypatch.setattr(scan_kernels, which,
+                        lambda *a: calls.append(a) or orig(*a))
+    if which == "commit_fsm":
+        span, is_match, dist, seg = _scan_inputs(which)
+        pipeline.commit_items(span, is_match, dist,
+                              torch.arange(2048)[None],
+                              torch.tensor([2048, 1000]), seg)
+    else:
+        hist = _scan_inputs(which)[0]
+        dynamic.build_code_lens_pair(hist[:2], hist[2:, :30], 16, 15)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("case", ["commit shapes", "commit seg",
+                                  "code_lens rank"])
+def test_scan_wrappers_reject_bad_shapes(case):
+    from libdeflate_tpu_torch.compress import scan_kernels
+    span, is_match, dist, seg = _scan_inputs("commit_fsm")
+    with pytest.raises(ValueError):
+        if case == "commit shapes":
+            scan_kernels.commit_fsm(span, is_match[:1], dist, seg)
+        elif case == "commit seg":
+            scan_kernels.commit_fsm(span, is_match, dist, 1000)
+        else:
+            scan_kernels.code_lens(torch.zeros(286, dtype=torch.int64), 0,
+                                   11)
+
+
+@pytest.mark.parametrize("which", ["commit_fsm", "code_lens"])
+def test_scan_launch_sets_its_signature_once(which, monkeypatch):
+    """Two bare launches through each scan wrapper's launch helper: two
+    calls, one signature, one argument a C parameter."""
+    from libdeflate_tpu_torch.compress import scan_kernels
+    fn, _ = _stand_in_library(monkeypatch, f"{which}_launch")
+    monkeypatch.setattr(scan_kernels, "_stream", lambda: ctypes.c_void_p(0))
+    for _ in range(2):
+        if which == "commit_fsm":
+            span, is_match, dist, seg = _scan_inputs(which)
+            scan_kernels.commit_fsm_into(span, is_match, dist, seg,
+                                         torch.empty_like(is_match),
+                                         torch.empty_like(span))
+        else:
+            hist, refine, max_len = _scan_inputs(which)
+            scan_kernels.code_lens_into(
+                hist, refine, max_len, torch.empty_like(hist),
+                torch.empty(4, dtype=torch.bool))
     assert fn.calls == 2 and fn.sets == ["argtypes", "restype"]
     assert len(fn.argtypes) == 8
 
