@@ -15,10 +15,14 @@ two paths through their entry points:
   (``csrc/commit_fsm.cu``), and C2, the code-length build
   (``csrc/code_lens.cu``), each of which replaces a ``lax.scan`` of the
   JAX package, equal to their plain versions (the torch loops) on every
-  commit of a lean pass (seg 1024) and a dyn1 pass (seg 512), every
-  build of a lean, an optfast and a dyn2 pass, and the crafted sets of
-  ``experiments/crafted_scan.py``; one kernel node a wrapper call in a
-  CUDA graph; each timed beside its parent, the torch loop, in turns;
+  commit of a lean pass (seg 1024) and a dyn1 pass (seg 512), one lane a
+  chunk (lean on 99 800 and 2 500 bytes, dyn1 on 300), random-length
+  chunks of the soak payload classes through lean and dyn1, every build
+  of a lean, an optfast and a dyn2 pass, and the crafted sets of
+  ``experiments/crafted_scan.py`` (segments of 512, 1024, 2600 and 4608;
+  rows of 286, 30 and 512 symbols); one kernel node a wrapper call in a
+  CUDA graph; each timed beside its plain version, the torch loop, in
+  turns;
 - compress: lean min-cost-DP raw-DEFLATE compress of a 16 MiB corpus in
   1 MiB chunks, 4 chunks per call, through ``compress_chunks_lean``; K1,
   K2, C1 and C2 each launched; every chunk round-trips through zlib, and
@@ -466,45 +470,6 @@ def greedy_pack_inputs(tier: str, bufs, lengths):
             pd.dyn_nwords(bufs.shape[1]))
 
 
-class Recording:
-    """A kernel wrapper that keeps each call's positional arguments and
-    result; its
-    ``launches`` is the wrapper's own, so the wrapper's count, which
-    reads its module's name, goes on counting."""
-
-    def __init__(self, wrapper):
-        self.wrapper = wrapper
-        self.seen = []
-        self.results = []
-
-    def __call__(self, *args):
-        self.seen.append(args)
-        self.results.append(self.wrapper(*args))
-        return self.results[-1]
-
-    @property
-    def launches(self):
-        return self.wrapper.launches
-
-    @launches.setter
-    def launches(self, value):
-        self.wrapper.launches = value
-
-
-def record_calls(module, name: str, fn):
-    """fn() with ``module.name`` wrapped so that each call's positional
-    arguments are kept: (fn's result, the argument tuples).  The entries
-    call the kernel wrappers through their module, so this captures a
-    tier's own kernel inputs in one real call."""
-    orig = getattr(module, name)
-    rec = Recording(orig)
-    setattr(module, name, rec)
-    try:
-        return fn(), rec.seen
-    finally:
-        setattr(module, name, orig)
-
-
 def feasible_rungs(ladder, S: int) -> int:
     """Rungs f of ``ladder`` with t + f <= S, summed over t in one
     S-position segment."""
@@ -594,6 +559,7 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.experiments.harness import record_calls
     from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
     t_phase = time.perf_counter()
     dev = lengths.device
@@ -734,6 +700,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
+    from libdeflate_tpu_torch.experiments.harness import Recording
     from libdeflate_tpu_torch.formats import gzip_fmt, zlib_fmt
     from libdeflate_tpu_torch.parallel import file_codec as fc
     from libdeflate_tpu_torch.parallel import mesh as pm
@@ -1443,50 +1410,96 @@ def host_contract_phase(root: Path, corpus: bytes, chunks: np.ndarray,
 def scan_phase(batches, lengths, bfinal, card: str) -> dict:
     """C1 (``csrc/commit_fsm.cu``) and C2 (``csrc/code_lens.cu``), the
     kernels of the compress paths' two loops, held to their plain
-    versions on the card: C1 on every commit of one lean pass (K1's span
-    and dist, seg 1024) and of one dyn1 pass (the greedy parser's, seg
-    512), and on ``experiments/crafted_scan.py``'s segments at both
-    lengths; C2 on the histograms of every ``build_code_lens_pair`` call
-    of one lean pass (refine 0, 11 bits), one optfast pass (refine 16, 15
-    bits, two builds a call) and one dyn2 pass, and on crafted_scan's
-    histograms at both configurations.  A CUDA graph captured around one
-    wrapper call holds its one kernel node.  Times on the lean call's
-    inputs (and C1 on dyn1's, C2 on optfast's), by CUDA events: the
-    wrapper, its bare launch, and the plain version (the torch loop the
-    path ran before, its parent) in turns with it (kernel, parent,
-    parent, kernel).  Returns the largest errors, times and bounds."""
+    versions (run on the CPU, where their loops of small ops are
+    quicker): C1 on every commit of one lean pass (K1's span and dist,
+    seg 1024) and of one dyn1 pass (the greedy parser's, seg 512), on
+    one lane a chunk from real entry calls (lean on a 99 800-byte and a
+    2 500-byte chunk: seg = n_pad, 99 840 and 2 560; dyn1 on a 300-byte
+    chunk: seg 384), on random-length chunks (1 byte to 1 MiB) of the
+    soak payload classes through lean and dyn1, and on
+    ``experiments/crafted_scan.py``'s segments (512, 1024, and 2600 and
+    4608 across the kernel's windows); C2 on the histograms of every
+    ``build_code_lens_pair`` call of one lean pass (refine 0, 11 bits),
+    one optfast pass (refine 16, 15 bits, two builds a call) and one dyn2
+    pass, on crafted_scan's histograms at both configurations (rows of
+    286, 30 and 512 symbols; nine rows) and on counts up to 2^30.  A CUDA
+    graph captured around one wrapper call holds its one kernel node.
+    Times on the lean call's inputs (and C1 on dyn1's, C2 on optfast's),
+    by CUDA events: the wrapper, its bare launch (also by graph replay),
+    and the plain version on the card in turns with it (kernel, plain,
+    plain, kernel).  Returns the largest errors, times and bounds."""
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.experiments import crafted_scan as cs
-    from libdeflate_tpu_torch.experiments.timing import cuda_ms
+    from libdeflate_tpu_torch.experiments.harness import record_calls
+    from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
     t_phase = time.perf_counter()
     dev = lengths.device
 
-    def record(name, entry):
+    def record(name, entry, bs=batches, ls=lengths, bf=bfinal):
         calls = []
-        for b in batches:
-            calls += record_calls(sk, name, lambda: entry(b, lengths,
-                                                          bfinal))[1]
+        for b in bs:
+            calls += record_calls(sk, name, lambda: entry(b, ls, bf))[1]
         return calls
+
+    def on_cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
 
     commit_sets = {f"lean pass, call {i + 1}": a for i, a in
                    enumerate(record("commit_fsm", po.compress_chunks_lean))}
     commit_sets.update({f"dyn1 pass, call {i + 1}": a for i, a in enumerate(
         record("commit_fsm", pd.compress_chunks_dynamic))})
+    # one lane a chunk: n_pad is not a multiple of DP_SEG (or below 512)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    for n, entry, tier in ((99800, po.compress_chunks_lean, "lean"),
+                           (2500, po.compress_chunks_lean, "lean"),
+                           (300, pd.compress_chunks_dynamic, "dyn1")):
+        b = batches[0][:1, :n].contiguous()
+        (args,) = record("commit_fsm", entry, [b],
+                         torch.full((1,), n, dtype=torch.int64,
+                                    device=dev), one)
+        if args[3] != args[0].shape[1]:
+            raise AssertionError(f"{tier} on {n} bytes committed at seg "
+                                 f"{args[3]}, not one lane a chunk")
+        commit_sets[f"{tier}, one {n}-byte chunk, seg {args[3]}"] = args
+    # random-length chunks of the soak payload classes (scripts/tpu_soak.py)
+    rng = np.random.default_rng(0xF00D)
+    for k in range(2):
+        bufs = np.zeros((BATCH, CHUNK), np.uint8)
+        lens = np.zeros(BATCH, np.int64)
+        for i in range(BATCH):
+            n = int(rng.integers(1, CHUNK + 1)) if rng.random() < 0.5 \
+                else CHUNK
+            p = cs.soak_payload(rng, (k * BATCH + i) % 5, n)
+            bufs[i, :n] = np.frombuffer(p, np.uint8)
+            lens[i] = n
+        sb = torch.as_tensor(bufs, device=dev)
+        sl = torch.as_tensor(lens, device=dev)
+        for tier, entry in (("lean", po.compress_chunks_lean),
+                            ("dyn1", pd.compress_chunks_dynamic)):
+            (args,) = record("commit_fsm", entry, [sb], sl, bfinal)
+            commit_sets[f"soak batch {k + 1} (lengths {lens.tolist()}), "
+                        f"{tier}"] = args
     for name, arrs in cs.commit_sets().items():
         t = tuple(torch.as_tensor(a, device=dev) for a in arrs)
         for seg in cs.COMMIT_SEGS:
             commit_sets[f"crafted: {name}, seg {seg}"] = t + (seg,)
+    for name, (*arrs, seg) in cs.commit_long_sets().items():
+        commit_sets[f"crafted: {name}"] = tuple(
+            torch.as_tensor(a, device=dev) for a in arrs) + (seg,)
     err_c1 = 0
     for name, args in commit_sets.items():
         err_c1 = max(err_c1, require_equal(
-            f"commit_fsm ({name})", sk.commit_fsm(*args),
-            pp.greedy_commit_merge(*args)))
+            f"commit_fsm ({name})", on_cpu(sk.commit_fsm(*args)),
+            pp.greedy_commit_merge(*on_cpu(args))))
     print(f"C1 commit_fsm: equal to its plain version on {len(commit_sets)} "
           f"sets (every commit of a lean pass at seg 1024 and of a dyn1 "
-          f"pass at seg 512, crafted_scan's segments at 512 and 1024)",
+          f"pass at seg 512; one lane a chunk at seg 99840, 2560 and 384; "
+          f"four batches of soak payloads through lean and dyn1; "
+          f"crafted_scan's segments at 512, 1024, 2600 and 4608)",
           flush=True)
 
     lens_sets = {}
@@ -1495,18 +1508,26 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
                         ("dyn2", pd.compress_chunks_dynamic2)):
         for i, a in enumerate(record("code_lens", entry)):
             lens_sets[f"{tier} pass, build {i + 1}"] = a
-    for name, hist in cs.hist_sets().items():
+    hists = dict(cs.hist_sets())
+    hists.update(cs.hist_sets_other())
+    big = rng.integers(0, 1 << 30, (6, cs.NSYM))
+    big[:, ::3] = 0
+    big[1] = rng.integers(1, 5, cs.NSYM)
+    big[2, :2] = (1 << 30) - 1
+    hists["counts up to 2^30 (64-bit sort keys)"] = big
+    for name, hist in hists.items():
         for cfg in cs.CODE_LENS_CFGS:
             lens_sets[f"crafted: {name}, refine {cfg[0]}, {cfg[1]} bits"] = (
                 torch.as_tensor(hist, device=dev), *cfg)
     err_c2 = 0
     for name, args in lens_sets.items():
         err_c2 = max(err_c2, require_equal(
-            f"code_lens ({name})", sk.code_lens(*args),
-            pd.build_code_lens(*args)))
+            f"code_lens ({name})", on_cpu(sk.code_lens(*args)),
+            pd.build_code_lens(*on_cpu(args))))
     print(f"C2 code_lens: equal to its plain version on {len(lens_sets)} "
           f"sets (every build of a lean, an optfast and a dyn2 pass, "
-          f"crafted_scan's histograms at refine 0 / 11 bits and 16 / 15)",
+          f"crafted_scan's histograms of 286, 30 and 512 symbols and nine "
+          f"rows, counts up to 2^30, at refine 0 / 11 bits and 16 / 15)",
           flush=True)
 
     lean_c1 = commit_sets["lean pass, call 1"]
@@ -1521,14 +1542,14 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
           "[\"kernel\"] each", flush=True)
 
     def times(fn, bare, plain):
-        turns = {"kernel": [], "parent": []}
-        for who in ("kernel", "parent", "parent", "kernel"):
+        turns = {"kernel": [], "plain": []}
+        for who in ("kernel", "plain", "plain", "kernel"):
             turns[who].append(cuda_ms(fn, 20) if who == "kernel"
                               else cuda_ms(plain, 1))
         return {"ms": sum(turns["kernel"]) / 2,
                 "kernel_ms": cuda_ms(bare, 20),
-                "plain_ms": cuda_ms(plain, 1),
-                "parent_ms": sum(turns["parent"]) / 2, "parent_turns": turns}
+                "kernel_graph_ms": graph_ms(bare, 50),
+                "plain_ms": sum(turns["plain"]) / 2, "plain_turns": turns}
 
     out = {"err": {"commit_fsm": err_c1, "code_lens": err_c2}}
     for name, args in (("lean", lean_c1),
@@ -1558,14 +1579,18 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
                     lambda: sk.code_lens_into(*args, lens, ok),
                     lambda: pd.build_code_lens(*args))
         # bytes: the counts read and the lengths written as int64, ok
-        # once; the chain: the spend of the row with the most used
-        # symbols, one dependent step each
+        # once; the chain: the row with the longest shortest dependent
+        # path, one step a cycle: the spend's scan and clamps, the fix
+        # steps and the refinement's passes and level steps that these
+        # counts take (crafted_scan.code_lens_chain)
         nbytes = hist.numel() * 16 + hist.shape[0]
-        spend = int((hist > 0).sum(1).max())
+        steps = cs.code_lens_chain(hist.cpu().numpy(), refine, max_len)
+        chain = max(c["steps"] for c in steps)
         row.update(inputs=f"{name} pass, build: {list(hist.shape)}, refine "
                    f"{refine}, {max_len} bits",
                    bytes_bound_ms=1e3 * nbytes / H100_BYTES_PER_S,
-                   chain_steps=spend, chain_bound_ms=1e3 * spend / H100_CLOCK)
+                   steps_by_row=steps, chain_steps=chain,
+                   chain_bound_ms=1e3 * chain / H100_CLOCK)
         out[f"code_lens {name}"] = row
         print(f"C2 code_lens ({name}): {json.dumps(row)}; {card}", flush=True)
     print(f"scan phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
@@ -1596,6 +1621,8 @@ def main() -> int:
     from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
     from libdeflate_tpu_torch.experiments import fsm_variants as fv
     from libdeflate_tpu_torch.experiments.corpus import make_corpus
+    from libdeflate_tpu_torch.experiments.harness import (build_lines,
+                                                          record_calls)
     from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda", 0)
@@ -2407,7 +2434,7 @@ def main() -> int:
         "bound_ms": 1e3 * (int(z_clen.sum()) + nchunks * CHUNK)
         / H100_BYTES_PER_S,
         "bound_by": "bytes",
-        "build": None if f1_build is None else fv.build_lines(f1_build),
+        "build": None if f1_build is None else build_lines(f1_build),
         "dynamic_smem_bytes": _build.load("fsm_decode").fsm_decode_smem_bytes(),
         "chain_symbols": int(chain_f1[0]),
         "chain_lookups": int(chain_f1[1]),
@@ -2446,8 +2473,9 @@ def main() -> int:
             "library_ms": graph_ms(lambda: (x + 1 if name != "grid_copy"
                                             else x.clone()), 200)})
     # C1 and C2 on the lean call's inputs (C1 also at seg 512 on dyn1's,
-    # C2 also at refine 16 on optfast's); the parent is the plain version,
-    # the torch loop these paths ran before the kernels
+    # C2 also at refine 16 on optfast's); the plain version is the torch
+    # loop these paths ran before the kernels (the earlier kernels are
+    # timed beside these by experiments/scan_variants.py --against)
     for name, source, replaces, other in (
             ("commit_fsm", "commit_fsm.cu",
              "libdeflate_tpu/compress/tpu_pipeline.py:771", "dyn1"),
@@ -2460,9 +2488,9 @@ def main() -> int:
             "source": f"libdeflate_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": scan["err"][name], "ms": row["ms"],
-            "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-            "parent_ms": row["parent_ms"],
-            "parent_turns": row["parent_turns"],
+            "kernel_ms": row["kernel_ms"],
+            "kernel_graph_ms": row["kernel_graph_ms"],
+            "plain_ms": row["plain_ms"], "plain_turns": row["plain_turns"],
             "bound_ms": max(row["bytes_bound_ms"], row["chain_bound_ms"]),
             "bound_by": "bytes" if by_bytes else "operations",
             "bytes_bound_ms": row["bytes_bound_ms"],

@@ -13,6 +13,11 @@ arrays of shape [COMMIT_B, COMMIT_N], each run at every segment length in
 ``COMMIT_SEGS`` (the greedy tiers' 512 and the DP tiers' 1024).  Items are
 laid out to tile each segment, so that the FSM commits where a case puts
 its items; the positions an item covers hold noise the FSM must skip.
+``commit_long_sets()[name] = (span, is_match, dist, seg)`` lays the same
+kinds of items out for longer segments (``COMMIT_LONG``): 2600 positions,
+not a multiple of C1's 64-position window, and 4608 = 9 x 512, so that
+jumps, runs at the 258 cap, literal runs and matches truncated at the
+segment end cross the kernel's window boundaries.
 
 - same-distance chains whose budgets sum to 258 exactly, to 259 and past
   it (the cap splits the run), and chains that run to a segment's end;
@@ -27,14 +32,29 @@ its items; the positions an item covers hold noise the FSM must skip.
 ``hist_sets()[name]`` is an int64 [rows, 286] array of litlen-sized
 histograms (a distance row is zero-padded, as ``build_code_lens_pair``
 pads it), each run at every (refine_passes, max_len) in ``CODE_LENS_CFGS``.
+``soak_payload(rng, kind, n)`` makes the five payload classes of
+``scripts/tpu_soak.py``'s ``gen_payload`` (random, periodic, zeros,
+words, a ten-letter alphabet), the port's own copy: ``chip_smoke.py``
+commits random-length chunks of them through the lean and dyn1 entries.
+``hist_sets_other()`` holds rows of other widths: 30 symbols (a distance
+row, unpadded) and 512 (the kernel's cap), and nine 286-symbol rows (more
+rows than C2's four-row blocks, the last block partial).
+
+``code_lens_mirror`` is C2's algorithm on one numpy row, step by step as
+``csrc/code_lens.cu``'s warp takes it, counting the branches and steps it
+takes; the CPU tests hold it to the JAX package, and ``code_lens_chain``
+reads C2's dependent chain from its counts for ``chip_smoke.py``'s bound.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 
 COMMIT_B, COMMIT_N = 2, 4096
 COMMIT_SEGS = (512, 1024)
+COMMIT_LONG = ((2600, 5200), (4608, 9216))    # (seg, n) of a row
 NSYM, NDIST = 286, 30
 CODE_LENS_CFGS = ((0, 11), (16, 15))    # (refine_passes, max_len)
 
@@ -160,6 +180,50 @@ def commit_sets() -> dict:
             for k, (s, m, d) in out.items()}
 
 
+def _long_seg_ends(seg: int, n: int, rng):
+    """Literals, then near each segment's end a 40-byte match and, after
+    it, a match of the same distance that starts in the window before the
+    last one and is truncated at the segment end (a cut across a window
+    boundary); every other segment has an is_match of span 2 there
+    instead (a literal)."""
+    items = []
+    w = 64
+    for k, s0 in enumerate(range(0, n, seg)):
+        end = s0 + seg
+        last_w = s0 + (seg - 1) // w * w      # the last window's start
+        start = last_w - 10 - 7 * k
+        for t in range(s0, start - 40):
+            items.append((t, 1, False, 0))
+        items.append((start - 40, 40, True, 6))
+        items.append((start, 400 if k % 2 == 0 else 2, True, 6))
+    return items
+
+
+def commit_long_sets() -> dict:
+    """name -> (span int64, is_match bool, dist int64, seg), [2, n] each
+    for every (seg, n) in COMMIT_LONG."""
+    out = {}
+    makers = {
+        "same-distance chains about the 258 cap":
+            lambda rng, seg, n: _tile(rng, seg, n, _chains),
+        "random items over four distances":
+            lambda rng, seg, n: _tile(rng, seg, n, _random_items),
+        "spans 0, negative, past 258":
+            lambda rng, seg, n: _tile(rng, seg, n, _odd_spans),
+        "matches truncated at the segment end":
+            lambda rng, seg, n: _long_seg_ends(seg, n, rng),
+    }
+    for seg, n in COMMIT_LONG:
+        for seed, (name, make) in enumerate(makers.items()):
+            rng = np.random.default_rng(200 + seed + seg)
+            rows = [_lay(make(rng, seg, n), seg, n, rng)
+                    for _ in range(COMMIT_B)]
+            out[f"{name}, seg {seg}"] = tuple(
+                np.stack([r[i] for r in rows]) for i in range(3)) + (seg,)
+    return {k: (s.astype(np.int64), m.astype(bool), d.astype(np.int64), g)
+            for k, (s, m, d, g) in out.items()}
+
+
 def _row(pairs) -> np.ndarray:
     h = np.zeros(NSYM, np.int64)
     for i, c in pairs:
@@ -212,6 +276,13 @@ def hist_sets() -> dict:
             np.where(ar < NDIST, 1, 0), np.zeros(NSYM, np.int64),
             _row([(17, 12345)]), _row([(0, 1)])]),
     }
+    # counts of 2^21 and more: the kernel sorts 64-bit keys (the JAX
+    # package's int32 keys hist * 512 + nsym - i hold them below 2^22)
+    sets["counts past 2^21"] = np.stack([
+        rng.integers(1 << 21, 1 << 22, NSYM),
+        _row([(5, (1 << 22) - 1), (6, 1 << 21), (7, 3)]
+             + [(i, 1) for i in range(100, 160)]),
+        np.where(ar % 7 == 0, (1 << 21) + ar, np.where(ar % 7 == 1, 2, 0))])
     # the fix's halving branch: with every k a power of two, r > 0 is a
     # multiple of the smallest k, so some k <= r can double unless every
     # k is kraft / 2; then at most one symbol is used and the halving set
@@ -222,3 +293,231 @@ def hist_sets() -> dict:
         _row([(0, 5)]), _row([(0, 1 << 20)]), _row([(285, 7)]),
         _row([(1, 2)])])
     return {k: np.asarray(v, np.int64) for k, v in sets.items()}
+
+
+def hist_sets_other() -> dict:
+    """name -> int64 [rows, nsym] histograms of other shapes than
+    hist_sets': 30 and 512 symbols, and nine rows of 286."""
+    rng = np.random.default_rng(8)
+    a30, a512 = np.arange(NDIST), np.arange(512)
+    sets = {
+        "30 symbols (a distance row)": np.stack([
+            rng.integers(0, 9000, NDIST), np.where(a30 < 2, 3, 0),
+            (1 << np.clip(20 - a30, 0, 20)), np.full(NDIST, 5),
+            np.where(a30 == 29, 7, 0)]),
+        "512 symbols (the cap)": np.stack([
+            rng.integers(1, 4000, 512),
+            rng.multinomial((1 << 20) - 512, rng.dirichlet(
+                np.full(512, 0.05))) + 1,
+            np.where(a512 % 5 == 0, 11, 0),
+            np.where(a512 >= 500, rng.integers(1, 50, 512), 0),
+            np.where(a512 == 0, 9, np.where(a512 == 511, 3, 0))]),
+        "nine rows": np.stack(
+            [rng.multinomial(1 << 16, rng.dirichlet(np.full(NSYM, x)))
+             for x in (0.02, 0.05, 0.1, 0.3, 1.0, 3.0)]
+            + [np.where(np.arange(NSYM) < 40, 1 << 10, 0),
+               _row([(3, 5), (9, 5)]), np.zeros(NSYM, np.int64)]),
+    }
+    return {k: np.asarray(v, np.int64) for k, v in sets.items()}
+
+
+SOAK_WORDS = (b"alpha", b"bravo", b"charlie", b" ", b"\n", b"the", b"qux")
+
+
+def soak_payload(rng, kind: int, n: int) -> bytes:
+    """n bytes of payload class kind (0-4), drawn from rng as
+    ``scripts/tpu_soak.py::gen_payload`` draws them."""
+    if kind == 0:
+        return rng.integers(0, 256, n, np.uint8).tobytes()
+    if kind == 1:
+        period = int(rng.integers(1, 500))
+        return (rng.integers(0, 256, period, np.uint8).tobytes()
+                * (n // period + 1))[:n]
+    if kind == 2:
+        return bytes(n)
+    if kind == 3:
+        out = bytearray()
+        while len(out) < n:
+            out += SOAK_WORDS[int(rng.integers(0, len(SOAK_WORDS)))]
+        return bytes(out[:n])
+    return rng.integers(97, 107, n, np.uint8).tobytes()
+
+
+# ---- C2's algorithm on numpy --------------------------------------------
+
+REDUCE_LEVELS = 5   # a reduction across a warp's 32 lanes: log2(32) levels
+
+
+def bsr(x: int) -> int:
+    return int(x).bit_length() - 1
+
+
+def code_lens_mirror(hist, refine_passes, max_len, seen=None):
+    """csrc/code_lens.cu's warp on one numpy row: (lens, ok).  ``seen``
+    (a Counter) counts the branches and steps taken: a "spend clamp" a
+    clamp, "double", "halve" or "halve an empty set" a fix step, "refine
+    move" or "refine fixed point" a refinement pass, a "level step" each
+    level step that runs."""
+    seen = Counter() if seen is None else seen
+    h = np.asarray(hist, np.int64)
+    nsym = h.size
+    used = h > 0
+    kraft = 1 << max_len
+    n_used = int(used.sum())
+    total = max(int(h.sum()), 1)
+    scale = np.float32(kraft) / np.float32(total)
+
+    def seed(hh):
+        """k_des of counts: the seed's two correctly rounded f32
+        operations, the bump (share 0 wraps and bumps)."""
+        share = (hh.astype(np.float32) * scale).astype(np.uint32)
+        out = np.zeros(hh.size, np.int64)
+        for s, sh in enumerate(share.tolist()):
+            e = bsr(max(sh, 1))
+            if (sh - (1 << e)) & 0xFFFFFFFF > 1 << max(e - 1, 0):
+                e += 1
+                seen["bump" if sh else "bump of share 0"] += 1
+            out[s] = 1 << min(max(e, 0), max_len - 1)
+        return out
+
+    # the used symbols compacted and sorted descending by hist << 10 |
+    # 1023 - i (the bitonic network's result: the keys are unique) into
+    # N = 32 J slots, J consecutive positions a lane
+    sym = np.flatnonzero(used)
+    keys = np.sort((h[sym] << 10) | (1023 - sym))[::-1]
+    N = max(32, 1 << max(n_used - 1, 0).bit_length())
+    assert N // 32 in (1, 2, 4, 8, 16) and n_used <= N
+    hs, sym = keys >> 10, 1023 - (keys & 1023)
+    p = np.arange(n_used)
+    kd = seed(hs)
+
+    # the spend: s under "no clamp" by a scan, then the clamps in order
+    s0 = kraft - (n_used - 1)
+    su = s0 + np.concatenate([[0], np.cumsum(1 - kd)[:-1]]).astype(np.int64)
+    if s0 > 1:
+        f = -1
+        while True:
+            fail = np.flatnonzero((p > f) & (su < kd))
+            if not fail.size:
+                break
+            f = int(fail[0])
+            sf = int(su[f])
+            assert 1 <= sf < kd[f]
+            kf = 1 << bsr(sf)
+            su[f + 1:] += kd[f] - kf
+            seen["spend clamp"] += 1
+            if sf + 1 - kf <= 1:
+                seen["spend at s = 1"] += 1
+                break
+    else:
+        seen["spend at s = 1"] += 1
+    k = np.array([1 << bsr(min(int(a), max(int(b), 1)))
+                  for a, b in zip(kd, su)], np.int64)
+
+    # the fix steps, 32-bit keys k << 9 | index
+    r = kraft - int(k.sum())
+    for _ in range(48):
+        if r <= 0:
+            break
+        dbl = (k <= r) & (k < (kraft >> 1))
+        dkey = int(((k << 9) | (511 - sym))[dbl].max()) if dbl.any() else 0
+        if dkey:
+            idx, delta = 511 - (dkey & 511), dkey >> 9
+            seen["double"] += 1
+        else:
+            hlv = (k > r) & (k >= 2)
+            if hlv.any():
+                hkey = int(((k << 9) | sym)[hlv].min())
+                idx, kidx = hkey & 511, hkey >> 9
+                seen["halve"] += 1
+            else:
+                idx, kidx = 0, int(k[sym == 0].sum())
+                seen["halve an empty set"] += 1
+            delta = -(kidx >> 1)
+        if delta == 0:
+            seen["fix fixed point"] += 1
+            break
+        k[sym == idx] += delta
+        r -= delta
+    lens = max_len - np.array([bsr(x) for x in k], np.int64)
+
+    # the refinement over sorted positions p and p2 (hist descending,
+    # index descending: the level steps' least frequent symbol of a length
+    # is its largest p2)
+    if refine_passes:
+        start = np.r_[True, hs[1:] != hs[:-1]]
+        g0 = np.maximum.accumulate(np.where(start, p, -1))
+        end = np.r_[hs[:-1] != hs[1:], True]
+        g1 = np.minimum.accumulate(np.where(end, p, N)[::-1])[::-1]
+        p2 = g0 + g1 - p
+        p_of_p2 = np.empty(n_used, np.int64)
+        p_of_p2[p2] = p
+        assert np.array_equal(p_of_p2, np.lexsort((-sym, -hs)))
+        hs2 = hs[p_of_p2]
+        present = set(lens.tolist())       # never changes: moves swap
+        lens_b = np.empty(n_used, np.int64)
+        lens_b[p2] = lens
+    for _ in range(refine_passes):
+        amin, bmax = {}, {}
+        for ln in present:             # the ballots: first and last lane
+            amin[ln] = int(p[lens == ln].min())
+            bmax[ln] = int(p[lens_b == ln].max())
+        moved, bsel = set(), {}
+        mprev, bprev, hprev = False, None, 0
+        for ln in range(2, max_len + 1):
+            mv = False
+            if ln in present and ln - 1 in present:
+                seen["level step"] += 1
+                b = bmax[ln - 1]
+                hb = int(hs2[b])
+                if mprev and bprev > b:
+                    b, hb = bprev, hprev
+                    seen["B carried from the step before"] += 1
+                mv = int(hs[amin[ln]]) > hb
+                bsel[ln], bprev, hprev = b, b, hb
+            else:
+                seen["skipped level"] += 1
+            mprev = mv
+            if mv:
+                moved.add(ln)
+        if not moved:
+            seen["refine fixed point"] += 1
+            break
+        seen["refine move"] += 1
+        up = np.zeros(n_used, np.int64)
+        for ln in moved:                # lane ln's atomics
+            lens[amin[ln]] -= 1
+            lens_b[p2[amin[ln]]] -= 1
+            lens_b[bsel[ln]] += 1
+            lens[p_of_p2[bsel[ln]]] += 1
+            up[bsel[ln]] += 1
+        if (up > 1).any():
+            seen["up through two levels"] += 1
+    out = np.zeros(nsym, np.int64)
+    out[sym] = lens
+    return out, r == 0 and n_used >= 2
+
+
+def code_lens_chain(hist, refine_passes: int, max_len: int) -> list[dict]:
+    """C2's shortest dependent path on each row of hist ([R, nsym]
+    counts), in the steps of its algorithm as ``code_lens_mirror`` takes
+    them on these counts: the spend's warp scan (log2 32 levels across
+    the lanes and J = N / 32 in each), a reduction a clamp, a reduction a
+    fix step, and a reduction a refinement pass (the ballots that find
+    every length's A and B at once) with one step a level step of its
+    scalar chain; a reduction is ``REDUCE_LEVELS`` levels.  The sort is
+    not counted.  Per row: the counts and their sum, ``steps``."""
+    out = []
+    for row in np.asarray(hist, np.int64):
+        c = Counter()
+        code_lens_mirror(row, refine_passes, max_len, c)
+        n_used = int((row > 0).sum())
+        J = max(32, 1 << max(n_used - 1, 0).bit_length()) // 32
+        d = {"scan": REDUCE_LEVELS + J, "clamps": c["spend clamp"],
+             "fix": c["double"] + c["halve"] + c["halve an empty set"],
+             "passes": c["refine move"] + c["refine fixed point"],
+             "levels": c["level step"]}
+        d["steps"] = d["scan"] + d["levels"] + REDUCE_LEVELS * (
+            d["clamps"] + d["fix"] + d["passes"])
+        out.append(d)
+    return out

@@ -39,12 +39,12 @@ from .. import _build
 from ..compress import kernels, optimal, pipeline
 from .corpus import make_corpus
 from .crafted_dp import random_inputs
+from .harness import build_tagged
 from .timing import cuda_ms, describe
 
 CHUNK = 1 << 20
 BATCH = 4
 ROOT = Path(__file__).resolve().parents[2]
-VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
 
 # name -> {constant: value} substituted into dp_parse.cu
 VARIANTS = {
@@ -85,26 +85,15 @@ def build_all(names, against: Path | None = None) -> tuple[dict, dict]:
     "against"), all nvcc started together: (launch function per name,
     register and spill lines per name).  A launch function takes
     ``launch``'s arguments."""
-    VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     src = (_build.SRC_DIR / "dp_parse.cu").read_text()
-    nvcc = _build.nvcc_path()
-    sources = {name: variant_source(src, name) for name in names}
+    sources = {name: ("dp_parse", variant_source(src, name))
+               for name in names}
     if against is not None:
-        sources["against"] = Path(against).read_text()
-    procs = {}
-    for i, (name, text) in enumerate(sources.items()):
-        cu = VARIANT_DIR / f"dp_parse_v{i}.cu"
-        cu.write_text(text)
-        so = VARIANT_DIR / f"libdp_parse_v{i}.so"
-        procs[name] = (_build.compile_async(nvcc, cu, so), so)
-    fns, regs = {}, {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs[name] = [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln]
-        fn = ctypes.CDLL(str(so)).dp_parse_launch
+        sources["against"] = ("dp_parse", Path(against).read_text())
+    libs, regs = build_tagged(sources)
+    fns = {}
+    for name, lib in libs.items():
+        fn = lib["dp_parse_launch"]   # a function object of its own
         P, I = _build.PTR, _build.INT
         # an earlier source's launch function has no ladder argument
         fn.argtypes = [P] * 13 + [I, I, P, P, I, I, I] + (

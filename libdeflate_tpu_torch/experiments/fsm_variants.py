@@ -29,7 +29,6 @@ the times.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import sys
 import zlib
@@ -42,12 +41,12 @@ from .. import _build
 from ..compress import optimal
 from ..decompress import fsm
 from .corpus import make_corpus
+from .harness import build_tagged
 from .timing import cuda_ms, describe
 
 CHUNK = 1 << 20
 BATCH = 4
 ROOT = Path(__file__).resolve().parents[2]
-VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
 AS_BUILT = "as built"
 
 # name -> the (text, replacement) substitutions into fsm_decode.cu; every
@@ -73,43 +72,19 @@ def variant_source(src: str, name: str) -> str:
     return src
 
 
-def build_lines(log: str) -> list[str]:
-    """The register, shared-memory and spill lines of a build's
-    ``-Xptxas -v`` output."""
-    return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
-
-
 def build_all(names, against: Path | None = None) -> tuple[dict, dict]:
     """Build every named variant (and the source ``against`` as
     "against"), all nvcc started together: (launch function per name,
     build lines per name)."""
-    VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     src = (_build.SRC_DIR / "fsm_decode.cu").read_text()
-    nvcc = _build.nvcc_path()
-    sources = {name: variant_source(src, name) for name in names}
+    sources = {name: ("fsm_decode", variant_source(src, name))
+               for name in names}
     if against is not None:
-        sources["against"] = Path(against).read_text()
-    # named by content: a process loads each library path once, so two
-    # sources never share one, and equal sources are built once
-    tags = {name: hashlib.sha256(text.encode()).hexdigest()[:16]
-            for name, text in sources.items()}
-    procs = {}
-    for name, text in sources.items():
-        if tags[name] not in procs:
-            cu = VARIANT_DIR / f"fsm_decode_{tags[name]}.cu"
-            cu.write_text(text)
-            so = VARIANT_DIR / f"libfsm_decode_{tags[name]}.so"
-            procs[tags[name]] = (_build.compile_async(nvcc, cu, so), so)
-    logs = {}
-    for tag, (proc, so) in procs.items():
-        logs[tag], _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {so.name}:\n{logs[tag]}")
-    fns, lines = {}, {}
-    for name, tag in tags.items():
-        lines[name] = build_lines(logs[tag])
-        fn = ctypes.CDLL(str(procs[tag][1])).fsm_decode_launch
+        sources["against"] = ("fsm_decode", Path(against).read_text())
+    libs, lines = build_tagged(sources)
+    fns = {}
+    for name, lib in libs.items():
+        fn = lib.fsm_decode_launch
         P, I = _build.PTR, _build.INT
         fn.argtypes = [P, I, I, P, I, P, P, P, P, P]
         fn.restype = ctypes.c_int

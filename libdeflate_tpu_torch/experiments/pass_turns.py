@@ -3,7 +3,7 @@
 On a machine with a CUDA card, from the repository root:
 
     python3 -m libdeflate_tpu_torch.experiments.pass_turns \\
-        [--against DIR] [--tiers lean,dyn2,optfast]
+        [--against DIR] [--tiers lean,dyn2,optfast,dyn1,static]
 
 Each turn is a process of its own that imports ``libdeflate_tpu_torch``
 from one tree (DIR, an earlier checkout such as ``git archive`` of the
@@ -33,7 +33,9 @@ from pathlib import Path
 
 TIERS = {"lean": ("compress.optimal", "compress_chunks_lean"),
          "dyn2": ("compress.dynamic", "compress_chunks_dynamic2"),
-         "optfast": ("compress.optimal", "compress_chunks_optfast")}
+         "optfast": ("compress.optimal", "compress_chunks_optfast"),
+         "dyn1": ("compress.dynamic", "compress_chunks_dynamic"),
+         "static": ("compress.pipeline", "compress_chunks_static")}
 HERE = Path(__file__).resolve()
 ROOT = HERE.parents[2]
 
