@@ -126,6 +126,22 @@ two paths through their entry points:
   ``checksum -T`` (zlib's values); a ``utils.profiling.device_trace``
   of one ``compress_chunks_lean`` call at B = 4, its top device ops by
   self time and the device's idle share over the traced window;
+- randomized harnesses (``soak_fuzz_phase``): ``experiments/soak.py``
+  (the port of ``scripts/tpu_soak.py``) through all nine compress tiers,
+  two batches a tier of four chunks of random length up to 1 MiB of the
+  script's five payload classes (seed 0xF00D, 72 chunks): every chunk
+  through zlib, K3 and F1 back to its payload and equal to the JAX
+  package's total_bits and SHA-256 (pinned in
+  ``experiments/soak_pins.json`` by ``tests/pin_soak.py``), every K2, C1
+  and C2 call of the soak and K1's calls on the first batch of each DP
+  tier held to their plain versions; chunks of 0-258 bytes in 1 MiB rows
+  through every tier, every kernel call held to its plain version;
+  ``experiments/fuzz.py`` (the port of ``scripts/fuzz.py``, seed 0): 24
+  trials of the host targets on the native codec and of the device
+  target (an 8 KiB row through static and dyn1, its zlib-6 stream and
+  three damaged copies through K3 in both size modes and F1, each
+  decoder equal to its plain version) and an empty row, with the rows,
+  lengths and device successes that zlib rejects printed;
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
@@ -138,7 +154,9 @@ two paths through their entry points:
   the CPU tests hold against the JAX package), its store variants are
   checked in the SASS for their token stores, and K5-K7 against x + 1
   and x.clone() (K6 at 1 to 1000 tiles; K7 at 1 to 2**20 floats, a view
-  one float into its buffer, more blocks than 16-byte pieces).  K4's
+  one float into its buffer, more blocks than 16-byte pieces), and K5 is
+  timed in turns beside the launch floor (an empty kernel on K5's grid)
+  and x + 1, each by graph replay.  K4's
   chain is set beside its floor: the plain version's table lookups of
   the chunk with the most tokens times the card's dependent
   shared-memory load latency, and K4's clock64() cycles per chunk in the
@@ -172,6 +190,7 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import hashlib
 import json
@@ -208,6 +227,22 @@ FILE_PINS = "libdeflate_tpu_torch/experiments/file_codec_pins.json"
 HOST_PINS = "libdeflate_tpu_torch/experiments/host_engine_pins.json"
 FSM_PINS = "libdeflate_tpu_torch/experiments/fsm_pins.json"
 OPTION_BITS = "libdeflate_tpu_torch/experiments/option_total_bits.json"
+SOAK_PINS = "libdeflate_tpu_torch/experiments/soak_pins.json"
+SOAK_SEED = 0xF00D          # scripts/tpu_soak.py's default seed
+SOAK_BATCHES = 18           # two batches of each of the nine tiers
+FUZZ_SEED = 0
+FUZZ_ITERS = 24             # host trials, each also a device trial
+# the launch floor beside K5: a kernel that does nothing, timed in turns
+# with K5 and x + 1, FLOOR_TURNS turns of 200 graph-replayed launches each
+FLOOR_TURNS = 8
+LAUNCH_FLOOR_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 HOST_BEST_OF_3 = (1, 6, 12)   # host contract levels timed best of 3
 CROSS_LEVELS = (1, 6, 12)     # Compressor levels whose chunks K3 decodes
 CROSS_PLAIN_CHUNKS = [0, 12]  # chunks K3 is held to its plain version on
@@ -1597,6 +1632,186 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
     return out
 
 
+def soak_fuzz_phase(root: Path, card: str) -> dict:
+    """The randomized harnesses on the card.  The soak
+    (``experiments/soak.py``): every tier of ``soak.TIERS``, two batches
+    each (seed 0xF00D, B = 4 chunks of random length up to 1 MiB, the five
+    payload classes of ``scripts/tpu_soak.py``): each chunk through zlib,
+    K3 and F1 back to its payload and equal to the JAX package's
+    total_bits and SHA-256 (``experiments/soak_pins.json``); every kernel
+    call of the soak recorded and held to its plain version: K2 and C1 on
+    every call, C2 on every call of the dynamic and DP tiers, K1 on the
+    first batch of each DP tier (its plain version takes 0.4-1.2 s a
+    call); then ``soak.SHORT_LENGTHS`` (chunks of 0-258 bytes) in 1 MiB
+    rows, one batch through each tier, every kernel call held to its
+    plain version.  The fuzz (``experiments/fuzz.py``, seed 0):
+    FUZZ_ITERS trials of the host targets on the native codec, each also
+    a device trial (an 8 KiB row through static and dyn1, then its zlib-6
+    stream and three damaged copies through K3 in both size modes and
+    F1, every row in one call a decoder, each decoder equal to its plain
+    version), and an empty row with its stream whole and cut to nothing.
+    The launches of the comparisons are not counted.  Returns the
+    phase's launches and largest errors."""
+    from collections import Counter
+
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import optimal as po
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.decompress import fsm
+    from libdeflate_tpu_torch.experiments import fuzz, soak
+    from libdeflate_tpu_torch.experiments.harness import record_many
+    t_phase = time.perf_counter()
+    wrappers = {"dp_parse": pk.dp_parse, "pack_groups": pk.pack_groups,
+                "commit_fsm": sk.commit_fsm, "code_lens": sk.code_lens,
+                "decode_chunks": dd.decompress_chunks_words,
+                "fsm_decode": fsm.decompress_chunks}
+    targets = [(pk, "dp_parse"), (pk, "pack_groups"), (sk, "commit_fsm"),
+               (sk, "code_lens")]
+    err = dict.fromkeys(wrappers, 0)
+    held = Counter()
+    plain_s = Counter()
+    k1_tiers = []
+    short = False    # K1 is held on every call of the short chunks
+
+    def on_cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    def hold(name, tier, got, plain):
+        t0 = time.perf_counter()
+        want = plain()
+        plain_s[name] += time.perf_counter() - t0
+        err[name] = max(err[name], require_equal(f"{name} (soak, {tier})",
+                                                 got, want))
+        held[name] += 1
+
+    def call(tier, entry, bufs, lens, bfinal):
+        res, calls = record_many(targets, lambda: entry(bufs, lens, bfinal))
+        torch.cuda.synchronize()
+        counts = {name: w.launches for name, w in wrappers.items()}
+        for args in calls["pack_groups"]:
+            hold("pack_groups", tier, [pk.pack_groups(*args)],
+                 lambda: [pp.group_place(*args)])
+        for args in calls["commit_fsm"]:
+            hold("commit_fsm", tier, on_cpu(sk.commit_fsm(*args)),
+                 lambda: pp.greedy_commit_merge(*on_cpu(args)))
+        for args in calls["code_lens"]:
+            hold("code_lens", tier, on_cpu(sk.code_lens(*args)),
+                 lambda: pd.build_code_lens(*on_cpu(args)))
+        if calls["dp_parse"] and (tier not in k1_tiers or short):
+            k1_tiers.append(tier)
+            for args in calls["dp_parse"]:
+                hold("dp_parse", tier, pk.dp_parse(*args),
+                     lambda: pk.dp_parse_plain(*args))
+        for name, w in wrappers.items():
+            w.launches = counts[name]
+        return res
+
+    for mod in (pk, sk, dd, fsm):
+        mod.reset_launch_counts()
+    pins = json.loads((root / SOAK_PINS).read_text())
+    res = soak.run(SOAK_BATCHES, SOAK_SEED, soak.TIERS, pins=pins, call=call,
+                   log=functools.partial(print, flush=True))
+    launches = {"soak": {name: w.launches for name, w in wrappers.items()}}
+    passes = {name: po.TIERS[name]["passes"] for name in
+              ("lean", "optfast", "optimal", "optimal2", "deep")}
+
+    def want(per):
+        """The launches of per calls a tier: one pack a call, a commit
+        a greedy call or cost pass, a build but on static, one K3 and one
+        F1 call a batch."""
+        return {"dp_parse": per * sum(passes.values()),
+                "pack_groups": per * len(soak.TIERS),
+                "commit_fsm": per * (4 + sum(passes.values())),
+                "code_lens": per * (3 + sum(passes.values())),
+                "decode_chunks": per * len(soak.TIERS),
+                "fsm_decode": per * len(soak.TIERS)}
+
+    if launches["soak"] != want(SOAK_BATCHES // len(soak.TIERS)):
+        raise AssertionError(f"soak launches {launches['soak']}")
+    if held["dp_parse"] != sum(passes.values()) or k1_tiers != list(passes):
+        raise AssertionError(f"K1 held to its plain version on {k1_tiers}, "
+                             f"{held['dp_parse']} calls")
+    print(f"soak: {res['chunks']} chunks of {len(soak.TIERS)} tiers, each "
+          f"through zlib, K3 and F1 and equal to its pinned JAX total_bits "
+          f"and SHA-256; lengths {min(map(min, res['lengths']))} to "
+          f"{max(map(max, res['lengths']))} bytes, "
+          f"{sum(n < soak.N for row in res['lengths'] for n in row)} below "
+          f"1 MiB; kernel calls held to their plain versions "
+          f"{json.dumps(dict(held))} (K1 on the first batch of "
+          f"{', '.join(k1_tiers)}); launches {json.dumps(launches['soak'])}; "
+          f"{res['seconds']:.3f} s; {card}", flush=True)
+    soak_held = dict(held)
+    # chunks of 0-258 bytes in 1 MiB rows, one batch a tier, K1 held to
+    # its plain version on all of their calls
+    for mod in (pk, sk, dd, fsm):
+        mod.reset_launch_counts()
+    short = True
+    t0 = time.perf_counter()
+    payloads = soak.short_payloads()
+    for tier in soak.TIERS:
+        soak.soak_batch(tier, payloads, torch.device("cuda", 0), soak.N,
+                        call)
+    launches["short"] = {name: w.launches for name, w in wrappers.items()}
+    if launches["short"] != want(1):
+        raise AssertionError(f"short chunks: launches {launches['short']}")
+    print(f"soak, short chunks: lengths {list(soak.SHORT_LENGTHS)} in "
+          f"{soak.N}-byte rows, B = {len(payloads)}, through all "
+          f"{len(soak.TIERS)} "
+          f"tiers: zlib, K3 and F1 give every payload back; kernel calls "
+          f"held to their plain versions "
+          f"{json.dumps({k: held[k] - soak_held.get(k, 0) for k in held})}; "
+          f"launches {json.dumps(launches['short'])}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    for mod in (pk, sk, dd, fsm):
+        mod.reset_launch_counts()
+    fz = fuzz.run(FUZZ_ITERS, FUZZ_SEED, 1,
+                  log=functools.partial(print, flush=True))
+    # an empty row (gen_data draws length 0 once in 8192): static and dyn1
+    # on it, and its stream whole and cut to nothing through the decoders
+    dev = torch.device("cuda", 0)
+    fuzz.compress_row(b"", dev)
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    empty = fuzz.device_rows([(b"", [("clean", c.compress(b"") + c.flush()),
+                                     ("cut", b"")])], dev)
+    launches["fuzz"] = {name: w.launches for name, w in wrappers.items()}
+    c = fz["counts"]
+    if c["damaged"] < 64 or c["device compress rows"] < 16:
+        raise AssertionError(f"fuzz: {c['damaged']} damaged rows and "
+                             f"{c['device compress rows']} compress rows")
+    for name in ("pack_groups", "commit_fsm", "code_lens", "decode_chunks",
+                 "fsm_decode"):
+        if launches["fuzz"][name] <= 0:
+            raise AssertionError(f"the fuzz's device target never launched "
+                                 f"{name}")
+    rejects = {name: c.get(f"{name}: success zlib rejects", 0)
+               for name in fuzz.DECODERS}
+    print(f"fuzz: {FUZZ_ITERS} trials (seed {FUZZ_SEED}) of the host targets "
+          f"on the native codec and of the device target; "
+          f"{c['device compress rows']} rows of {min(fz['row_lengths'])} to "
+          f"{max(fz['row_lengths'])} bytes through static and dyn1; "
+          f"{c['rows']} decoder rows ({c['damaged']} damaged) through K3 "
+          f"(both size modes) and F1, each equal to its plain version; "
+          f"device successes that zlib rejects {json.dumps(rejects)}; an "
+          f"empty row through static and dyn1 and its stream, whole and cut "
+          f"to nothing, through the decoders "
+          f"{json.dumps(dict(sorted(empty.items())))}; "
+          f"counts {json.dumps(dict(sorted(c.items())))}; launches "
+          f"{json.dumps(launches['fuzz'])}; {fz['seconds']:.3f} s (decoders "
+          f"and their plain versions {fz['decode_seconds']:.3f} s)",
+          flush=True)
+    print(f"soak-and-fuzz phase: {time.perf_counter() - t_phase:.3f} s, of "
+          f"which the plain versions of the soak's and the short chunks' "
+          f"kernel calls "
+          f"{json.dumps({k: round(v, 3) for k, v in plain_s.items()})} s",
+          flush=True)
+    return {"launches": launches, "max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1622,6 +1837,7 @@ def main() -> int:
     from libdeflate_tpu_torch.experiments import fsm_variants as fv
     from libdeflate_tpu_torch.experiments.corpus import make_corpus
     from libdeflate_tpu_torch.experiments.harness import (build_lines,
+                                                          build_tagged,
                                                           record_calls)
     from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
 
@@ -2156,6 +2372,11 @@ def main() -> int:
                         rt_words.view(torch.uint8), rt_clen, dec_rate,
                         batches[0], lengths, bfinal, card, against)
 
+    # ---- the randomized harnesses: soak and fuzz ------------------------
+    soak_fuzz = soak_fuzz_phase(root, card)
+    err_dp = max(err_dp, soak_fuzz["max_abs_err"]["dp_parse"])
+    err_pack = max(err_pack, soak_fuzz["max_abs_err"]["pack_groups"])
+
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
     tok_plain_s = {}
@@ -2257,6 +2478,37 @@ def main() -> int:
           f"and x.clone() at {lo.STEP_COUNTS} steps, {LOOP_TILE_COUNTS} tiles "
           f"and {rd.PROBE_STEPS} steps; K7 also at {COPY_SIZES} floats, "
           f"offsets 0 and 1 float, and 2000-5000 blocks", flush=True)
+    # K5 beside the launch floor: an empty kernel on K5's grid (one block
+    # of 1024 threads a tile, 256 tiles), K5 and x + 1 on K5's input, each
+    # 200 launches replayed from a CUDA graph, in turns
+    floor_lib = build_tagged({"floor": ("launch_floor",
+                                        LAUNCH_FLOOR_CU)})[0]["floor"]
+    empty = floor_lib.empty_launch
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    x5 = torch.zeros(lo.STEP_COUNTS[-1] * lo.ROWS, lo.LANES,
+                     dtype=torch.int32, device=dev)
+
+    def launch_floor():
+        rc = empty(lo.STEP_COUNTS[-1], min(lo.ROWS * lo.LANES, 1024),
+                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"empty kernel: CUDA error {rc}")
+
+    probes = {"empty kernel": launch_floor,
+              "K5": lambda: lo.grid_add_one(x5), "x + 1": lambda: x5 + 1}
+    floor_turns = {name: [] for name in probes}
+    for turn in range(FLOOR_TURNS):
+        for name in (list(probes) if turn % 2 == 0 else list(probes)[::-1]):
+            floor_turns[name].append(graph_ms(probes[name], 200))
+    floor = {name: {"ms": sum(t) / len(t), "turns": t}
+             for name, t in floor_turns.items()}
+    floor["K5 within the spread of x + 1"] = (
+        min(floor_turns["x + 1"]) <= floor["K5"]["ms"]
+        <= max(floor_turns["x + 1"]))
+    print(f"K5 beside the launch floor ({lo.STEP_COUNTS[-1]} blocks of "
+          f"1024 threads, graph replay, in turns): {json.dumps(floor)}; "
+          f"{card}", flush=True)
 
     # ---- the measurement main path, through its entry point ------------
     for mod in (pk, dd, tk, lo, rd):
@@ -2371,6 +2623,8 @@ def main() -> int:
          "whole_file_launches": {level: n["dp_parse"] for level, n in
                                  file_launches["compress"].items()},
          "host_contract_launches": host["launches"]["dp_parse"],
+         "soak_fuzz_launches": {k: v["dp_parse"] for k, v in
+                                soak_fuzz["launches"].items()},
          "dp_tier_launches": {name: row["launches"]["dp_parse"]
                               for name, row in dp_tiers.items()}},
         {"name": "pack_groups", "route": "cuda",
@@ -2389,7 +2643,9 @@ def main() -> int:
          "options_launches": opt["launches"]["pack_groups"],
          "whole_file_launches": {level: n["pack_groups"] for level, n in
                                  file_launches["compress"].items()},
-         "host_contract_launches": host["launches"]["pack_groups"]},
+         "host_contract_launches": host["launches"]["pack_groups"],
+         "soak_fuzz_launches": {k: v["pack_groups"] for k, v in
+                                soak_fuzz["launches"].items()}},
         {"name": "decode_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
          "replaces": "libdeflate_tpu/decompress/pallas_decode.py:943",
@@ -2404,7 +2660,9 @@ def main() -> int:
          "chain_floor_ms": chain3_floor_ms,
          "library_ms": None,
          "whole_file_launches": file_launches["decode_chunks"],
-         "host_contract_launches": host["launches"]["decode_chunks"]},
+         "host_contract_launches": host["launches"]["decode_chunks"],
+         "soak_fuzz_launches": {k: v["decode_chunks"] for k, v in
+                                soak_fuzz["launches"].items()}},
         {"name": "tokenize_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/tokenize_chunks.cu",
          "replaces": "scripts/exp_tokenize_ceiling.py:351",
@@ -2442,7 +2700,9 @@ def main() -> int:
         "library_ms": None,
         "whole_file_launches": file_launches["fsm_decode"],
         "program_launches": {k: v.get("fsm_decode", 0) for k, v in
-                             fsm_res["programs"].items()}})
+                             fsm_res["programs"].items()},
+        "soak_fuzz_launches": {k: v["fsm_decode"] for k, v in
+                               soak_fuzz["launches"].items()}})
     print(f"F1 chain (zlib-6, 16 chunks): chunk {fsm_res['top']} has the most "
           f"symbols, {int(chain_f1[0])}, and {int(chain_f1[1])} table "
           f"lookups: chain floor {int(chain_f1[1]) * lat['ns'] / 1e6:.6f} ms "
@@ -2472,6 +2732,7 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": graph_ms(lambda: (x + 1 if name != "grid_copy"
                                             else x.clone()), 200)})
+    kernels[-3]["launch_floor"] = floor
     # C1 and C2 on the lean call's inputs (C1 also at seg 512 on dyn1's,
     # C2 also at refine 16 on optfast's); the plain version is the torch
     # loop these paths ran before the kernels (the earlier kernels are
@@ -2487,7 +2748,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"libdeflate_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": scan["err"][name], "ms": row["ms"],
+            "max_abs_err": max(scan["err"][name],
+                               soak_fuzz["max_abs_err"][name]),
+            "ms": row["ms"],
             "kernel_ms": row["kernel_ms"],
             "kernel_graph_ms": row["kernel_graph_ms"],
             "plain_ms": row["plain_ms"], "plain_turns": row["plain_turns"],
@@ -2504,7 +2767,9 @@ def main() -> int:
                                  for n, r in dp_tiers.items()},
             "options_launches": opt["launches"][name],
             "whole_file_launches": {level: n[name] for level, n in
-                                    file_launches["compress"].items()}})
+                                    file_launches["compress"].items()},
+            "soak_fuzz_launches": {k: v[name] for k, v in
+                                   soak_fuzz["launches"].items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card, flush=True)

@@ -35,7 +35,8 @@ pads it), each run at every (refine_passes, max_len) in ``CODE_LENS_CFGS``.
 ``soak_payload(rng, kind, n)`` makes the five payload classes of
 ``scripts/tpu_soak.py``'s ``gen_payload`` (random, periodic, zeros,
 words, a ten-letter alphabet), the port's own copy: ``chip_smoke.py``
-commits random-length chunks of them through the lean and dyn1 entries.
+commits random-length chunks of them through the lean and dyn1 entries,
+and ``experiments/soak.py`` draws its payloads with it.
 ``hist_sets_other()`` holds rows of other widths: 30 symbols (a distance
 row, unpadded) and 512 (the kernel's cap), and nine 286-symbol rows (more
 rows than C2's four-row blocks, the last block partial).

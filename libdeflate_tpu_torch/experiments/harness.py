@@ -3,8 +3,9 @@ named by their content, and the recording of a kernel wrapper's calls.
 
 ``build_tagged`` serves ``fsm_variants.py``, ``dp_variants.py`` and
 ``scan_variants.py`` (a kernel's variants, or an earlier tree's source,
-beside the as-built one); ``record_calls`` serves ``scan_variants.py``
-and ``chip_smoke.py`` (a tier's own kernel inputs from one real call).
+beside the as-built one) and ``chip_smoke.py`` (its launch-floor probe);
+``record_calls`` and ``record_many`` serve ``scan_variants.py`` and
+``chip_smoke.py`` (a tier's own kernel inputs from one real call).
 """
 
 from __future__ import annotations
@@ -88,3 +89,15 @@ def record_calls(module, name: str, fn):
         return fn(), rec.seen
     finally:
         setattr(module, name, orig)
+
+
+def record_many(targets, fn):
+    """fn() with each (module, name) of ``targets`` recorded as
+    ``record_calls`` records one: (fn's result, {name: the argument
+    tuples})."""
+    if not targets:
+        return fn(), {}
+    (module, name), rest = targets[0], targets[1:]
+    (result, calls), seen = record_calls(module, name,
+                                         lambda: record_many(rest, fn))
+    return result, {name: seen, **calls}

@@ -430,6 +430,8 @@ def test_port_imports_no_jax(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, libdeflate_tpu_torch, chip_smoke; "
             "import libdeflate_tpu_torch.experiments.exp_device_roundup; "
+            "import libdeflate_tpu_torch.experiments.soak; "
+            "import libdeflate_tpu_torch.experiments.fuzz; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libdeflate_tpu', 'bench', 'scripts')]; "
             "assert not bad, bad")
