@@ -142,6 +142,23 @@ two paths through their entry points:
   three damaged copies through K3 in both size modes and F1, each
   decoder equal to its plain version) and an empty row, with the rows,
   lengths and device successes that zlib rejects printed;
+- the measurement and ratio drivers of ``scripts/`` (``drivers_phase``),
+  each in a short form: the stage profilers ``profile_lean`` and
+  ``profile_opt`` (reps 1, B = 4 x 1 MiB; the profiled chain's stream
+  through zlib and K3 back to the input), ``ablate_lean``'s eight
+  ablations on the corpus's first batch, ``probe_prims``, every
+  configuration of ``ratio_ab``, ``exp_corpus2_breadth``,
+  ``exp_match_bias``, ``exp_r5_speed``, ``exp_dp_corpus`` and
+  ``exp_ratio_gap`` on the first 1 MiB chunk of the corpus and of the
+  second corpus's text (``experiments/corpus.py::make_corpus2``), the
+  ablations' and configurations' total_bits and SHA-256 equal to the JAX
+  package's (pinned in ``experiments/ratio_total_bits.json`` by
+  ``tests/pin_ratio_drivers.py``) and every stream through zlib,
+  ``exp_ratio_gap``'s re-costing equal to the pins, ``exp_text_gap_diag``
+  on one chunk, and the checksum probes on 64 x 1 MiB (every row equal to
+  zlib's; K3 on 16 zlib-6 chunks; the CRC's sub-stages in a CUDA graph);
+  a recorded K1, K2, C1 and C2 call of each profiler and of the unablated
+  pipeline held to its plain version;
 - measure: the device measurement roundup,
   ``experiments.exp_device_roundup.main``, at its full size: the launch
   probe (K7), CRC-32 and Adler-32 of 8 x 1 MiB (each equal to zlib), K3 on
@@ -1812,6 +1829,258 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
     return {"launches": launches, "max_abs_err": err}
 
 
+DRIVER_PINS = "libdeflate_tpu_torch/experiments/ratio_total_bits.json"
+DRIVER_CHECKSUM_ROWS = 64       # 64 x 1 MiB through the checksums
+
+
+def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
+    """The ported measurement and ratio drivers of ``scripts/``, each in
+    its short form (reps 1): the stage profilers ``profile_lean`` and
+    ``profile_opt`` on one batch of B = 4 x 1 MiB (the profiled chain's
+    stream through zlib and K3 back to the input, the FULL lines through
+    zlib; K1, K2, C1 and C2 on a recorded call each held to their plain
+    versions), ``ablate_lean``'s eight ablations on the corpus's first
+    batch (each chunk's total_bits and SHA-256 equal to the JAX package's,
+    ``experiments/ratio_total_bits.json``; K1 on the second cost pass's
+    per-chunk tables held to its plain version), ``probe_prims``, every
+    configuration of ``ratio_ab``, ``exp_corpus2_breadth``,
+    ``exp_match_bias``, ``exp_r5_speed``, ``exp_dp_corpus`` and
+    ``exp_ratio_gap`` on the first 1 MiB chunk of the corpus and of the
+    second corpus's text part (total_bits and SHA-256 equal to the pins,
+    every stream through zlib), ``exp_ratio_gap``'s re-costing of those
+    chunks (equal to the pins), ``exp_text_gap_diag`` on one chunk, and
+    the checksum probes on 64 x 1 MiB (every row equal to zlib's, K3 on
+    16 zlib-6 chunks, the CRC's sub-stages in a CUDA graph).  The counts
+    are set to 0 before the drivers run and read after; the comparisons'
+    launches are not counted.  Returns the launches and largest
+    errors."""
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.experiments import (ablate_lean,
+                                                  exp_checksum_decode,
+                                                  exp_corpus2_breadth,
+                                                  exp_crc_profile,
+                                                  exp_dp_corpus,
+                                                  exp_match_bias,
+                                                  exp_r5_speed,
+                                                  exp_ratio_gap,
+                                                  exp_text_gap_diag,
+                                                  probe_prims, profile_lean,
+                                                  profile_opt, ratio_ab)
+    from libdeflate_tpu_torch.experiments import corpus as pc
+    from libdeflate_tpu_torch.experiments.driver_common import on_device
+    from libdeflate_tpu_torch.experiments.harness import record_many
+    from libdeflate_tpu_torch.experiments.soak import FINAL_TAIL
+    from libdeflate_tpu_torch.ops.checksums import (adler32_chunks,
+                                                    crc32_chunks)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    pins = json.loads((root / DRIVER_PINS).read_text())
+    wrappers = {"dp_parse": pk.dp_parse, "pack_groups": pk.pack_groups,
+                "commit_fsm": sk.commit_fsm, "code_lens": sk.code_lens,
+                "decode_chunks": dd.decompress_chunks_words}
+    targets = [(pk, "dp_parse"), (pk, "pack_groups"), (sk, "commit_fsm"),
+               (sk, "code_lens")]
+    err = dict.fromkeys(wrappers, 0)
+    held = dict.fromkeys(wrappers, 0)
+    plain_s = 0.0
+
+    def on_cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    def hold(calls, where, k1_index=0):
+        """The first recorded call of each kernel (K1's ``k1_index``-th)
+        against its plain version, the comparisons' launches uncounted."""
+        nonlocal plain_s
+        counts = {name: w.launches for name, w in wrappers.items()}
+        t0 = time.perf_counter()
+        checks = {
+            "dp_parse": lambda a: (pk.dp_parse(*a), pk.dp_parse_plain(*a)),
+            "pack_groups": lambda a: ([pk.pack_groups(*a)],
+                                      [pp.group_place(*a)]),
+            "commit_fsm": lambda a: (on_cpu(sk.commit_fsm(*a)),
+                                     pp.greedy_commit_merge(*on_cpu(a))),
+            "code_lens": lambda a: (on_cpu(sk.code_lens(*a)),
+                                    pd.build_code_lens(*on_cpu(a)))}
+        for name, check in checks.items():
+            seen = calls[name]
+            if not seen:
+                continue
+            args = seen[k1_index if name == "dp_parse" else 0]
+            got, want = check(args)
+            err[name] = max(err[name], require_equal(
+                f"{name} (drivers, {where})", got, want))
+            held[name] += 1
+        plain_s += time.perf_counter() - t0
+        for name, w in wrappers.items():
+            w.launches = counts[name]
+
+    def k3_round_trip(name, words, total_bits, rows):
+        """Each stream (not final: closed by an empty final block) back
+        through zlib and K3 to its row."""
+        streams = []
+        for k in range(rows.shape[0]):
+            s = pp.device_stream_to_bytes(words[k].cpu(), int(total_bits[k]))
+            if zlib.decompressobj(-15).decompress(s) != rows[k].tobytes():
+                raise AssertionError(f"{name}: chunk {k} does not inflate "
+                                     f"through zlib")
+            streams.append(s + FINAL_TAIL)
+        comp, clen = dd.pack_streams(streams)
+        counts = {n: w.launches for n, w in wrappers.items()}
+        out, status, olen, _ = dd.decompress_chunks_words(
+            torch.as_tensor(comp.view(np.int32), device=dev),
+            torch.as_tensor(clen, device=dev),
+            torch.full((rows.shape[0],), rows.shape[1], dtype=torch.int32,
+                       device=dev), rows.shape[1])
+        for n, w in wrappers.items():
+            w.launches = counts[n]
+        if int(status.abs().sum()) or not np.array_equal(out.cpu().numpy(),
+                                                         rows):
+            raise AssertionError(f"{name}: K3 does not decode the streams "
+                                 f"back")
+
+    def pinned(name, got_bits, got_streams, want):
+        for k, (bits, stream) in enumerate(zip(got_bits, got_streams)):
+            digest = hashlib.sha256(stream).hexdigest()
+            if [bits, digest] != want[k]:
+                raise AssertionError(f"{name}: chunk {k}: total_bits {bits} "
+                                     f"sha256 {digest[:16]}, the JAX package "
+                                     f"{want[k][0]} {want[k][1][:16]}")
+
+    for mod in (pk, sk, dd):
+        mod.reset_launch_counts()
+    log = functools.partial(print, flush=True)
+    # ---- the stage profilers, reps 1 ------------------------------------
+    lines = {}
+    for mod in (profile_lean, profile_opt):
+        t0 = time.perf_counter()
+        res, calls = record_many(targets, lambda: mod.run(dev, reps=1,
+                                                          log=log))
+        hold(calls, mod.__name__.rsplit(".", 1)[1])
+        rows = res["bufs"].cpu().numpy()
+        k3_round_trip(f"{mod.__name__} chain", *res["outputs"]["stream"],
+                      rows)
+        for name, out in res["outputs"].items():
+            if name.startswith("FULL"):
+                w, t = out
+                for k in range(rows.shape[0]):
+                    s = pp.device_stream_to_bytes(w[k].cpu(), int(t[k]))
+                    if zlib.decompressobj(-15).decompress(s) != \
+                            rows[k].tobytes():
+                        raise AssertionError(f"{name}: chunk {k}")
+        lines[mod.__name__] = res["rows"]
+        log(f"drivers: {mod.__name__.rsplit('.', 1)[1]}, {len(res['rows'])} "
+            f"lines, the chain's stream through zlib and K3, the FULL lines "
+            f"through zlib; {time.perf_counter() - t0:.3f} s; {card}")
+    # ---- the ablations on the corpus's first batch ----------------------
+    rows = np.frombuffer(corpus[: 4 * CHUNK], np.uint8).reshape(4, CHUNK)
+    args = on_device(rows, dev)
+    abl = {}
+    for name in ablate_lean.ABLATIONS:
+        ab = ablate_lean.ablation(name)
+        if name == "none":
+            (w, t), calls = record_many(
+                targets, lambda: ablate_lean.lean_pipeline(*args, ab))
+            hold(calls, "ablate_lean none", k1_index=1)
+        else:
+            w, t = ablate_lean.lean_pipeline(*args, ab)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ablate_lean.lean_pipeline(*args, ab)
+        torch.cuda.synchronize()
+        abl[name] = 1e3 * (time.perf_counter() - t0)
+        streams = [pp.device_stream_to_bytes(w[k].cpu(), int(t[k]))
+                   for k in range(4)]
+        pinned(f"ablate_lean {name}", [int(x) for x in t.cpu()], streams,
+               pins["ablations"][name])
+        if name != "pack":
+            for k in range(4):
+                if zlib.decompressobj(-15).decompress(streams[k]) != \
+                        rows[k].tobytes():
+                    raise AssertionError(f"ablate_lean {name}: chunk {k}")
+    log(f"drivers: ablate_lean, the 8 ablations' total_bits and SHA-256 "
+        f"equal the JAX package's on 4 chunks; ms a batch (one call) "
+        f"{json.dumps({k: round(v, 3) for k, v in abl.items()})}; {card}")
+    prims = probe_prims.run(dev, reps=1, log=log)
+    # ---- every ratio configuration on two chunks ------------------------
+    two = np.stack([np.frombuffer(corpus[:CHUNK], np.uint8),
+                    np.frombuffer(pc.make_corpus2(pc.CORPUS_BYTES, root)
+                                  [:CHUNK], np.uint8)])
+    args = on_device(two, dev)
+    tags = ("corpus1", "c2-text")
+    configs = {}
+    for mod in (ratio_ab, exp_corpus2_breadth, exp_match_bias, exp_r5_speed,
+                exp_dp_corpus, exp_ratio_gap):
+        for name, fn in mod.CONFIGS.items():
+            key = f"{mod.__name__.rsplit('.', 1)[1]}/{name}"
+            w, t = fn(*args, device=dev)
+            streams = [pp.device_stream_to_bytes(w[k].cpu(), int(t[k]))
+                       for k in range(2)]
+            pinned(key, [int(x) for x in t.cpu()], streams,
+                   [pins["configs"][key][tag] for tag in tags])
+            for k in range(2):
+                if zlib.decompressobj(-15).decompress(streams[k]) != \
+                        two[k].tobytes():
+                    raise AssertionError(f"{key}: chunk {k}")
+            configs[key] = [len(s) / CHUNK for s in streams]
+    missing = set(pins["configs"]) - set(configs)
+    if missing:
+        raise AssertionError(f"pinned configurations not run: {missing}")
+    log(f"drivers: {len(configs)} ratio configurations' total_bits and "
+        f"SHA-256 equal the JAX package's on the first 1 MiB of the corpus "
+        f"and of the second corpus's text; ratios [corpus1, c2-text] "
+        f"{json.dumps({k: [round(x, 6) for x in v] for k, v in configs.items()})}")
+    recost = {tag: {k: v[0] for k, v in
+                    exp_ratio_gap.recost(two[i:i + 1], dev).items()}
+              for i, tag in enumerate(tags)}
+    want = {tag: {k: v[0] for k, v in pins["ratio_gap_recost"][tag].items()}
+            for tag in tags}
+    if recost != want:
+        raise AssertionError(f"exp_ratio_gap re-cost {recost}, the JAX "
+                             f"package {want}")
+    diag = exp_text_gap_diag.diag([bytes(two[1])], dev, log=log)
+    log(f"drivers: exp_ratio_gap re-cost equal to the JAX package's "
+        f"{json.dumps(recost)}; exp_text_gap_diag on the second corpus's "
+        f"first text chunk: native {diag[0]['native_bytes']} B, lean "
+        f"{diag[0]['device_bytes']} B")
+    # ---- the checksum probes on 64 x 1 MiB ------------------------------
+    cs = exp_checksum_decode.checksums(dev, DRIVER_CHECKSUM_ROWS, CHUNK,
+                                       reps=1, log=log)
+    rng = np.random.default_rng(11)
+    bufs = rng.integers(0, 256, size=(DRIVER_CHECKSUM_ROWS, CHUNK),
+                        dtype=np.uint8)
+    bd = torch.as_tensor(bufs, device=dev)
+    lens = torch.full((DRIVER_CHECKSUM_ROWS,), CHUNK, dtype=torch.int64,
+                      device=dev)
+    crc = crc32_chunks(bd, lens, device=dev).cpu().tolist()
+    adl = adler32_chunks(bd, lens, device=dev).cpu().tolist()
+    for i in range(DRIVER_CHECKSUM_ROWS):
+        if crc[i] != zlib.crc32(bufs[i].tobytes()) or \
+                adl[i] != zlib.adler32(bufs[i].tobytes()):
+            raise AssertionError(f"checksums: row {i} differs from zlib")
+    dec = exp_checksum_decode.decode(dev, reps=1, log=log)
+    crc_prof = exp_crc_profile.run(dev, DRIVER_CHECKSUM_ROWS, CHUNK, k=2,
+                                   reps=1, log=log)
+    if not all(v["ok"] for v in cs.values()) or not dec["ok"]:
+        raise AssertionError(f"checksum probes: {cs} {dec}")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name in wrappers:
+        if launches[name] <= 0:
+            raise AssertionError(f"the drivers never launched {name}")
+    log(f"drivers: checksums of {DRIVER_CHECKSUM_ROWS} x {CHUNK} bytes equal "
+        f"zlib's on every row; kernel calls held to their plain versions "
+        f"{json.dumps(held)} ({plain_s:.3f} s); launches "
+        f"{json.dumps(launches)}; drivers phase "
+        f"{time.perf_counter() - t_phase:.3f} s; {card}")
+    return {"launches": launches, "max_abs_err": err, "profiles": lines,
+            "ablations_ms": abl, "prims": prims, "configs": configs,
+            "checksums": cs, "crc_profile": crc_prof, "decode": dec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2377,6 +2646,11 @@ def main() -> int:
     err_dp = max(err_dp, soak_fuzz["max_abs_err"]["dp_parse"])
     err_pack = max(err_pack, soak_fuzz["max_abs_err"]["pack_groups"])
 
+    # ---- the measurement and ratio drivers of scripts/ -----------------
+    drivers = drivers_phase(root, corpus, card)
+    err_dp = max(err_dp, drivers["max_abs_err"]["dp_parse"])
+    err_pack = max(err_pack, drivers["max_abs_err"]["pack_groups"])
+
     # ---- K4: the tokenize-only kernel against its plain version --------
     err_tok = 0
     tok_plain_s = {}
@@ -2625,6 +2899,7 @@ def main() -> int:
          "host_contract_launches": host["launches"]["dp_parse"],
          "soak_fuzz_launches": {k: v["dp_parse"] for k, v in
                                 soak_fuzz["launches"].items()},
+         "drivers_launches": drivers["launches"]["dp_parse"],
          "dp_tier_launches": {name: row["launches"]["dp_parse"]
                               for name, row in dp_tiers.items()}},
         {"name": "pack_groups", "route": "cuda",
@@ -2645,7 +2920,8 @@ def main() -> int:
                                  file_launches["compress"].items()},
          "host_contract_launches": host["launches"]["pack_groups"],
          "soak_fuzz_launches": {k: v["pack_groups"] for k, v in
-                                soak_fuzz["launches"].items()}},
+                                soak_fuzz["launches"].items()},
+         "drivers_launches": drivers["launches"]["pack_groups"]},
         {"name": "decode_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/decode_chunks.cu",
          "replaces": "libdeflate_tpu/decompress/pallas_decode.py:943",
@@ -2662,7 +2938,8 @@ def main() -> int:
          "whole_file_launches": file_launches["decode_chunks"],
          "host_contract_launches": host["launches"]["decode_chunks"],
          "soak_fuzz_launches": {k: v["decode_chunks"] for k, v in
-                                soak_fuzz["launches"].items()}},
+                                soak_fuzz["launches"].items()},
+         "drivers_launches": drivers["launches"]["decode_chunks"]},
         {"name": "tokenize_chunks", "route": "cuda",
          "source": "libdeflate_tpu_torch/csrc/tokenize_chunks.cu",
          "replaces": "scripts/exp_tokenize_ceiling.py:351",
@@ -2749,7 +3026,8 @@ def main() -> int:
             "source": f"libdeflate_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(scan["err"][name],
-                               soak_fuzz["max_abs_err"][name]),
+                               soak_fuzz["max_abs_err"][name],
+                               drivers["max_abs_err"][name]),
             "ms": row["ms"],
             "kernel_ms": row["kernel_ms"],
             "kernel_graph_ms": row["kernel_graph_ms"],
@@ -2769,7 +3047,8 @@ def main() -> int:
             "whole_file_launches": {level: n[name] for level, n in
                                     file_launches["compress"].items()},
             "soak_fuzz_launches": {k: v[name] for k, v in
-                                   soak_fuzz["launches"].items()}})
+                                   soak_fuzz["launches"].items()},
+            "drivers_launches": drivers["launches"][name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card, flush=True)

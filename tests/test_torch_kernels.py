@@ -432,6 +432,11 @@ def test_importing_the_port_loads_no_jax():
             "import libdeflate_tpu_torch.experiments.exp_device_roundup; "
             "import libdeflate_tpu_torch.experiments.soak; "
             "import libdeflate_tpu_torch.experiments.fuzz; "
+            "from libdeflate_tpu_torch.experiments import ablate_lean, "
+            "exp_checksum_decode, exp_corpus2_breadth, exp_crc_profile, "
+            "exp_dp_corpus, exp_match_bias, exp_r5_speed, exp_ratio_gap, "
+            "exp_text_gap_diag, probe_prims, profile_lean, profile_opt, "
+            "ratio_ab; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libdeflate_tpu', 'bench', 'scripts')]; "
             "assert not bad, bad")
