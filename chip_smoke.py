@@ -78,8 +78,8 @@ two paths through their entry points:
   out_bytes, failures in the middle of a window), and its chain is set
   beside its floor (the plain version's lookups under K3's own loop);
 - whole file: ``gzip_compress_dp`` of the corpus over
-  ``make_chunk_mesh()`` (the current CUDA device: B = 16 x 1 MiB a
-  call) at levels 0, 1, 6, 9 and 12: the gzip bytes' length and
+  ``make_chunk_mesh()`` (every CUDA device; on one card, that card: B =
+  16 x 1 MiB a call) at levels 0, 1, 6, 9 and 12: the gzip bytes' length and
   SHA-256 equal the JAX package's (pinned in
   ``experiments/file_codec_pins.json`` by ``tests/pin_file_codec.py``),
   every chunk's gathered size equals the pinned JAX total_bits, the
@@ -93,6 +93,21 @@ two paths through their entry points:
   one short BAD_DATA) and of the fragments with decoder "fsm" (one F1
   launch a shard, no K3); ``entry()`` on the card equal to the CPU and
   ``dryrun_multichip(1)``;
+- mesh (``mesh_phase``): shards at once on one card,
+  ``make_chunk_mesh(["cuda:0"] * k)``, one worker thread and one stream a
+  shard: gzip at the five levels for k = 2 and 4 (bytes equal to the
+  pins, k times a shard's launches, each pass's K1 launches of the k
+  shards as one batch and every K2 launch equal to the plain versions),
+  ``decompress_chunks_dp`` at k = 4 with decoders "pallas" and "fsm"
+  (every chunk equal to the corpus, one launch a shard), the whole-file
+  times at k = 1, 2 and 4 at levels 1 and 6, and a ``device_trace`` of
+  one level-6 call at k = 4 (idle share, streams that ran kernels, ms in
+  which two or more ran at once); every kernel wrapper (K1-K7, F1, C1,
+  C2) called from a worker thread on a side stream, equal to its plain
+  version, its kernel on that stream in a trace (``side_stream_phase``);
+  with more than one card, ``dryrun_multichip`` over every card, gzip
+  level 6 over every card against its pin and the level-6 tier on
+  cuda:1, else one line saying that part did not run;
 - host contract: ``Compressor``, ``Decompressor``, ``crc32`` and
   ``adler32`` on the host engine, the native codec built from
   ``native/ldtpu_native.cpp`` into ``build/native/`` (asserted loaded)
@@ -993,6 +1008,382 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
           "passes", flush=True)
     return {"compress": file_launches, "decode_chunks": ndev,
             "fsm_decode": fsm_launches, "max_abs_err": errs}
+
+
+MESH_SHARDS = (2, 4)        # shards at once on ["cuda:0"] * k
+MESH_TIMED_LEVELS = (1, 6)  # whole-file levels timed at k = 1, 2 and 4
+# each wrapper's kernel, as its name stands in a profiler trace
+SIDE_KERNELS = {"dp_parse": "dp_parse_kernel",
+                "pack_groups": "pack_gather_kernel",
+                "decode_chunks": "decode_chunks_kernel",
+                "tokenize_chunks": "tokenize_chunks_kernel",
+                "fsm_decode": "fsm_decode_kernel",
+                "commit_fsm": "commit_fsm_kernel",
+                "code_lens": "code_lens_kernel",
+                "grid_add_one": "add_one_grid_kernel",
+                "loop_add_one": "add_one_loop_kernel",
+                "grid_copy": "grid_copy_kernel"}
+
+
+def side_stream_calls(root: Path, dev) -> dict:
+    """{kernel name: (a call of its wrapper on small CUDA inputs, the
+    plain version's result on the same inputs)} for every wrapper."""
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.decompress import fsm
+    from libdeflate_tpu_torch.experiments import crafted_dp as cdp
+    from libdeflate_tpu_torch.experiments import crafted_streams as cs
+    from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
+    from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
+    from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
+
+    def cpu(args):
+        return [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+
+    rng = np.random.default_rng(11)
+    dp = cdp.random_inputs(dev, B=2, n_pad=512)
+    pack = pack_random_inputs(dev, B=2, m=64)
+    text = cs.repo_text(root)
+    raws = [text[i * 8192:(i + 1) * 8192] for i in range(4)]
+    comp, clen = dd.pack_streams([zlib6(r) for r in raws])
+    olen = np.array(list(map(len, raws)), np.int32)
+    rows = comp.view(np.uint8)
+    commit = (torch.as_tensor(rng.integers(1, 40, (2, 2048)), device=dev),
+              torch.as_tensor(rng.random((2, 2048)) < 0.6, device=dev),
+              torch.as_tensor(rng.integers(0, 5, (2, 2048)), device=dev), 512)
+    hist = torch.as_tensor(rng.integers(0, 300, (4, 286)), device=dev)
+    x_grid = torch.as_tensor(rng.integers(0, 1 << 20, (64, 128)),
+                             dtype=torch.int32, device=dev)
+    x_copy = torch.as_tensor(rng.random((128, 128)), dtype=torch.float32,
+                             device=dev)
+    return {
+        "dp_parse": (lambda: pk.dp_parse(*dp, 256),
+                     pk.dp_parse_plain(*cpu(dp), 256)),
+        "pack_groups": (lambda: [pk.pack_groups(*pack)],
+                        [pp.group_place(*cpu(pack))]),
+        "decode_chunks": (
+            lambda: dd.decompress_chunks_words(comp.view(np.int32), clen,
+                                               olen, 8192),
+            dd.decompress_chunks_words(comp.view(np.int32), clen, olen, 8192,
+                                       device="cpu")),
+        "tokenize_chunks": (
+            lambda: tk.tokenize_chunks(comp.view(np.int32), clen, olen),
+            tk.tokenize_chunks(comp.view(np.int32), clen, olen,
+                               device="cpu")),
+        "fsm_decode": (lambda: fsm.decompress_chunks(rows, clen, 8192),
+                       fsm.decompress_chunks(rows, clen, 8192, device="cpu")),
+        "commit_fsm": (lambda: sk.commit_fsm(*commit),
+                       pp.greedy_commit_merge(*cpu(commit))),
+        "code_lens": (lambda: sk.code_lens(hist, 16, 15),
+                      pd.build_code_lens(hist.cpu(), 16, 15)),
+        "grid_add_one": (lambda: [lo.grid_add_one(x_grid)],
+                         [x_grid.cpu() + 1]),
+        "loop_add_one": (lambda: [lo.loop_add_one(x_grid)],
+                         [x_grid.cpu() + 1]),
+        "grid_copy": (lambda: [rd.grid_copy(x_copy, rd.PROBE_STEPS[-1])],
+                      [x_copy.cpu()]),
+    }
+
+
+def side_stream_phase(root: Path, dev, card: str) -> dict:
+    """Every kernel wrapper (K1-K7, F1, C1, C2) called from a worker
+    thread whose current stream is a side stream of its own: each result
+    equals the plain version, and a profiler trace shows each kernel on
+    that stream, not on the stream of the calling thread's marker op.
+    The wrappers' launch counts are left as they were.  Returns each
+    kernel's largest difference from its plain version (0)."""
+    import tempfile
+    import threading
+
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.decompress import fsm
+    from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
+    from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
+    from libdeflate_tpu_torch.experiments import exp_tokenize_ceiling as tk
+    from libdeflate_tpu_torch.utils.profiling import device_trace
+
+    wrappers = [pk.dp_parse, pk.pack_groups, dd.decompress_chunks_words,
+                tk.tokenize_chunks, fsm.decompress_chunks, sk.commit_fsm,
+                sk.code_lens, lo.grid_add_one, lo.loop_add_one, rd.grid_copy]
+    counts = [w.launches for w in wrappers]
+    calls = side_stream_calls(root, dev)
+    for name, (fn, _) in calls.items():      # built and warm on this stream
+        fn()
+    torch.cuda.synchronize()
+    results, errors = {}, []
+    side = torch.cuda.Stream(dev)
+
+    def work():
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(side):
+                for name, (fn, _) in calls.items():
+                    results[name] = fn()
+            side.synchronize()
+        except BaseException as e:              # raised after the join
+            errors.append(e)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(str(Path(tmp) / "trace")):
+            marker = torch.zeros(4096, device=dev) + 1  # the caller's stream
+            worker = threading.Thread(target=work, name="side-stream check")
+            worker.start()
+            worker.join()
+            torch.cuda.synchronize()
+        (trace_file,) = (Path(tmp) / "trace").glob("trace_*.json")
+        events = [e for e in json.loads(trace_file.read_text())
+                  ["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") == "kernel"]
+    del marker
+    for w, n in zip(wrappers, counts):
+        w.launches = n
+    if errors:
+        raise errors[0]
+    err = {name: require_equal(f"{name} (worker thread, side stream)",
+                               [r.cpu() for r in results[name]],
+                               list(want))
+           for name, (_, want) in calls.items()}
+    streams = {name: sorted({e["args"]["stream"] for e in events
+                             if kern in e["name"]})
+               for name, kern in SIDE_KERNELS.items()}
+    caller = sorted({e["args"]["stream"] for e in events
+                     if not any(k in e["name"]
+                                for k in SIDE_KERNELS.values())
+                     and e["ts"] < min(
+                         [float(x["ts"]) for x in events
+                          if any(k in x["name"]
+                                 for k in SIDE_KERNELS.values())] or [0])})
+    ids = {s for v in streams.values() for s in v}
+    if any(len(v) != 1 for v in streams.values()) or len(ids) != 1 \
+            or ids & set(caller):
+        raise AssertionError(f"side streams: each wrapper's kernel should "
+                             f"run on the worker's one side stream, not on "
+                             f"the caller's {caller}: {streams}")
+    print(f"side streams: every wrapper called from a worker thread on a "
+          f"side stream equals its plain version, and the trace shows each "
+          f"kernel on that stream (id {ids.pop()}), not the caller's "
+          f"(ids {caller}): {', '.join(calls)}; {card}", flush=True)
+    return err
+
+
+def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
+               zbufs: np.ndarray, z_clen: np.ndarray, chunk_pins: dict,
+               card: str) -> dict:
+    """The chunk mesh with its shards at once on one card,
+    ``make_chunk_mesh(["cuda:0"] * k)``: gzip at every pinned level for
+    k = 2 and 4 (the bytes equal to the pins, k times a shard's launches,
+    each pass's K1 launches of all shards as one batch and every K2 launch
+    held to the plain versions); ``decompress_chunks_dp`` at k = 4 with
+    decoders "pallas" and "fsm"; the whole-file times at k = 1, 2 and 4
+    (levels 1 and 6) and a trace of one level-6 call at k = 4 (idle
+    share, streams, ms with two or more streams running); every wrapper
+    on a side stream from a worker thread (``side_stream_phase``); and,
+    with more than one card, ``dryrun_multichip`` over every card, the
+    level-6 pin over every card and the level-6 tier on cuda:1 alone.
+    Returns the launches, the largest differences and the times."""
+    import tempfile
+
+    from libdeflate_tpu_torch import entry as pe
+    from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import scan_kernels as sk
+    from libdeflate_tpu_torch.decompress import decode as dd
+    from libdeflate_tpu_torch.decompress import fsm
+    from libdeflate_tpu_torch.experiments.harness import Recording
+    from libdeflate_tpu_torch.experiments.pass_turns import (stream_overlap,
+                                                             trace_summary)
+    from libdeflate_tpu_torch.parallel import file_codec as fc
+    from libdeflate_tpu_torch.parallel import mesh as pm
+    from libdeflate_tpu_torch.utils.profiling import device_trace
+
+    dev = torch.device("cuda", 0)
+    pins = json.loads((root / FILE_PINS).read_text())["gzip"]
+    nchunks = len(chunks)
+    errs = {"dp_parse": 0, "pack_groups": 0}
+    launches: dict = {}
+
+    def counts():
+        return {"pack_groups": pk.pack_groups.launches,
+                "dp_parse": pk.dp_parse.launches,
+                "commit_fsm": sk.commit_fsm.launches,
+                "code_lens": sk.code_lens.launches,
+                "decode_chunks": dd.decompress_chunks_words.launches,
+                "fsm_decode": fsm.decompress_chunks.launches}
+
+    def reset():
+        for mod in (pk, sk, dd, fsm):
+            mod.reset_launch_counts()
+
+    def pinned(name, out, level):
+        digest = hashlib.sha256(out).hexdigest()
+        pin = pins[str(level)]
+        if (len(out), digest) != (pin["bytes"], pin["sha256"]):
+            raise AssertionError(f"{name}, level {level}: {len(out)} bytes, "
+                                 f"SHA-256 {digest}; the pin is "
+                                 f"{pin['bytes']}, {pin['sha256']}")
+
+    for k in MESH_SHARDS:
+        mesh = pm.make_chunk_mesh(["cuda:0"] * k)
+        launches[k] = {}
+        for level, (pin_name, dp_calls, _) in FILE_LEVELS.items():
+            recs = {name: Recording(getattr(pk, name)) for name in errs}
+            for name, rec in recs.items():
+                setattr(pk, name, rec)
+            try:
+                reset()
+                out = fc.gzip_compress_dp(corpus, mesh, CHUNK, level)
+                torch.cuda.synchronize()
+                got = counts()
+            finally:
+                for name, rec in recs.items():
+                    setattr(pk, name, rec.wrapper)
+            passes = max(dp_calls, 1)
+            want = {"pack_groups": k, "dp_parse": dp_calls * k,
+                    "commit_fsm": passes * k,
+                    "code_lens": 0 if pin_name == "static" else passes * k,
+                    "decode_chunks": 0, "fsm_decode": 0}
+            if got != want:
+                raise AssertionError(f"mesh, {k} shards, level {level}: "
+                                     f"launches {got}, not {want}")
+            pinned(f"mesh, {k} shards", out, level)
+            # K1: each pass's launches of all k shards as one batch (one
+            # thread a shard, its passes in order) against the plain
+            # version; K2: every launch against group_place
+            by_shard: dict = {}
+            rec = recs["dp_parse"]
+            for args, res, th in zip(rec.seen, rec.results, rec.threads):
+                by_shard.setdefault(th, []).append((args, res))
+            if sorted(map(len, by_shard.values())) != [dp_calls] * (
+                    k if dp_calls else 0):
+                raise AssertionError(f"mesh, {k} shards, level {level}: K1 "
+                                     f"launches by thread "
+                                     f"{[len(v) for v in by_shard.values()]}")
+            for p in range(dp_calls):
+                calls = [v[p] for v in by_shard.values()]
+                arrs = [torch.cat([a[i] for a, _ in calls]) for i in range(12)]
+                lc = torch.cat([a[12] if a[12].dim() == 2 else
+                                a[12].repeat(a[0].shape[0], 1)
+                                for a, _ in calls])
+                errs["dp_parse"] = max(errs["dp_parse"], require_equal(
+                    f"dp_parse (mesh, {k} shards, level {level}, pass "
+                    f"{p + 1})", [torch.cat([r[j] for _, r in calls])
+                                  for j in range(2)],
+                    pk.dp_parse_plain(*arrs, lc, *calls[0][0][13:])))
+            for args, res in zip(recs["pack_groups"].seen,
+                                 recs["pack_groups"].results):
+                errs["pack_groups"] = max(errs["pack_groups"], require_equal(
+                    f"pack_groups (mesh, {k} shards, level {level})", [res],
+                    [pp.group_place(*args)]))
+            del recs, rec, by_shard
+            launches[k][level] = got
+        print(f"mesh, {k} shards at once on one card: gzip at levels "
+              f"{list(FILE_LEVELS)} equal the pinned length and SHA-256, "
+              f"launches {json.dumps(launches[k])} (k times a shard's), "
+              f"every K1 launch (each pass's {k} launches as one batch) "
+              f"and K2 launch equal to its plain version; {card}",
+              flush=True)
+
+    # the decode direction at k = 4: level-6 fragments (BFINAL on every
+    # chunk) through both decoders, and the zlib-6 streams through K3
+    mesh = pm.make_chunk_mesh(["cuda:0"] * MESH_SHARDS[-1])
+    k = len(mesh.devices)
+    lengths = np.full(nchunks, CHUNK, np.int32)
+    words, total_bits, _, _, _ = pm.compress_chunks_dp(
+        mesh, chunks, lengths, np.ones(nchunks, bool), level=6)
+    if total_bits.tolist() != chunk_pins["level5"]:
+        raise AssertionError(f"compress_chunks_dp, {k} shards, level 6: "
+                             f"total_bits differ from the JAX package's")
+    frag_bufs = words.view(torch.uint8)
+    frag_lens = ((total_bits + 7) // 8).to(torch.int32)
+    corpus_d = torch.as_tensor(chunks.copy(), device=dev)
+    dec_s = {}
+    for name, decoder, cb, cl in (
+            ("level 6 fragments", "pallas", frag_bufs, frag_lens),
+            ("level 6 fragments", "fsm", frag_bufs, frag_lens),
+            ("zlib-6", "pallas", zbufs, z_clen)):
+        reset()
+        out, olen, consumed, status, all_lens = pm.decompress_chunks_dp(
+            mesh, cb, cl, lengths, CHUNK, decoder=decoder)
+        torch.cuda.synchronize()
+        got = counts()
+        kern = "decode_chunks" if decoder == "pallas" else "fsm_decode"
+        if {n: c for n, c in got.items() if c} != {kern: k}:
+            raise AssertionError(f"decompress_chunks_dp ({name}, {decoder}, "
+                                 f"{k} shards): launches {got}")
+        if not (bool((status == 0).all()) and bool((olen == CHUNK).all())
+                and torch.equal(all_lens, olen)
+                and torch.equal(consumed.cpu(), torch.as_tensor(cl).cpu())
+                and torch.equal(out, corpus_d)):
+            raise AssertionError(f"decompress_chunks_dp ({name}, {decoder}, "
+                                 f"{k} shards): a chunk does not decode to "
+                                 f"the corpus")
+        launches.setdefault("decode", {})[f"{name}, {decoder}"] = got[kern]
+        dec_s[f"{name}, {decoder}"] = time_best(
+            lambda: pm.decompress_chunks_dp(mesh, cb, cl, lengths, CHUNK,
+                                            decoder=decoder))
+    for name, best in dec_s.items():
+        print(f"mesh, decompress_chunks_dp ({name}, {k} shards at once): "
+              f"{len(corpus) / best / 1e9:.6f} GB/s of output (best of 3, "
+              f"{best:.6f} s), every chunk equals the corpus, one launch a "
+              f"shard; {card}", flush=True)
+
+    # the whole-file times at k = 1, 2 and 4, and one traced call at k = 4
+    times = {}
+    for level in MESH_TIMED_LEVELS:
+        for k in (1,) + MESH_SHARDS:
+            mesh = pm.make_chunk_mesh(["cuda:0"] * k)
+            for _ in range(3):          # as pass_turns.WARM_CALLS
+                fc.gzip_compress_dp(corpus, mesh, CHUNK, level)
+            torch.cuda.synchronize()
+            times[f"level {level}, {k} shards"] = time_best(
+                lambda: fc.gzip_compress_dp(corpus, mesh, CHUNK, level))
+        line = ", ".join(f"{k} shard(s) at once "
+                         f"{times[f'level {level}, {k} shards']:.6f} s"
+                         for k in (1,) + MESH_SHARDS)
+        print(f"mesh, whole file at level {level}, best of 3 calls after 3 "
+              f"over {nchunks} x {CHUNK} bytes: {line}; {card}", flush=True)
+    mesh = pm.make_chunk_mesh(["cuda:0"] * MESH_SHARDS[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(str(Path(tmp) / "trace")):
+            fc.gzip_compress_dp(corpus, mesh, CHUNK, 6)
+            torch.cuda.synchronize()
+        (trace_file,) = (Path(tmp) / "trace").glob("trace_*.json")
+        _, idle, window_ms, n_ops = trace_summary(trace_file)
+        overlap = stream_overlap(trace_file)
+    trace = {"idle": idle, "window_ms": window_ms, "device_ops": n_ops,
+             **overlap}
+    print(f"mesh, device_trace of one level-6 call at "
+          f"{MESH_SHARDS[-1]} shards at once: {json.dumps(trace)}; {card}",
+          flush=True)
+
+    side_err = side_stream_phase(root, dev, card)
+
+    ncards = torch.cuda.device_count()
+    if ncards > 1:
+        pe.dryrun_multichip(ncards)
+        pinned("mesh over every card", fc.gzip_compress_dp(
+            corpus, pm.make_chunk_mesh(), CHUNK, 6), 6)
+        one = torch.device("cuda", 1)
+        _, total_bits, _, _, _ = pm.compress_chunks_dp(
+            pm.make_chunk_mesh([one]), chunks, lengths,
+            np.ones(nchunks, bool), level=6)
+        if total_bits.tolist() != chunk_pins["level5"]:
+            raise AssertionError("level 6 on cuda:1: total_bits differ from "
+                                 "the JAX package's")
+        print(f"mesh over {ncards} cards: dryrun_multichip({ncards}) passes, "
+              f"gzip level 6 over every card equals its pin, and the level-6 "
+              f"tier on cuda:1 alone gives the pinned total_bits", flush=True)
+    else:
+        print("mesh over several cards: not run, since this machine has one "
+              "CUDA device; dryrun_multichip over every card, the level-6 "
+              "pin over every card and the tier on cuda:1 need two or more",
+              flush=True)
+    return {"launches": launches, "max_abs_err": errs, "side_err": side_err,
+            "times": times, "trace": trace}
 
 
 def fsm_phase(root: Path, corpus: bytes, chunks: np.ndarray,
@@ -2632,6 +3023,15 @@ def main() -> int:
     err_dp = max(err_dp, file_launches["max_abs_err"]["dp_parse"])
     err_pack = max(err_pack, file_launches["max_abs_err"]["pack_groups"])
 
+    # ---- the mesh with its shards at once, and every wrapper on a side
+    # stream from a worker thread
+    t0 = time.perf_counter()
+    mesh_res = mesh_phase(root, corpus, chunks, bufs, z_clen,
+                          {**pinned, **dp_pinned}, card)
+    print(f"mesh phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    err_dp = max(err_dp, mesh_res["max_abs_err"]["dp_parse"])
+    err_pack = max(err_pack, mesh_res["max_abs_err"]["pack_groups"])
+
     # ---- the libdeflate contract on the host engine, crossed with K1-K3
     host = host_contract_phase(root, corpus, chunks, card)
     err_dec = max(err_dec, host["max_abs_err"])
@@ -2764,8 +3164,9 @@ def main() -> int:
                      dtype=torch.int32, device=dev)
 
     def launch_floor():
-        rc = empty(lo.STEP_COUNTS[-1], min(lo.ROWS * lo.LANES, 1024),
-                   torch.cuda.current_stream().cuda_stream)
+        with _build.launch_context((x5,), "empty kernel") as stream:
+            rc = empty(lo.STEP_COUNTS[-1], min(lo.ROWS * lo.LANES, 1024),
+                       stream)
         if rc:
             raise RuntimeError(f"empty kernel: CUDA error {rc}")
 
@@ -3049,6 +3450,19 @@ def main() -> int:
             "soak_fuzz_launches": {k: v[name] for k, v in
                                    soak_fuzz["launches"].items()},
             "drivers_launches": drivers["launches"][name]})
+    mesh_launches = mesh_res["launches"]
+    for row in kernels:
+        name = row["name"]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 mesh_res["side_err"][name])
+        if name in ("dp_parse", "pack_groups", "commit_fsm", "code_lens"):
+            row["mesh_launches"] = {
+                f"{k} shards": {level: n[name] for level, n in by.items()}
+                for k, by in mesh_launches.items() if k != "decode"}
+        elif name in ("decode_chunks", "fsm_decode"):
+            row["mesh_launches"] = {
+                key: n for key, n in mesh_launches["decode"].items()
+                if (name == "fsm_decode") == key.endswith("fsm")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.3f} s", flush=True)
     print(card, flush=True)

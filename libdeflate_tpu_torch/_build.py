@@ -14,16 +14,29 @@ at the repository root on first use (or when the source or a header it
 includes is newer), then loaded with ``ctypes``.  A missing ``nvcc`` or a
 failed build raises.  ``kernel`` hands a wrapper one C launch function
 with its ctypes signature, set once when the function is first asked for.
+
+The chunk mesh runs its shards from threads of their own
+(``parallel/mesh.py``), so the shared host state here is guarded: one
+lock around ``build``, ``load`` and ``kernel`` (threads that first ask
+for one kernel at once start one ``nvcc`` and get one function object),
+``count_launch`` adds to a wrapper's ``launches`` under a lock, and
+``launch_context`` is the one way a wrapper launches: on its tensors'
+device, as the current device, and on that device's current stream of
+the calling thread.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -34,6 +47,10 @@ KERNEL_SOURCES = ("dp_parse", "pack_groups", "decode_chunks",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], object] = {}
+# builds, loads and function lookups; re-entrant, since kernel() loads
+# and load() builds
+_lock = threading.RLock()
+_count_lock = threading.Lock()
 
 # ctypes types of the launch functions' arguments: device pointers and
 # the stream as void*, sizes and flags as int
@@ -79,39 +96,41 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     """Compile every stale source, one ``nvcc`` each, all started
     together.  Returns the compiler's output (``-Xptxas -v``) per built
     source; raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    try:
-        for name in names:
-            deps, so = sources(name), lib_path(name)
-            if so.exists() and so.stat().st_mtime >= max(
-                    d.stat().st_mtime for d in deps):
-                continue
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            procs[name] = (compile_async(nvcc, deps[0], tmp), tmp, so)
-        logs = {}
-        for name, (proc, tmp, so) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-            os.replace(tmp, so)
-            logs[name] = out
-        return logs
-    finally:
-        for proc, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        try:
+            for name in names:
+                deps, so = sources(name), lib_path(name)
+                if so.exists() and so.stat().st_mtime >= max(
+                        d.stat().st_mtime for d in deps):
+                    continue
+                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                procs[name] = (compile_async(nvcc, deps[0], tmp), tmp, so)
+            logs = {}
+            for name, (proc, tmp, so) in procs.items():
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+                os.replace(tmp, so)
+                logs[name] = out
+            return logs
+        finally:
+            for proc, _, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build((name,))
+            lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
+        return lib
 
 
 def kernel(name: str, fn_name: str, argtypes):
@@ -121,8 +140,32 @@ def kernel(name: str, fn_name: str, argtypes):
     return the same function object."""
     fn = _functions.get((name, fn_name))
     if fn is None:
-        fn = getattr(load(name), fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _functions[name, fn_name] = fn
+        with _lock:
+            fn = _functions.get((name, fn_name))
+            if fn is None:
+                fn = getattr(load(name), fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _functions[name, fn_name] = fn
     return fn
+
+
+def count_launch(wrapper) -> None:
+    """One more launch in ``wrapper.launches``, counted under a lock."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def launch_context(tensors, what: str):
+    """The launch of the kernel ``what`` on ``tensors``: they must lie on
+    one CUDA device, which is the current device inside the context, and
+    the context's value is that device's current stream of the calling
+    thread, as the C launch functions take it (void*)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{what}: all inputs must lie on one CUDA device, "
+                         f"got {sorted(map(str, devs))}")
+    dev = devs.pop()
+    with torch.cuda.device(dev):
+        yield ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)

@@ -12,7 +12,10 @@ Counterpart of ``libdeflate_tpu/compress/pallas_kernels.py``:
 
 A wrapper given CUDA tensors launches its kernel or raises; it takes the
 plain version only for tensors on the CPU.  Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel launches in its ``launches`` attribute (``_build.count_launch``)
+and launches on its tensors' device and that device's current stream
+(``_build.launch_context``), so that shards on other devices or streams
+launch where their tensors are.
 """
 
 from __future__ import annotations
@@ -172,21 +175,10 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel failed to launch: CUDA error "
                            f"{err}")
-
-
-def _require_cuda(tensors, what: str) -> None:
-    devs = {t.device for t in tensors}
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(f"{what}: all inputs must lie on one CUDA device, "
-                         f"got {sorted(map(str, devs))}")
 
 
 def dp_parse_into(arrs, lc_len, S: int, span: torch.Tensor,
@@ -200,11 +192,13 @@ def dp_parse_into(arrs, lc_len, S: int, span: torch.Tensor,
     P, I = _build.PTR, _build.INT
     fn = _build.kernel("dp_parse", "dp_parse_launch",
                        [P] * 13 + [I, I, P, P, I, I, I, I, P])
-    _check(fn(*map(_ptr, arrs), _ptr(lc_len),
-              int(lc_len.dtype == torch.int64),
-              1 if lc_len.dim() == 1 else B, _ptr(span), _ptr(dist), S,
-              B * (n_pad // S), n_pad // S, ladder_rungs(ladder), _stream()),
-           "dp_parse")
+    with _build.launch_context(tuple(arrs) + (lc_len, span, dist),
+                               "dp_parse") as stream:
+        _check(fn(*map(_ptr, arrs), _ptr(lc_len),
+                  int(lc_len.dtype == torch.int64),
+                  1 if lc_len.dim() == 1 else B, _ptr(span), _ptr(dist), S,
+                  B * (n_pad // S), n_pad // S, ladder_rungs(ladder),
+                  stream), "dp_parse")
 
 
 def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
@@ -224,7 +218,6 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
     ladder_rungs(ladder)
     if cost_lit.device.type == "cpu":
         return dp_parse_plain(*arrs, lc_len, S, ladder)
-    _require_cuda(arrs + (lc_len,), "dp_parse")
     if any(a.dtype != torch.int64 or not a.is_contiguous() for a in arrs):
         raise ValueError("dp_parse: the [B, n_pad] arrays must be contiguous "
                          "int64 on CUDA")
@@ -237,7 +230,7 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
     dist = torch.empty_like(span)
     if span.numel():
         dp_parse_into(arrs, lc_len, S, span, dist, ladder)
-        dp_parse.launches += 1
+        _build.count_launch(dp_parse)
     return span, dist
 
 
@@ -251,8 +244,9 @@ def pack_groups_into(sbuf: torch.Tensor, gw: torch.Tensor,
     P, I = _build.PTR, _build.INT
     fn = _build.kernel("pack_groups", "pack_groups_launch",
                        [P, P, P, I, I, I, I, P])
-    _check(fn(_ptr(sbuf), _ptr(gw), _ptr(out), B, m, capw1, out.shape[1],
-              _stream()), "pack_groups")
+    with _build.launch_context((sbuf, gw, out), "pack_groups") as stream:
+        _check(fn(_ptr(sbuf), _ptr(gw), _ptr(out), B, m, capw1,
+                  out.shape[1], stream), "pack_groups")
 
 
 def pack_groups(sbuf: torch.Tensor, gw: torch.Tensor,
@@ -274,14 +268,13 @@ def pack_groups(sbuf: torch.Tensor, gw: torch.Tensor,
                              f"asserts")
     if sbuf.device.type == "cpu":
         return group_place(sbuf, gw, nwords)
-    _require_cuda((sbuf, gw), "pack_groups")
     if sbuf.dtype != torch.int64 or gw.dtype != torch.int64 \
             or not (sbuf.is_contiguous() and gw.is_contiguous()):
         raise ValueError("pack_groups: sbuf and gw must be contiguous int64 "
                          "on CUDA")
     out = torch.empty(B, nwords, dtype=torch.int64, device=sbuf.device)
     pack_groups_into(sbuf, gw, out)
-    pack_groups.launches += 1
+    _build.count_launch(pack_groups)
     return out
 
 

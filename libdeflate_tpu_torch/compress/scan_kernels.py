@@ -13,7 +13,8 @@ They replace XLA loop code (``lax.scan``s), not Pallas kernels:
 
 A wrapper given CUDA tensors launches its kernel or raises; it takes the
 plain version only for tensors on the CPU.  Each wrapper counts its
-kernel launches in its ``launches`` attribute.  ``pipeline.commit_items``
+kernel launches in its ``launches`` attribute and launches through
+``_build.launch_context``, as ``kernels.py``'s do.  ``pipeline.commit_items``
 and ``dynamic.build_code_lens_pair`` call them through this module, which
 they import when called (this module imports both).
 """
@@ -24,7 +25,7 @@ import torch
 
 from .. import _build
 from .dynamic import build_code_lens
-from .kernels import _check, _ptr, _require_cuda, _stream
+from .kernels import _check, _ptr
 from .pipeline import greedy_commit_merge
 
 CODE_LENS_MAX_SYM = 512     # the rank order's keys hist * 512 + nsym - i
@@ -46,8 +47,10 @@ def commit_fsm_into(span, is_match, dist, seg: int, heads: torch.Tensor,
     P, I = _build.PTR, _build.INT
     fn = _build.kernel("commit_fsm", "commit_fsm_launch",
                        [P, P, P, P, P, I, I, P])
-    _check(fn(_ptr(span), _ptr(is_match), _ptr(dist), _ptr(heads),
-              _ptr(eff), seg, span.numel() // seg, _stream()), "commit_fsm")
+    with _build.launch_context((span, is_match, dist, heads, eff),
+                               "commit_fsm") as stream:
+        _check(fn(_ptr(span), _ptr(is_match), _ptr(dist), _ptr(heads),
+                  _ptr(eff), seg, span.numel() // seg, stream), "commit_fsm")
 
 
 def commit_fsm(span: torch.Tensor, is_match: torch.Tensor,
@@ -65,7 +68,6 @@ def commit_fsm(span: torch.Tensor, is_match: torch.Tensor,
                          "one shape whose size is a multiple of seg")
     if span.device.type == "cpu":
         return greedy_commit_merge(span, is_match, dist, seg)
-    _require_cuda((span, is_match, dist), "commit_fsm")
     if span.dtype != torch.int64 or dist.dtype != torch.int64 \
             or is_match.dtype != torch.bool \
             or not (span.is_contiguous() and dist.is_contiguous()
@@ -76,7 +78,7 @@ def commit_fsm(span: torch.Tensor, is_match: torch.Tensor,
     eff = torch.empty(span.shape, dtype=torch.int64, device=span.device)
     if span.numel():
         commit_fsm_into(span, is_match, dist, seg, heads, eff)
-        commit_fsm.launches += 1
+        _build.count_launch(commit_fsm)
     return heads, eff
 
 
@@ -90,8 +92,9 @@ def code_lens_into(hist: torch.Tensor, refine_passes: int, max_len: int,
     P, I = _build.PTR, _build.INT
     fn = _build.kernel("code_lens", "code_lens_launch",
                        [P, P, P, I, I, I, I, P])
-    _check(fn(_ptr(hist), _ptr(lens), _ptr(ok), R, nsym, refine_passes,
-              max_len, _stream()), "code_lens")
+    with _build.launch_context((hist, lens, ok), "code_lens") as stream:
+        _check(fn(_ptr(hist), _ptr(lens), _ptr(ok), R, nsym, refine_passes,
+                  max_len, stream), "code_lens")
 
 
 def code_lens(hist: torch.Tensor, refine_passes: int, max_len: int):
@@ -106,7 +109,6 @@ def code_lens(hist: torch.Tensor, refine_passes: int, max_len: int):
         raise ValueError("code_lens: hist must be [R, nsym]")
     if hist.device.type == "cpu":
         return build_code_lens(hist, refine_passes, max_len)
-    _require_cuda((hist,), "code_lens")
     R, nsym = hist.shape
     if hist.dtype != torch.int64 or not hist.is_contiguous() \
             or not 1 <= nsym <= CODE_LENS_MAX_SYM or refine_passes < 0 \
@@ -119,7 +121,7 @@ def code_lens(hist: torch.Tensor, refine_passes: int, max_len: int):
     ok = torch.empty(R, dtype=torch.bool, device=hist.device)
     if R:
         code_lens_into(hist, refine_passes, max_len, lens, ok)
-        code_lens.launches += 1
+        _build.count_launch(code_lens)
     return lens, ok
 
 

@@ -63,8 +63,10 @@
 //   ~2 000 windows.
 // - Rows of the staging buffers are padded (kW + 1 words) so that the 32
 //   chain threads' reads at equal offsets fall in different banks.  The
-//   two buffers take 54 KB, above the 48 KB default, raised once with
-//   cudaFuncSetAttribute.
+//   two buffers take 54 KB, above the 48 KB default, raised once per
+//   device with cudaFuncSetAttribute.
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 
@@ -319,13 +321,19 @@ extern "C" int commit_fsm_launch(const long long* span,
                                  void* stream) {
   if (lanes <= 0) return 0;
   if (seg <= 0) return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        commit_fsm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(Smem));
+  // the shared-memory limit, raised at the first launch on each device (a
+  // bit per device; one past the 64th raises it at every launch)
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(commit_fsm_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(Smem));
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    raised.fetch_or(bit);
   }
   commit_fsm_kernel<<<(lanes + kLanes - 1) / kLanes, kThreads, sizeof(Smem),
                       (cudaStream_t)stream>>>(span, is_match, dist, heads,

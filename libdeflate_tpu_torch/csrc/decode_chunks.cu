@@ -53,7 +53,9 @@
 // reference's bounds, and the next block restages the ring at its landing
 // segment.  The window, K4's shared state and a small modulo table take
 // ~100 KB of dynamic shared memory, so the launch raises the kernel's
-// limit once.
+// limit once per device.
+
+#include <atomic>
 
 #include "inflate_common.cuh"
 
@@ -373,13 +375,19 @@ extern "C" int decode_chunks_launch(const uint32_t* comp, int B, int W,
                                     const int* consts, uint8_t* out,
                                     int out_bytes, int* status, int* out_lens,
                                     int* consumed, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_chunks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(DecSmem));
+  // the shared-memory limit, raised at the first launch on each device (a
+  // bit per device; one past the 64th raises it at every launch)
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(decode_chunks_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(DecSmem));
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    raised.fetch_or(bit);
   }
   if (B > 0)
     decode_chunks_kernel<<<B, 32, sizeof(DecSmem), (cudaStream_t)stream>>>(

@@ -93,6 +93,8 @@
 // time, and without its input loads ~0.95 (experiments/dp_variants.py).
 // The lc costs are taken as non-negative (they are bit counts).
 
+#include <atomic>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -397,18 +399,20 @@ template <int G, typename L, typename Key>
 int launch(const Inputs& in, const void* lc, int lc_is64, int lc_rows,
            long long* span, long long* dist, int S, int lanes, int lpc,
            cudaStream_t stream) {
-  // the shared-memory limit, raised at the first launch on each device
-  static unsigned long long raised = 0;  // a bit per device
+  // the shared-memory limit, raised at the first launch on each device (a
+  // bit per device; one past the 64th raises it at every launch)
+  static std::atomic<unsigned long long> raised{0};
   const int smem = (int)(kWarps * sizeof(WarpSmem<G, L, Key>));
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !(raised >> dev & 1)) {
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(raised.load() & bit)) {
     err = cudaFuncSetAttribute(dp_parse_kernel<G, L, Key>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
-    if (dev < 64) raised |= 1ull << dev;
+    raised.fetch_or(bit);
   }
   const int per_block = kWarps * Shape<G, L>::kLanes;
   dp_parse_kernel<G, L, Key><<<(lanes + per_block - 1) / per_block,

@@ -84,10 +84,12 @@
 //   (a code longer than the root, a bound reached, a failure and its bit
 //   cursor, an EOB) takes the third path, as symbol_loop walks it.  The window, ring, tables and roots
 //   take about 113 KiB of dynamic shared memory; the launcher raises the
-//   limit once.
+//   limit once per device.
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -873,13 +875,19 @@ extern "C" int fsm_decode_launch(const uint8_t* bufs, int B, int N,
                                  const int* in_lens, int out_cap,
                                  uint8_t* out, int* out_lens, int* consumed,
                                  int* result, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fsm_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(Smem));
+  // the shared-memory limit, raised at the first launch on each device (a
+  // bit per device; one past the 64th raises it at every launch)
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(fsm_decode_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(Smem));
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    raised.fetch_or(bit);
   }
   if (B > 0)
     fsm_decode_kernel<<<B, 32, sizeof(Smem), (cudaStream_t)stream>>>(

@@ -419,15 +419,17 @@ def decompress_chunks_words(comp_words, comp_len, out_len, out_bytes: int,
     fn = _build.kernel("decode_chunks", "decode_chunks_launch",
                        [P, I, I, I, P, P, I, P, P, I, P, P, P, P])
     p = ctypes.c_void_p
-    err = fn(p(words.data_ptr()), B, W, W_pad, p(comp_len.data_ptr()),
-             p(out_len.data_ptr()), int(known_size), p(consts.data_ptr()),
-             p(out.data_ptr()), out_bytes, p(res[0].data_ptr()),
-             p(res[1].data_ptr()), p(res[2].data_ptr()),
-             p(torch.cuda.current_stream(dev).cuda_stream))
+    with _build.launch_context((words, comp_len, out_len, consts, out, res),
+                               "decode_chunks") as stream:
+        err = fn(p(words.data_ptr()), B, W, W_pad, p(comp_len.data_ptr()),
+                 p(out_len.data_ptr()), int(known_size),
+                 p(consts.data_ptr()), p(out.data_ptr()), out_bytes,
+                 p(res[0].data_ptr()), p(res[1].data_ptr()),
+                 p(res[2].data_ptr()), stream)
     if err != 0:
         raise RuntimeError(f"decode_chunks kernel failed to launch: CUDA "
                            f"error {err}")
-    decompress_chunks_words.launches += 1
+    _build.count_launch(decompress_chunks_words)
     return out, res[0], res[1], res[2]
 
 

@@ -529,14 +529,15 @@ def decompress_chunks(bufs, in_lens, out_cap: int, device=None):
     fn = _build.kernel("fsm_decode", "fsm_decode_launch",
                        [P, I, I, P, I, P, P, P, P, P])
     p = ctypes.c_void_p
-    err = fn(p(bufs.data_ptr()), B, N, p(in_lens.data_ptr()), out_cap,
-             p(out.data_ptr()), p(res[0].data_ptr()), p(res[1].data_ptr()),
-             p(res[2].data_ptr()),
-             p(torch.cuda.current_stream(dev).cuda_stream))
+    with _build.launch_context((bufs, in_lens, out, res),
+                               "fsm_decode") as stream:
+        err = fn(p(bufs.data_ptr()), B, N, p(in_lens.data_ptr()), out_cap,
+                 p(out.data_ptr()), p(res[0].data_ptr()),
+                 p(res[1].data_ptr()), p(res[2].data_ptr()), stream)
     if err != 0:
         raise RuntimeError(f"fsm_decode kernel failed to launch: CUDA error "
                            f"{err}")
-    decompress_chunks.launches += 1
+    _build.count_launch(decompress_chunks)
     return out, res[0], res[1], res[2]
 
 

@@ -39,11 +39,10 @@ def entry(device=None):
 def dryrun_multichip(n_devices: int, devices=None) -> None:
     """Run the full chunk-DP compress step over an n-device mesh on tiny
     shapes, then the decode direction, and check both: the first
-    ``n_devices`` of ``devices`` (every CUDA device when None)."""
+    ``n_devices`` of ``devices`` (every CUDA device when None, the
+    default mesh), their shards run at once."""
     if devices is None:
-        resolve_device()
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = mesh_mod.make_chunk_mesh().devices
     mesh = mesh_mod.make_chunk_mesh(list(devices)[:n_devices])
 
     rng = np.random.default_rng(1)

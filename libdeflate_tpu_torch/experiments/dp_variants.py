@@ -114,10 +114,11 @@ def launch(fn, args, S: int, span, dist,
         return ctypes.c_void_p(t.data_ptr())
 
     rungs = [kernels.ladder_rungs(ladder)] if fn.takes_ladder else []
-    err = fn(*map(ptr, arrs), ptr(lc), int(lc.dtype == torch.int64),
-             1 if lc.dim() == 1 else B, ptr(span), ptr(dist), S,
-             B * (n_pad // S), n_pad // S, *rungs,
-             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    with _build.launch_context(tuple(arrs) + (lc, span, dist),
+                               "dp_parse variant") as stream:
+        err = fn(*map(ptr, arrs), ptr(lc), int(lc.dtype == torch.int64),
+                 1 if lc.dim() == 1 else B, ptr(span), ptr(dist), S,
+                 B * (n_pad // S), n_pad // S, *rungs, stream)
     if err:
         raise RuntimeError(f"dp_parse variant failed to launch: {err}")
 

@@ -43,6 +43,7 @@ import zlib
 import numpy as np
 import torch
 
+from .. import _build
 from ..compress.dynamic import (
     compress_chunks_dynamic,
     compress_chunks_dynamic2,
@@ -93,7 +94,7 @@ def grid_copy(x: torch.Tensor, steps: int) -> torch.Tensor:
         return copy_plain(x)
     out = exp_launch_overhead.launch_probe("grid_copy", "grid_copy_launch",
                                            x, x.numel(), steps)
-    grid_copy.launches += 1
+    _build.count_launch(grid_copy)
     return out
 
 

@@ -72,9 +72,9 @@ def launch_probe(name: str, fn_name: str, x: torch.Tensor,
     fn = _build.kernel("launch_probes", fn_name,
                        [_build.PTR] * 2 + [_build.INT] * len(ints)
                        + [_build.PTR])
-    err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-             *ints, ctypes.c_void_p(torch.cuda.current_stream(
-                 x.device).cuda_stream))
+    with _build.launch_context((x, out), name) as stream:
+        err = fn(ctypes.c_void_p(x.data_ptr()),
+                 ctypes.c_void_p(out.data_ptr()), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel failed to launch: CUDA error "
                            f"{err}")
@@ -93,7 +93,7 @@ def grid_add_one(x: torch.Tensor, rows: int = ROWS) -> torch.Tensor:
         return add_one_plain(x)
     out = launch_probe("grid_add_one", "grid_add_one_launch", x, n_steps,
                        rows)
-    grid_add_one.launches += 1
+    _build.count_launch(grid_add_one)
     return out
 
 
@@ -106,7 +106,7 @@ def loop_add_one(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16:
         raise ValueError("loop_add_one: x must be 16-byte aligned")
     out = launch_probe("loop_add_one", "loop_add_one_launch", x, ntiles)
-    loop_add_one.launches += 1
+    _build.count_launch(loop_add_one)
     return out
 
 

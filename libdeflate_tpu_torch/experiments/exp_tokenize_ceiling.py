@@ -267,7 +267,7 @@ def tokenize_chunks(comp_words, comp_len, out_len, unroll: int = 1,
         raise ValueError(f"tokenize_chunks runs on CUDA or the CPU, not "
                          f"{dev}")
     res = _launch(words, comp_len, out_len, unroll, store_tokens, None)
-    tokenize_chunks.launches += 1
+    _build.count_launch(tokenize_chunks)
     return res[0], res[1], res[2]
 
 
@@ -283,12 +283,15 @@ def _launch(words, comp_len, out_len, unroll, store_tokens, cycles):
     fn = _build.kernel("tokenize_chunks", "tokenize_chunks_launch",
                        [P, I, I, I, P, P, P, I, I, P, P, P, P, P])
     p = ctypes.c_void_p
-    err = fn(p(words.data_ptr()), B, W, -(-W // 1024) * 1024,
-             p(comp_len.data_ptr()), p(out_len.data_ptr()),
-             p(consts.data_ptr()), unroll, int(bool(store_tokens)),
-             p(res[0].data_ptr()), p(res[1].data_ptr()), p(res[2].data_ptr()),
-             p(None if cycles is None else cycles.data_ptr()),
-             p(torch.cuda.current_stream(dev).cuda_stream))
+    tensors = (words, comp_len, out_len, consts, res) + (
+        () if cycles is None else (cycles,))
+    with _build.launch_context(tensors, "tokenize_chunks") as stream:
+        err = fn(p(words.data_ptr()), B, W, -(-W // 1024) * 1024,
+                 p(comp_len.data_ptr()), p(out_len.data_ptr()),
+                 p(consts.data_ptr()), unroll, int(bool(store_tokens)),
+                 p(res[0].data_ptr()), p(res[1].data_ptr()),
+                 p(res[2].data_ptr()),
+                 p(None if cycles is None else cycles.data_ptr()), stream)
     if err != 0:
         raise RuntimeError(f"tokenize_chunks kernel failed to launch: CUDA "
                            f"error {err}")
@@ -316,8 +319,8 @@ def shared_load_latency(steps: int = 1 << 16) -> dict:
     out = torch.zeros(3, dtype=torch.int64, device=dev)
     fn = _build.kernel("tokenize_chunks", "shared_chase_launch",
                        [_build.INT, _build.PTR, _build.PTR])
-    err = fn(steps, ctypes.c_void_p(out.data_ptr()),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with _build.launch_context((out,), "shared_chase") as stream:
+        err = fn(steps, ctypes.c_void_p(out.data_ptr()), stream)
     if err != 0:
         raise RuntimeError(f"shared_chase kernel failed to launch: CUDA "
                            f"error {err}")

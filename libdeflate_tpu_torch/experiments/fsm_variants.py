@@ -99,10 +99,11 @@ def launch(fn, bufs: torch.Tensor, lens: torch.Tensor, out_cap: int):
     out = torch.empty(B, out_cap, dtype=torch.uint8, device=bufs.device)
     res = torch.empty(3, B, dtype=torch.int32, device=bufs.device)
     p = ctypes.c_void_p
-    err = fn(p(bufs.data_ptr()), B, N, p(lens.data_ptr()), out_cap,
-             p(out.data_ptr()), p(res[0].data_ptr()), p(res[1].data_ptr()),
-             p(res[2].data_ptr()),
-             p(torch.cuda.current_stream(bufs.device).cuda_stream))
+    with _build.launch_context((bufs, lens, out, res),
+                               "fsm_decode build") as stream:
+        err = fn(p(bufs.data_ptr()), B, N, p(lens.data_ptr()), out_cap,
+                 p(out.data_ptr()), p(res[0].data_ptr()),
+                 p(res[1].data_ptr()), p(res[2].data_ptr()), stream)
     if err:
         raise RuntimeError(f"fsm_decode build failed to launch: {err}")
     return out, res[0], res[1], res[2]

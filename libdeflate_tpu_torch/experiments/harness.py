@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import threading
 
 from .. import _build
 
@@ -54,19 +55,26 @@ def build_tagged(sources: dict) -> tuple[dict, dict]:
 
 
 class Recording:
-    """A kernel wrapper that keeps each call's positional arguments and
-    result; its ``launches`` is the wrapper's own, so the wrapper's
-    count, which reads its module's name, goes on counting."""
+    """A kernel wrapper that keeps each call's positional arguments,
+    result and calling thread's name, in the order the calls ended (a
+    mesh's shards call from threads of their own); its ``launches`` is
+    the wrapper's own, so the wrapper's count, which reads its module's
+    name, goes on counting."""
 
     def __init__(self, wrapper):
         self.wrapper = wrapper
         self.seen = []
         self.results = []
+        self.threads = []
+        self._lock = threading.Lock()
 
     def __call__(self, *args):
-        self.seen.append(args)
-        self.results.append(self.wrapper(*args))
-        return self.results[-1]
+        result = self.wrapper(*args)
+        with self._lock:
+            self.seen.append(args)
+            self.results.append(result)
+            self.threads.append(threading.current_thread().name)
+        return result
 
     @property
     def launches(self):

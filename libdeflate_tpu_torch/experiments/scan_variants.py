@@ -81,10 +81,6 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 def launcher(fns: dict, tree: str, name: str, args: tuple):
     """(a function that launches the build of ``tree`` on ``args`` into
     fixed outputs, the outputs)."""
@@ -94,6 +90,7 @@ def launcher(fns: dict, tree: str, name: str, args: tuple):
         outs = (torch.empty_like(is_match), torch.empty_like(span))
         call = (_p(span), _p(is_match), _p(dist), _p(outs[0]), _p(outs[1]),
                 seg, span.numel() // seg)
+        tensors = (span, is_match, dist) + outs
     else:
         hist, refine, max_len = args
         outs = (torch.empty_like(hist),
@@ -101,9 +98,11 @@ def launcher(fns: dict, tree: str, name: str, args: tuple):
                             device=hist.device))
         call = (_p(hist), _p(outs[0]), _p(outs[1]), hist.shape[0],
                 hist.shape[1], refine, max_len)
+        tensors = (hist,) + outs
 
     def run():
-        err = fn(*call, _stream())
+        with _build.launch_context(tensors, f"{name} ({tree})") as stream:
+            err = fn(*call, stream)
         if err:
             raise RuntimeError(f"{name} ({tree}) failed to launch: {err}")
     return run, outs

@@ -21,9 +21,10 @@ bf16, which rounds the CRC's 0/1 sums (up to 8 * 2048) and so loses the
 parity bit that is all the CRC keeps, and CUDA has no int8 ``torch.matmul``.
 Every operand is an integer of at most 255 (TF32 keeps 10 mantissa bits)
 and every sum is below 2**24 (Adler: 256 * 255 * 255; CRC: 16384), so the
-products are exact in float32 and in TF32 alike.  ``_exact_matmul`` turns
-TF32 on for them (``torch.backends.cuda.matmul.allow_tf32``) and restores
-the caller's setting: exact, and on the card's tensor cores.
+products are exact in float32 and in TF32 alike: each is the plain
+``torch.matmul`` under whatever TF32 setting the caller chose, and the
+module writes no process-wide setting (the mesh's shards run it from
+threads of their own).
 
 Registers and sums are int64 holding unsigned 32-bit values: torch's
 ``uint32`` has no shifts, adds or compares on the CPU.  Results are int64
@@ -31,6 +32,8 @@ tensors with values below 2**32.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -70,27 +73,27 @@ _BLOCK_MAT = _bits_matrix(BLOCK_BITS_MATRIX)
 # the constant matrices per device: a 2 MiB host-to-device copy in every
 # call would cost time and cannot be captured in a CUDA graph
 _on_device: dict[torch.device, tuple] = {}
+_on_device_lock = threading.Lock()
 
 
 def _matrices(dev: torch.device):
     """(block matrix, advance bits, inverse advance bits) on dev, copied
-    once per device."""
-    if dev not in _on_device:
-        _on_device[dev] = tuple(torch.as_tensor(m, device=dev) for m in
-                                (_BLOCK_MAT, _ADV_BITS, _IADV_BITS))
-    return _on_device[dev]
+    once per device: under a lock, and finished before any thread reads
+    them, whatever stream it reads them on."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mats = _on_device.get(dev)
+    if mats is None:
+        with _on_device_lock:
+            mats = _on_device.get(dev)
+            if mats is None:
+                mats = tuple(torch.as_tensor(m, device=dev) for m in
+                             (_BLOCK_MAT, _ADV_BITS, _IADV_BITS))
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+                _on_device[dev] = mats
+    return mats
 
-
-def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for float32 operands that are integers of at most 255 with
-    sums below 2**24: exact in float32 and in TF32, so TF32 is allowed for
-    the product (and the caller's setting restored)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        return torch.matmul(a, b)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _gf2_apply(mbits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -148,7 +151,7 @@ def adler32_rows(bufs, lengths, inits, device=None) -> torch.Tensor:
     lane = torch.arange(cols, device=dev)
     wts = torch.stack([torch.ones(cols, device=dev),
                        lane.to(torch.float32)], 1)
-    sums = _exact_matmul(b2.to(torch.float32), wts).to(torch.int64)
+    sums = torch.matmul(b2.to(torch.float32), wts).to(torch.int64)
 
     # the row holding the end of the data, masked exactly
     r_b = torch.clamp(length // cols, max=rows - 1)
@@ -202,7 +205,7 @@ def crc32_rows(bufs, lengths, inits, device=None) -> torch.Tensor:
     bits = (window.reshape(B * nb, CRC_BLOCK, 1)
             >> torch.arange(8, dtype=torch.uint8, device=dev)) & 1
     block_mat, adv, iadv = _matrices(dev)
-    s = _exact_matmul(bits.reshape(B * nb, 8 * CRC_BLOCK).to(torch.float32),
+    s = torch.matmul(bits.reshape(B * nb, 8 * CRC_BLOCK).to(torch.float32),
                       block_mat)
     sh = torch.arange(32, device=dev)
     v = ((s.to(torch.int64) & 1) << sh).sum(-1).reshape(B, nb)

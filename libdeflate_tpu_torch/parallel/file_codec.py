@@ -64,8 +64,8 @@ def deflate_compress_dp(
 
     ``level`` picks the chunk compressor (``mesh.chunk_compressor``).  The
     checksums of the *uncompressed* data come along from the device pass,
-    pre-combined for wrapper trailers.  ``mesh=None`` is the current CUDA
-    device alone (``make_chunk_mesh()``)."""
+    pre-combined for wrapper trailers.  ``mesh=None`` is every CUDA
+    device (``make_chunk_mesh()``), its shards run at once."""
     if mesh is None:
         mesh = mesh_mod.make_chunk_mesh()
     ndev = len(mesh.devices)

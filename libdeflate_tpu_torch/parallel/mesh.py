@@ -2,21 +2,38 @@
 
 Counterpart of ``libdeflate_tpu/parallel/mesh.py``.  The JAX mesh is one
 program over every device: ``shard_map`` runs the chunk compressor on
-each device's contiguous shard of the batch and ``all_gather`` hands
-every shard the per-chunk sizes.  Here one host thread drives the same
-split over a ``ChunkMesh``, a tuple of ``torch.device``:
+each device's contiguous shard of the batch, every shard at the same
+time, and ``all_gather`` hands every shard the per-chunk sizes.  Here one
+process drives the same split over a ``ChunkMesh``, a tuple of
+``torch.device``, with every shard at once:
 
-- each shard runs the chunk compressor of its level on its own device,
-  as one batched call (the JAX shard's ``vmap``), and the per-chunk
-  device checksums beside it (``ops/checksums.py``);
-- the gather is the shards' sizes concatenated, in shard order, into
-  one ``[B]`` tensor: the global byte layout that the whole-file
-  assembly (``parallel/file_codec.py``) reads.
+- each shard runs in a worker thread of its own (one
+  ``threading.Thread`` a shard, all started before any is joined): the
+  chunk compressor of its level on its own device, as one batched call
+  (the JAX shard's ``vmap``), and the per-chunk device checksums beside
+  it (``ops/checksums.py``), or the decoder;
+- a CUDA shard runs on its device as the current device and on a
+  ``torch.cuda.Stream`` of its own (one a device and shard index, kept
+  across calls), which first waits for the caller's stream: the calling
+  thread has put the shard's inputs on its device there.  Every kernel
+  wrapper launches on its tensors' device and that device's current
+  stream of the calling thread (``_build.launch_context``), so the
+  shards' kernels run side by side on one card or across cards; a CPU
+  shard runs in its thread with no stream;
+- the gather waits, on the caller's streams, for an event at the end of
+  each shard's stream, then concatenates the shards' results in shard
+  order into one ``[B]`` tensor on the mesh's first device: the global
+  byte layout that the whole-file assembly (``parallel/file_codec.py``)
+  reads.  A tensor that one stream allocated and another reads is marked
+  with ``record_stream``;
+- a shard that raises makes the call raise its error (the first in shard
+  order) once every thread has ended.
 
-The shards run in turn, so more cards would only cut the batch into
-smaller host-paced calls: the default mesh is the current CUDA device,
-and a caller who wants several names them.  Chunk streams are
-byte-aligned sync-flushed DEFLATE fragments, so ordered assembly is
+The default mesh is every CUDA device, as JAX's ``jax.devices()``; on a
+machine with one card, that card alone, whose batch the tier entry runs
+as one call.  Repeated devices are separate shards, so
+``["cuda:0"] * 4`` runs four shards at once on one card.  Chunk streams
+are byte-aligned sync-flushed DEFLATE fragments, so ordered assembly is
 concatenation, and every chunk's bits are independent of the mesh's
 size.
 """
@@ -24,6 +41,7 @@ size.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,16 +64,25 @@ class ChunkMesh:
 
 def make_chunk_mesh(devices=None) -> ChunkMesh:
     """A mesh over ``devices`` (names or ``torch.device``s; repeats are
-    separate shards, so ``["cpu"] * 8`` is an 8-device CPU mesh), by
-    default the current CUDA device alone.  Without CUDA the default
-    raises: the mesh never falls back to the CPU."""
+    separate shards, so ``["cpu"] * 8`` is an 8-device CPU mesh and
+    ``["cuda:0"] * 4`` four shards on one card; "cuda" is the current
+    CUDA device), by default every CUDA device, as ``jax.devices()``.
+    Without CUDA the default raises: the mesh never falls back to the
+    CPU."""
     if devices is None:
         resolve_device()
-        devices = [torch.device("cuda", torch.cuda.current_device())]
-    devices = tuple(torch.device(d) for d in devices)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = tuple(_indexed(torch.device(d)) for d in devices)
     if not devices:
         raise ValueError("a chunk mesh needs at least one device")
     return ChunkMesh(devices)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def chunk_compressor(level: int):
@@ -86,33 +113,99 @@ def _shards(mesh: ChunkMesh, batch: int):
             for k, dev in enumerate(mesh.devices)]
 
 
-def _gather(parts, lead: torch.device) -> torch.Tensor:
-    """The shards' results, in shard order, as one tensor on ``lead``."""
-    return torch.cat([p.to(lead) for p in parts])
+# each shard's stream, by (device, shard index), made once: the caching
+# allocator keeps freed blocks for the stream that allocated them, so a
+# new stream a call would allocate every call's memory anew
+_side_streams: dict[tuple[torch.device, int], torch.cuda.Stream] = {}
+_side_lock = threading.Lock()
+
+
+def _side_stream(dev: torch.device, k: int) -> torch.cuda.Stream:
+    with _side_lock:
+        side = _side_streams.get((dev, k))
+        if side is None:
+            side = _side_streams[dev, k] = torch.cuda.Stream(dev)
+    return side
+
+
+def _shard_call(k: int, dev: torch.device, fn, args, caller):
+    """fn(dev, *args) of shard k in this worker thread: on a CUDA shard
+    with ``dev`` current and on the shard's stream, which first waits for
+    ``caller`` (the caller's stream on dev, which put args there).
+    Returns (fn's tuple of tensors, the event at its stream's end or
+    None)."""
+    if dev.type != "cuda":
+        return fn(dev, *args), None
+    with torch.cuda.device(dev):
+        side = _side_stream(dev, k)
+        side.wait_stream(caller)
+        for a in args:
+            a.record_stream(side)
+        with torch.cuda.stream(side):
+            out = fn(dev, *args)
+        done = torch.cuda.Event()
+        done.record(side)
+    return out, done
+
+
+def _at_once(mesh: ChunkMesh, fn, shard_args):
+    """fn(device, *args) for every shard at once, one worker thread a
+    shard, ``shard_args`` each shard's tensors on its device.  Returns
+    each field of fn's tuple gathered in shard order on the mesh's first
+    device.  A shard's error is raised once every thread has ended."""
+    callers = {dev: torch.cuda.current_stream(dev) for dev in mesh.devices
+               if dev.type == "cuda"}
+    ended = [None] * len(mesh.devices)
+
+    def run(k, dev, args):
+        try:
+            ended[k] = _shard_call(k, dev, fn, args, callers.get(dev)), None
+        except BaseException as e:          # raised once every shard ends
+            ended[k] = None, e
+
+    threads = [threading.Thread(target=run, args=(k, dev, args),
+                                name=f"chunk-shard_{k}")
+               for k, (dev, args) in enumerate(zip(mesh.devices,
+                                                   shard_args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    outs = []
+    for dev, (result, error) in zip(mesh.devices, ended):
+        if error is not None:
+            raise error
+        out, done = result
+        if done is not None:
+            callers[dev].wait_event(done)
+            for t in out:
+                t.record_stream(callers[dev])
+        outs.append(out)
+    lead = mesh.devices[0]
+    return [torch.cat([p.to(lead) for p in col]) for col in zip(*outs)]
 
 
 def compress_chunks_dp(mesh: ChunkMesh, bufs, lengths, bfinal,
                        level: int = 1):
     """Compress [B, N] chunks data-parallel over the mesh.
 
-    B must be a multiple of the mesh size (pad with empty chunks).
-    Returns (words int32[B, W] holding the uint32 bit patterns,
-    total_bits [B], crcs [B], adlers [B], all_bits [B]), on the mesh's
-    first device."""
+    B must be a multiple of the mesh size (pad with empty chunks).  Every
+    shard runs at once (``_at_once``).  Returns (words int32[B, W]
+    holding the uint32 bit patterns, total_bits [B], crcs [B], adlers [B],
+    all_bits [B]), on the mesh's first device."""
     compress = chunk_compressor(level)
     bufs = as_tensor(bufs, np.uint8)
     lengths = as_tensor(lengths, np.int64)
     bfinal = as_tensor(bfinal, bool)
-    outs = []
-    for dev, part in _shards(mesh, bufs.shape[0]):
-        b, n, f = from_numpy_batch(bufs[part], lengths[part], bfinal[part],
-                                   dev)
+
+    def shard(dev, b, n, f):
         words, total_bits = compress(b, n, f, device=dev)
-        outs.append((words, total_bits, crc32_chunks(b, n, device=dev),
-                     adler32_chunks(b, n, device=dev)))
-    lead = mesh.devices[0]
-    words, total_bits, crcs, adlers = (_gather(list(col), lead)
-                                       for col in zip(*outs))
+        return (words, total_bits, crc32_chunks(b, n, device=dev),
+                adler32_chunks(b, n, device=dev))
+
+    words, total_bits, crcs, adlers = _at_once(mesh, shard, [
+        from_numpy_batch(bufs[part], lengths[part], bfinal[part], dev)
+        for dev, part in _shards(mesh, bufs.shape[0])])
     return words, total_bits, crcs, adlers, total_bits.clone()
 
 
@@ -142,9 +235,9 @@ def decompress_chunks_dp(mesh: ChunkMesh, bufs, in_lens, out_lens,
     ``decoder`` "fsm", "pallas" or "auto" (``resolve_decoder``: K3 on a
     CUDA mesh, the FSM decoder on CPU devices).  Each shard runs the
     decoder's ``decompress_chunks`` on its device (the kernel on CUDA,
-    the plain version on the CPU).  Known-size contract at the mesh
-    layer: a chunk that decodes (status 0) to other than its
-    ``out_lens`` is BAD_DATA (1).  Returns (out uint8[B, out_cap],
+    the plain version on the CPU), every shard at once.  Known-size
+    contract at the mesh layer: a chunk that decodes (status 0) to other
+    than its ``out_lens`` is BAD_DATA (1).  Returns (out uint8[B, out_cap],
     out_lens [B], consumed [B], status [B], all_lens [B]) on the mesh's
     first device."""
     decode_fn = {"fsm": fsm.decompress_chunks,
@@ -153,17 +246,17 @@ def decompress_chunks_dp(mesh: ChunkMesh, bufs, in_lens, out_lens,
     bufs = as_tensor(bufs, np.uint8)
     in_lens = as_tensor(in_lens, np.int32)
     out_lens = as_tensor(out_lens, np.int32)
-    outs = []
-    for dev, part in _shards(mesh, bufs.shape[0]):
-        out, oplens, consumed, status = decode_fn(
-            bufs[part], in_lens[part], out_cap, device=dev)
-        want = out_lens[part].to(dev, oplens.dtype)
+
+    def shard(dev, b, n, want):
+        out, oplens, consumed, status = decode_fn(b, n, out_cap, device=dev)
         status = torch.where((status == 0) & (oplens != want),
                              torch.ones_like(status), status)
-        outs.append((out, oplens, consumed, status))
-    lead = mesh.devices[0]
-    out, oplens, consumed, status = (_gather(list(col), lead)
-                                     for col in zip(*outs))
+        return out, oplens, consumed, status
+
+    out, oplens, consumed, status = _at_once(mesh, shard, [
+        (bufs[part].to(dev), in_lens[part].to(dev),
+         out_lens[part].to(dev, torch.int32))
+        for dev, part in _shards(mesh, bufs.shape[0])])
     return out, oplens, consumed, status, oplens.clone()
 
 

@@ -22,6 +22,7 @@ chip_smoke.py.  Tolerance: exact.
 """
 
 import ast
+import contextlib
 import ctypes
 import subprocess
 import sys
@@ -209,7 +210,8 @@ def test_pack_launch_sets_its_signature_once(monkeypatch):
     """Two bare launches of the pack kernel through its wrapper's launch
     helper: two calls, one signature."""
     fn, _ = _stand_in_library(monkeypatch, "pack_groups_launch")
-    monkeypatch.setattr(kernels, "_stream", lambda: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "launch_context", lambda tensors, what:
+                        contextlib.nullcontext(ctypes.c_void_p(0)))
     sbuf = torch.zeros(2, 3, 46, dtype=torch.int64)
     gw = torch.zeros(2, 3, dtype=torch.int64)
     out = torch.empty(2, 50, dtype=torch.int64)
@@ -283,7 +285,8 @@ def test_scan_launch_sets_its_signature_once(which, monkeypatch):
     calls, one signature, one argument a C parameter."""
     from libdeflate_tpu_torch.compress import scan_kernels
     fn, _ = _stand_in_library(monkeypatch, f"{which}_launch")
-    monkeypatch.setattr(scan_kernels, "_stream", lambda: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "launch_context", lambda tensors, what:
+                        contextlib.nullcontext(ctypes.c_void_p(0)))
     for _ in range(2):
         if which == "commit_fsm":
             span, is_match, dist, seg = _scan_inputs(which)
