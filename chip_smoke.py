@@ -23,6 +23,19 @@ two paths through their entry points:
   rows of 286, 30 and 512 symbols); one kernel node a wrapper call in a
   CUDA graph; each timed beside its plain version, the torch loop, in
   turns;
+- the chain extension (``chain_phase``): C3, the multi-stride relaxation
+  (``csrc/chain_extend.cu``'s ``chain_relax``), and C4, the stride-8
+  doubling (``chain_double``), which replace XLA code of the JAX
+  package's candidate stage, equal to their plain versions on the card
+  on every call of one batch of lean, optfast, optimal, deep, static,
+  dyn1, dyn2 and dyn3 (their rescue passes too), on the scripts' lean
+  triples at every stride set the repository passes, and on
+  ``experiments/crafted_chain.py``'s sets at tiles of 64, 256 and 1024
+  positions; one kernel node a wrapper call in a CUDA graph; each timed
+  beside its plain version in turns.  No compress path may run the
+  plain chain extensions on CUDA tensors (``guard_plain_chain``), and
+  every tier's launch counts show C3 on each DP call and C4 on each
+  greedy call and rescue pass;
 - compress: lean min-cost-DP raw-DEFLATE compress of a 16 MiB corpus in
   1 MiB chunks, 4 chunks per call, through ``compress_chunks_lean``; K1,
   K2, C1 and C2 each launched; every chunk round-trips through zlib, and
@@ -187,8 +200,10 @@ two paths through their entry points:
   checked in the SASS for their token stores, and K5-K7 against x + 1
   and x.clone() (K6 at 1 to 1000 tiles; K7 at 1 to 2**20 floats, a view
   one float into its buffer, more blocks than 16-byte pieces), and K5 is
-  timed in turns beside the launch floor (an empty kernel on K5's grid)
-  and x + 1, each by graph replay.  K4's
+  timed in turns beside the launch floor (an empty kernel on K5's grid),
+  its earlier per-element design (built at run time), K6's kernel on
+  its input and
+  x + 1, each by graph replay.  K4's
   chain is set beside its floor: the plain version's table lookups of
   the chunk with the most tokens times the card's dependent
   shared-memory load latency, and K4's clock64() cycles per chunk in the
@@ -265,13 +280,30 @@ SOAK_BATCHES = 18           # two batches of each of the nine tiers
 FUZZ_SEED = 0
 FUZZ_ITERS = 24             # host trials, each also a device trial
 # the launch floor beside K5: a kernel that does nothing, timed in turns
-# with K5 and x + 1, FLOOR_TURNS turns of 200 graph-replayed launches each
+# with K5 and x + 1, FLOOR_TURNS turns of 200 graph-replayed launches each;
+# beside them K5's earlier design (a block a tile, a thread an element,
+# 4-byte loads), built here, and K6's kernel (a wave of SM-count blocks,
+# 16 bytes a thread) on the same input
 FLOOR_TURNS = 8
 LAUNCH_FLOOR_CU = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
 extern "C" int empty_launch(int blocks, int threads, void* stream) {
   empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+__global__ void add_one_elem_kernel(const int* __restrict__ x,
+                                   int* __restrict__ o, int tile) {
+  const size_t base = (size_t)blockIdx.x * tile;
+  for (int i = threadIdx.x; i < tile; i += blockDim.x)
+    o[base + i] = x[base + i] + 1;
+}
+extern "C" int add_one_elem_launch(const int* x, int* o, int n_steps,
+                                  int rows, void* stream) {
+  const int tile = rows * 128;
+  if (n_steps > 0)
+    add_one_elem_kernel<<<n_steps, tile < 1024 ? tile : 1024, 0,
+                         (cudaStream_t)stream>>>(x, o, tile);
   return (int)cudaGetLastError();
 }
 """
@@ -282,6 +314,13 @@ CROSS_PLAIN_CHUNKS = [0, 12]  # chunks K3 is held to its plain version on
 # shard, best of 3 timed calls or one)
 FILE_LEVELS = {0: ("static", 0, 1), 1: ("dyn1", 0, 3), 6: ("level5", 1, 3),
                9: ("level8", 2, 1), 12: ("level10", 2, 1)}
+# C3's and C4's launches a call of a level's tier on one shard: the
+# greedy tiers double, the DP tiers relax, level 12's rescue pass doubles
+FILE_CHAIN = {0: {"chain_relax": 0, "chain_double": 1},
+              1: {"chain_relax": 0, "chain_double": 1},
+              6: {"chain_relax": 1, "chain_double": 0},
+              9: {"chain_relax": 1, "chain_double": 0},
+              12: {"chain_relax": 1, "chain_double": 1}}
 
 
 def card_line() -> str:
@@ -621,6 +660,7 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
     leanD with four blocks, lean with 64-item groups) held to its plain
     version and timed by graph replay beside index_add_.  Returns the
     launches, the largest errors and the times for the kernel line."""
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
@@ -635,16 +675,25 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
     bfinal = torch.zeros(BATCH, dtype=torch.bool, device=dev)
     entries = option_entries()
     launches, words = {}, {}
+    chain = {}
     for name, (entry, dp_calls, pin) in entries.items():
-        pk.reset_launch_counts()
-        sk.reset_launch_counts()
-        dd.reset_launch_counts()
+        for mod in (pk, sk, dd, ck):
+            mod.reset_launch_counts()
         outs = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
         got = {"dp_parse": pk.dp_parse.launches,
                "pack_groups": pk.pack_groups.launches,
                "commit_fsm": sk.commit_fsm.launches,
                "code_lens": sk.code_lens.launches}
+        # C3 once a DP call; C4 once a greedy call (and once more where a
+        # rescue pass runs)
+        chain[name] = chain_counts(ck)
+        nb = len(batches)
+        if chain[name]["chain_relax"] != (nb if dp_calls else 0) \
+                or chain[name]["chain_double"] not in (
+                    (0, nb) if dp_calls else (nb, 2 * nb)):
+            raise AssertionError(f"options, {name}: C3/C4 launches "
+                                 f"{chain[name]}")
         # a commit and a code-length build a cost pass (the last build is
         # the emission's), one each for the greedy configuration
         want = {"dp_parse": dp_calls * len(batches),
@@ -685,6 +734,8 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
                              "words than lean")
     total = {k: sum(n[k] for n in launches.values())
              for k in ("dp_parse", "pack_groups", "commit_fsm", "code_lens")}
+    total.update({k: sum(n[k] for n in chain.values())
+                  for k in ("chain_relax", "chain_double")})
     print(f"options launches: {json.dumps(total)}; lean+pm_group64's words "
           f"equal lean's", flush=True)
 
@@ -747,7 +798,8 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
               f"to the plain version; {json.dumps(row)}; {card}", flush=True)
     seconds = time.perf_counter() - t_phase
     print(f"options phase: {seconds:.3f} s", flush=True)
-    return {"launches": total, "per_config": launches, "err_dp": err_dp,
+    return {"launches": total, "per_config": launches, "chain": chain,
+            "err_dp": err_dp,
             "err_pack": err_pack, "ladders": ladders, "widths": widths,
             "seconds": seconds}
 
@@ -762,6 +814,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     same inputs.  Returns the kernels' launches a call and their largest
     differences from the plain versions."""
     from libdeflate_tpu_torch import entry as pe
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import scan_kernels as sk
@@ -801,16 +854,16 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
         for name, rec in recs.items():
             setattr(pk, name, rec)
         try:
-            pk.reset_launch_counts()
-            sk.reset_launch_counts()
-            dd.reset_launch_counts()
+            for mod in (pk, sk, dd, ck):
+                mod.reset_launch_counts()
             out = fc.gzip_compress_dp(corpus, mesh, CHUNK, level)
             torch.cuda.synchronize()
             launches = {"pack_groups": pk.pack_groups.launches,
                         "dp_parse": pk.dp_parse.launches,
                         "commit_fsm": sk.commit_fsm.launches,
                         "code_lens": sk.code_lens.launches,
-                        "decode_chunks": dd.decompress_chunks_words.launches}
+                        "decode_chunks": dd.decompress_chunks_words.launches,
+                        **chain_counts(ck)}
         finally:
             for name, rec in recs.items():
                 setattr(pk, name, rec.wrapper)
@@ -854,7 +907,8 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
         want = {"pack_groups": ndev, "dp_parse": dp_calls * ndev,
                 "commit_fsm": passes * ndev,
                 "code_lens": 0 if pin_name == "static" else passes * ndev,
-                "decode_chunks": 0}
+                "decode_chunks": 0,
+                **{n: c * ndev for n, c in FILE_CHAIN[level].items()}}
         if launches != want:
             raise AssertionError(f"whole file, level {level}: launches "
                                  f"{launches}, not {want}")
@@ -1022,18 +1076,22 @@ SIDE_KERNELS = {"dp_parse": "dp_parse_kernel",
                 "code_lens": "code_lens_kernel",
                 "grid_add_one": "add_one_grid_kernel",
                 "loop_add_one": "add_one_loop_kernel",
-                "grid_copy": "grid_copy_kernel"}
+                "grid_copy": "grid_copy_kernel",
+                "chain_relax": "chain_relax_kernel",
+                "chain_double": "chain_double_kernel"}
 
 
 def side_stream_calls(root: Path, dev) -> dict:
     """{kernel name: (a call of its wrapper on small CUDA inputs, the
     plain version's result on the same inputs)} for every wrapper."""
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
+    from libdeflate_tpu_torch.experiments import crafted_chain as cc
     from libdeflate_tpu_torch.experiments import crafted_dp as cdp
     from libdeflate_tpu_torch.experiments import crafted_streams as cs
     from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
@@ -1059,6 +1117,10 @@ def side_stream_calls(root: Path, dev) -> dict:
                              dtype=torch.int32, device=dev)
     x_copy = torch.as_tensor(rng.random((128, 128)), dtype=torch.float32,
                              device=dev)
+    relax = [tuple(torch.as_tensor(x, device=dev) for x in c)
+             for c in cc.relax_sets(3)["random"]]
+    double = [torch.as_tensor(x, device=dev)
+              for c in cc.double_sets(2)["random"] for x in c]
     return {
         "dp_parse": (lambda: pk.dp_parse(*dp, 256),
                      pk.dp_parse_plain(*cpu(dp), 256)),
@@ -1085,11 +1147,18 @@ def side_stream_calls(root: Path, dev) -> dict:
                          [x_grid.cpu() + 1]),
         "grid_copy": (lambda: [rd.grid_copy(x_copy, rd.PROBE_STEPS[-1])],
                       [x_copy.cpu()]),
+        "chain_relax": (
+            lambda: chain_flat("chain_extend_multi",
+                               ck.chain_extend_multi(relax)),
+            chain_flat("chain_extend_multi", pp.chain_extend_multi(
+                [tuple(x.cpu() for x in c) for c in relax]))),
+        "chain_double": (lambda: list(ck.chain_extend2(*double)),
+                         list(pp.chain_extend2(*cpu(double)))),
     }
 
 
 def side_stream_phase(root: Path, dev, card: str) -> dict:
-    """Every kernel wrapper (K1-K7, F1, C1, C2) called from a worker
+    """Every kernel wrapper (K1-K7, F1, C1-C4) called from a worker
     thread whose current stream is a side stream of its own: each result
     equals the plain version, and a profiler trace shows each kernel on
     that stream, not on the stream of the calling thread's marker op.
@@ -1098,6 +1167,7 @@ def side_stream_phase(root: Path, dev, card: str) -> dict:
     import tempfile
     import threading
 
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
@@ -1109,7 +1179,8 @@ def side_stream_phase(root: Path, dev, card: str) -> dict:
 
     wrappers = [pk.dp_parse, pk.pack_groups, dd.decompress_chunks_words,
                 tk.tokenize_chunks, fsm.decompress_chunks, sk.commit_fsm,
-                sk.code_lens, lo.grid_add_one, lo.loop_add_one, rd.grid_copy]
+                sk.code_lens, lo.grid_add_one, lo.loop_add_one, rd.grid_copy,
+                ck.chain_extend_multi, ck.chain_extend, ck.chain_extend2]
     counts = [w.launches for w in wrappers]
     calls = side_stream_calls(root, dev)
     for name, (fn, _) in calls.items():      # built and warm on this stream
@@ -1188,6 +1259,7 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     import tempfile
 
     from libdeflate_tpu_torch import entry as pe
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import scan_kernels as sk
@@ -1212,10 +1284,11 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
                 "commit_fsm": sk.commit_fsm.launches,
                 "code_lens": sk.code_lens.launches,
                 "decode_chunks": dd.decompress_chunks_words.launches,
-                "fsm_decode": fsm.decompress_chunks.launches}
+                "fsm_decode": fsm.decompress_chunks.launches,
+                **chain_counts(ck)}
 
     def reset():
-        for mod in (pk, sk, dd, fsm):
+        for mod in (pk, sk, dd, fsm, ck):
             mod.reset_launch_counts()
 
     def pinned(name, out, level):
@@ -1245,7 +1318,8 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
             want = {"pack_groups": k, "dp_parse": dp_calls * k,
                     "commit_fsm": passes * k,
                     "code_lens": 0 if pin_name == "static" else passes * k,
-                    "decode_chunks": 0, "fsm_decode": 0}
+                    "decode_chunks": 0, "fsm_decode": 0,
+                    **{n: c * k for n, c in FILE_CHAIN[level].items()}}
             if got != want:
                 raise AssertionError(f"mesh, {k} shards, level {level}: "
                                      f"launches {got}, not {want}")
@@ -2040,6 +2114,246 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
     return out
 
 
+# the chain extension's wrappers (compress/chain_kernels.py) by kernel
+CHAIN_KERNELS = {"chain_extend_multi": "chain_relax",
+                 "chain_extend": "chain_double",
+                 "chain_extend2": "chain_double"}
+# pipeline's plain chain extensions, kept by guard_plain_chain before it
+# puts guards in their place; the comparisons call these
+PLAIN_CHAIN: dict = {}
+
+
+def guard_plain_chain(pp) -> None:
+    """Keep ``pipeline``'s plain chain extensions in PLAIN_CHAIN and put
+    guards in their place that raise when given CUDA tensors: the wrappers
+    take the plain versions for CPU tensors only, so no compress path may
+    reach them on the card."""
+    for name in CHAIN_KERNELS:
+        plain = PLAIN_CHAIN.setdefault(name, getattr(pp, name))
+
+        def guard(*args, _name=name, _plain=plain, **kw):
+            first = args[0][0][0] if _name == "chain_extend_multi" \
+                else args[0]
+            if first.is_cuda:
+                raise AssertionError(f"pipeline.{_name} ran on CUDA tensors: "
+                                     f"a compress path went around C3/C4")
+            return _plain(*args, **kw)
+        setattr(pp, name, guard)
+
+
+def chain_counts(ck) -> dict:
+    """C3's and C4's launches so far."""
+    return {"chain_relax": ck.chain_extend_multi.launches,
+            "chain_double": ck.chain_extend.launches
+            + ck.chain_extend2.launches}
+
+
+def chain_flat(name: str, out) -> list:
+    """A chain extension's result as a flat list of tensors."""
+    return ([x for pair in out for x in pair]
+            if name == "chain_extend_multi" else list(out))
+
+
+def chain_check(ck, name: str, args, where: str, tile=None) -> int:
+    """The wrapper ``name`` of ``ck`` on ``args`` (at ``tile``) against
+    its plain version on the same CUDA tensors; its launch uncounted.
+    Returns the largest difference (0)."""
+    wrapper = getattr(ck, name)
+    n = wrapper.launches
+    got = wrapper(*args) if tile is None else wrapper(*args, tile=tile)
+    wrapper.launches = n
+    return require_equal(f"{CHAIN_KERNELS[name]} ({name}, {where})",
+                         chain_flat(name, got),
+                         chain_flat(name, PLAIN_CHAIN[name](*args)))
+
+
+def chain_phase(batches, lengths, bfinal, card: str) -> dict:
+    """C3 (``chain_relax``) and C4 (``chain_double``) of
+    ``csrc/chain_extend.cu``, the candidates' chain extension, held to
+    their plain versions on the card, exact: on every call of one batch of
+    each tier that runs them (C3: lean and optfast, K = 2 over one round;
+    optimal and deep, K = 5 over two rounds after the content pass; C4:
+    static and dyn1 one candidate, dyn2 and dyn3 two, and the rescue pass
+    of dyn2, dyn3 and deep one), on the scripts' lean triples
+    (``profile_lean``'s ``chain_extend_multi`` x3 and x2), on the x3
+    triples at every stride set of ``crafted_chain.STRIDE_SETS``, and on
+    crafted_chain's sets at every stride set, K = 2, 3 and 5 and tiles of
+    64, 256 and 1024 positions (C4's at one and two candidates).  A CUDA
+    graph captured around one wrapper call holds its one kernel node.
+    Times on lean's inputs (C3 at K = 2, one round; also optimal's, K = 5
+    over two) and dyn1's (C4, one candidate; also dyn2's, two), by CUDA
+    events: the wrapper, its bare launch (also by graph replay), and the
+    plain version on the card in turns with it (kernel, plain, plain,
+    kernel); bounds from the bytes (each input read once, each output
+    written once) and the operations (C3: 6 integer operations a (stride,
+    k, j) and position, its inner step's compare, add, select, compare
+    and two selects; C4: 6 a stride and candidate pair).  The
+    comparisons' launches are not counted.  Returns the largest errors,
+    the times and the bounds."""
+    from collections import Counter
+
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import optimal as po
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.experiments import crafted_chain as cc
+    from libdeflate_tpu_torch.experiments import profile_lean
+    from libdeflate_tpu_torch.experiments.harness import record_many
+    from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
+    t_phase = time.perf_counter()
+    dev = lengths.device
+    err = {"chain_relax": 0, "chain_double": 0}
+    held = Counter()
+
+    def hold(name, args, where, tile=None):
+        e = chain_check(ck, name, args, where, tile)
+        err[CHAIN_KERNELS[name]] = max(err[CHAIN_KERNELS[name]], e)
+        held[CHAIN_KERNELS[name]] += 1
+
+    targets = [(ck, name) for name in CHAIN_KERNELS]
+    tiers = {"lean": po.compress_chunks_lean,
+             "optfast": po.compress_chunks_optfast,
+             "optimal": po.compress_chunks_optimal,
+             "deep": po.compress_chunks_optimal_deep,
+             "static": pp.compress_chunks_static,
+             "dyn1": pd.compress_chunks_dynamic,
+             "dyn2": pd.compress_chunks_dynamic2,
+             "dyn3": pd.compress_chunks_dynamic3}
+    inputs = {}
+    for tier, entry in tiers.items():
+        counts = chain_counts(ck)
+        _, calls = record_many(targets,
+                               lambda: entry(batches[0], lengths, bfinal))
+        if chain_counts(ck)["chain_relax"] - counts["chain_relax"] != len(
+                calls["chain_extend_multi"]):
+            raise AssertionError(f"{tier}: C3 launches and calls differ")
+        for name, seen in calls.items():
+            for i, args in enumerate(seen):
+                hold(name, args, f"{tier}, batch 0, call {i + 1}")
+                inputs.setdefault(f"{tier} {name}", args)
+        print(f"C3/C4 on {tier}'s own inputs: "
+              f"{json.dumps({n: len(v) for n, v in calls.items()})} calls, "
+              f"each equal to its plain version", flush=True)
+    for tier, wanted in (("lean", {"chain_extend_multi"}),
+                         ("optimal", {"chain_extend_multi"}),
+                         ("deep", {"chain_extend_multi", "chain_extend"}),
+                         ("static", {"chain_extend"}),
+                         ("dyn1", {"chain_extend"}),
+                         ("dyn2", {"chain_extend2", "chain_extend"}),
+                         ("dyn3", {"chain_extend2", "chain_extend"})):
+        got = {n for n in CHAIN_KERNELS if f"{tier} {n}" in inputs}
+        if got != wanted:
+            raise AssertionError(f"{tier} ran the wrappers {got}, not "
+                                 f"{wanted}")
+    # the scripts' triples: profile_lean's x3 and x2, the x3 at every
+    # stride set
+    raws = list(profile_lean.posonly(batches[0], lengths))
+    hold("chain_extend_multi", (raws,), "profile_lean's x3")
+    hold("chain_extend_multi", (raws[:2],), "profile_lean's x2 (no C)")
+    for name, (s1, s2) in cc.STRIDE_SETS.items():
+        hold("chain_extend_multi", (raws, s2, s1), f"x3 triples, {name}")
+    # the crafted sets at every stride set and tile
+    tiles = cc.MIRROR_TILES + (ck.TILE,)
+    for K in cc.RELAX_KS:
+        for set_name, cands in cc.relax_sets(K).items():
+            t = [tuple(torch.as_tensor(x, device=dev) for x in c)
+                 for c in cands]
+            for name, (s1, s2) in cc.STRIDE_SETS.items():
+                want = chain_flat("chain_extend_multi",
+                                  PLAIN_CHAIN["chain_extend_multi"](t, s2,
+                                                                    s1))
+                n = ck.chain_extend_multi.launches
+                for tile in tiles:
+                    err["chain_relax"] = max(err["chain_relax"], require_equal(
+                        f"chain_relax (crafted: {set_name}, K = {K}, {name}, "
+                        f"tile {tile})", chain_flat(
+                            "chain_extend_multi",
+                            ck.chain_extend_multi(t, s2, s1, tile=tile)),
+                        want))
+                    held["chain_relax"] += 1
+                ck.chain_extend_multi.launches = n
+    for nc, name in ((1, "chain_extend"), (2, "chain_extend2")):
+        for set_name, cands in cc.double_sets(nc).items():
+            args = tuple(torch.as_tensor(x, device=dev) for c in cands
+                         for x in c)
+            for tile in tiles:
+                hold(name, args, f"crafted: {set_name}, tile {tile}", tile)
+    print(f"C3 chain_relax, C4 chain_double: equal to their plain versions "
+          f"on {json.dumps(dict(held))} calls (every call of one batch of "
+          f"lean, optfast, optimal, deep, static, dyn1, dyn2 and dyn3; "
+          f"profile_lean's x3 and x2; the x3 triples at "
+          f"{len(cc.STRIDE_SETS)} stride sets; crafted_chain's sets at every "
+          f"stride set, K = {cc.RELAX_KS} and C4's one and two candidates, "
+          f"tiles {tiles})", flush=True)
+
+    lean = inputs["lean chain_extend_multi"]
+    dyn1 = inputs["dyn1 chain_extend"]
+    for name, fn in (("chain_relax", lambda: ck.chain_extend_multi(*lean)),
+                     ("chain_double", lambda: ck.chain_extend(*dyn1))):
+        ops = graph_node_types(fn)
+        if ops != ["kernel"]:
+            raise AssertionError(f"{name}: one call's graph is {ops}, not "
+                                 f"its one kernel launch")
+    print("C3, C4 wrappers, device ops of one call (CUDA graph nodes): "
+          "[\"kernel\"] each", flush=True)
+
+    def times(fn, bare, plain):
+        turns = {"kernel": [], "plain": []}
+        for who in ("kernel", "plain", "plain", "kernel"):
+            turns[who].append(cuda_ms(fn, 20) if who == "kernel"
+                              else cuda_ms(plain, 1))
+        return {"ms": sum(turns["kernel"]) / 2,
+                "kernel_ms": cuda_ms(bare, 20),
+                "kernel_graph_ms": graph_ms(bare, 50),
+                "plain_ms": sum(turns["plain"]) / 2, "plain_turns": turns}
+
+    out = {"err": err, "held": dict(held)}
+    counts = {n: getattr(ck, n).launches for n in CHAIN_KERNELS}
+    for tier in ("lean", "optimal"):
+        args = inputs[f"{tier} chain_extend_multi"]
+        cands = args[0]
+        s2 = args[1] if len(args) > 1 else pp.STRIDES
+        s1 = args[2] if len(args) > 2 else pp.STRIDES
+        strides = tuple(s1) + tuple(s2)
+        K, npos = len(cands), cands[0][0].numel()
+        outs = [torch.empty_like(c[0]) for c in cands]
+        row = times(lambda: ck.chain_extend_multi(*args),
+                    lambda: ck.chain_relax_into(cands, strides, outs),
+                    lambda: PLAIN_CHAIN["chain_extend_multi"](*args))
+        nbytes = K * 32 * npos
+        nops = 6 * len(strides) * K * K * npos
+        row.update(inputs=f"{tier}, batch 0: K = {K}, strides {strides}, "
+                   f"{list(cands[0][0].shape)}",
+                   bytes_bound_ms=1e3 * nbytes / H100_BYTES_PER_S,
+                   ops_bound_ms=1e3 * nops / H100_INT32_OPS_PER_S)
+        out[f"chain_relax {tier}"] = row
+        print(f"C3 chain_relax ({tier}): {json.dumps(row)}; {card}",
+              flush=True)
+    for tier, name in (("dyn1", "chain_extend"), ("dyn2", "chain_extend2")):
+        args = inputs[f"{tier} {name}"]
+        nc = len(args) // 3
+        cands = [args[3 * i:3 * i + 3] for i in range(nc)]
+        outs = [torch.empty_like(args[0]) for _ in range(nc)]
+        npos = args[0].numel()
+        row = times(lambda: getattr(ck, name)(*args),
+                    lambda: ck.chain_double_into(cands, outs),
+                    lambda: PLAIN_CHAIN[name](*args))
+        nbytes = 32 * nc * npos
+        nops = 6 * len(ck.DOUBLE_STRIDES) * nc * nc * npos
+        row.update(inputs=f"{tier}, batch 0: {nc} candidate(s), "
+                   f"{list(args[0].shape)}",
+                   bytes_bound_ms=1e3 * nbytes / H100_BYTES_PER_S,
+                   ops_bound_ms=1e3 * nops / H100_INT32_OPS_PER_S)
+        out[f"chain_double {tier}"] = row
+        print(f"C4 chain_double ({tier}): {json.dumps(row)}; {card}",
+              flush=True)
+    for n, c in counts.items():
+        getattr(ck, n).launches = c
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"chain phase: {out['seconds']:.3f} s", flush=True)
+    return out
+
+
 def soak_fuzz_phase(root: Path, card: str) -> dict:
     """The randomized harnesses on the card.  The soak
     (``experiments/soak.py``): every tier of ``soak.TIERS``, two batches
@@ -2062,6 +2376,7 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
     phase's launches and largest errors."""
     from collections import Counter
 
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
@@ -2077,8 +2392,9 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
                 "decode_chunks": dd.decompress_chunks_words,
                 "fsm_decode": fsm.decompress_chunks}
     targets = [(pk, "dp_parse"), (pk, "pack_groups"), (sk, "commit_fsm"),
-               (sk, "code_lens")]
+               (sk, "code_lens")] + [(ck, name) for name in CHAIN_KERNELS]
     err = dict.fromkeys(wrappers, 0)
+    err.update(chain_relax=0, chain_double=0)
     held = Counter()
     plain_s = Counter()
     k1_tiers = []
@@ -2114,16 +2430,34 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
             for args in calls["dp_parse"]:
                 hold("dp_parse", tier, pk.dp_parse(*args),
                      lambda: pk.dp_parse_plain(*args))
+        for name in CHAIN_KERNELS:      # each restores its own count
+            kern = CHAIN_KERNELS[name]
+            for args in calls[name]:
+                t0 = time.perf_counter()
+                err[kern] = max(err[kern], chain_check(ck, name, args,
+                                                       f"soak, {tier}"))
+                plain_s[kern] += time.perf_counter() - t0
+                held[kern] += 1
         for name, w in wrappers.items():
             w.launches = counts[name]
         return res
 
-    for mod in (pk, sk, dd, fsm):
+    def chain_launches():
+        return {**chain_counts(ck), "chain_extend2": ck.chain_extend2.launches}
+
+    # C3 a DP tier's call; C4 a greedy call, dyn2's and dyn3's A/B one and
+    # the rescue pass of dyn2, dyn3 and deep
+    chain_want = {"chain_relax": 5, "chain_double": 7, "chain_extend2": 2}
+    for mod in (pk, sk, dd, fsm, ck):
         mod.reset_launch_counts()
     pins = json.loads((root / SOAK_PINS).read_text())
     res = soak.run(SOAK_BATCHES, SOAK_SEED, soak.TIERS, pins=pins, call=call,
                    log=functools.partial(print, flush=True))
     launches = {"soak": {name: w.launches for name, w in wrappers.items()}}
+    per = SOAK_BATCHES // len(soak.TIERS)
+    chain_soak = chain_launches()
+    if chain_soak != {k: per * v for k, v in chain_want.items()}:
+        raise AssertionError(f"soak: C3/C4 launches {chain_soak}")
     passes = {name: po.TIERS[name]["passes"] for name in
               ("lean", "optfast", "optimal", "optimal2", "deep")}
 
@@ -2153,9 +2487,10 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
           f"{', '.join(k1_tiers)}); launches {json.dumps(launches['soak'])}; "
           f"{res['seconds']:.3f} s; {card}", flush=True)
     soak_held = dict(held)
+    launches["soak"].update(chain_soak)
     # chunks of 0-258 bytes in 1 MiB rows, one batch a tier, K1 held to
     # its plain version on all of their calls
-    for mod in (pk, sk, dd, fsm):
+    for mod in (pk, sk, dd, fsm, ck):
         mod.reset_launch_counts()
     short = True
     t0 = time.perf_counter()
@@ -2164,8 +2499,10 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
         soak.soak_batch(tier, payloads, torch.device("cuda", 0), soak.N,
                         call)
     launches["short"] = {name: w.launches for name, w in wrappers.items()}
-    if launches["short"] != want(1):
-        raise AssertionError(f"short chunks: launches {launches['short']}")
+    if launches["short"] != want(1) or chain_launches() != chain_want:
+        raise AssertionError(f"short chunks: launches {launches['short']}, "
+                             f"{chain_launches()}")
+    launches["short"].update(chain_launches())
     print(f"soak, short chunks: lengths {list(soak.SHORT_LENGTHS)} in "
           f"{soak.N}-byte rows, B = {len(payloads)}, through all "
           f"{len(soak.TIERS)} "
@@ -2175,7 +2512,7 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
           f"launches {json.dumps(launches['short'])}; "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    for mod in (pk, sk, dd, fsm):
+    for mod in (pk, sk, dd, fsm, ck):
         mod.reset_launch_counts()
     fz = fuzz.run(FUZZ_ITERS, FUZZ_SEED, 1,
                   log=functools.partial(print, flush=True))
@@ -2187,12 +2524,13 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
     empty = fuzz.device_rows([(b"", [("clean", c.compress(b"") + c.flush()),
                                      ("cut", b"")])], dev)
     launches["fuzz"] = {name: w.launches for name, w in wrappers.items()}
+    launches["fuzz"].update(chain_launches())
     c = fz["counts"]
     if c["damaged"] < 64 or c["device compress rows"] < 16:
         raise AssertionError(f"fuzz: {c['damaged']} damaged rows and "
                              f"{c['device compress rows']} compress rows")
     for name in ("pack_groups", "commit_fsm", "code_lens", "decode_chunks",
-                 "fsm_decode"):
+                 "fsm_decode", "chain_double"):
         if launches["fuzz"][name] <= 0:
             raise AssertionError(f"the fuzz's device target never launched "
                                  f"{name}")
@@ -2245,6 +2583,7 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
     are set to 0 before the drivers run and read after; the comparisons'
     launches are not counted.  Returns the launches and largest
     errors."""
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
@@ -2274,9 +2613,10 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
                 "commit_fsm": sk.commit_fsm, "code_lens": sk.code_lens,
                 "decode_chunks": dd.decompress_chunks_words}
     targets = [(pk, "dp_parse"), (pk, "pack_groups"), (sk, "commit_fsm"),
-               (sk, "code_lens")]
+               (sk, "code_lens")] + [(ck, name) for name in CHAIN_KERNELS]
     err = dict.fromkeys(wrappers, 0)
-    held = dict.fromkeys(wrappers, 0)
+    err.update(chain_relax=0, chain_double=0)
+    held = dict.fromkeys(err, 0)
     plain_s = 0.0
 
     def on_cpu(args):
@@ -2306,6 +2646,11 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
             err[name] = max(err[name], require_equal(
                 f"{name} (drivers, {where})", got, want))
             held[name] += 1
+        for name, kern in CHAIN_KERNELS.items():   # every call
+            for args in calls[name]:
+                err[kern] = max(err[kern], chain_check(
+                    ck, name, args, f"drivers, {where}"))
+                held[kern] += 1
         plain_s += time.perf_counter() - t0
         for name, w in wrappers.items():
             w.launches = counts[name]
@@ -2342,7 +2687,7 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
                                      f"sha256 {digest[:16]}, the JAX package "
                                      f"{want[k][0]} {want[k][1][:16]}")
 
-    for mod in (pk, sk, dd):
+    for mod in (pk, sk, dd, ck):
         mod.reset_launch_counts()
     log = functools.partial(print, flush=True)
     # ---- the stage profilers, reps 1 ------------------------------------
@@ -2459,7 +2804,8 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
     if not all(v["ok"] for v in cs.values()) or not dec["ok"]:
         raise AssertionError(f"checksum probes: {cs} {dec}")
     launches = {name: w.launches for name, w in wrappers.items()}
-    for name in wrappers:
+    launches.update(chain_counts(ck))
+    for name in launches:
         if launches[name] <= 0:
             raise AssertionError(f"the drivers never launched {name}")
     log(f"drivers: checksums of {DRIVER_CHECKSUM_ROWS} x {CHUNK} bytes equal "
@@ -2483,6 +2829,7 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from libdeflate_tpu_torch import _build
+    from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
@@ -2505,6 +2852,9 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    # from here on no compress path may run the plain chain extensions on
+    # the card: C3 and C4 take their place
+    guard_plain_chain(pp)
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
@@ -2631,6 +2981,9 @@ def main() -> int:
     # ---- C1, C2: the loop kernels against their plain versions ---------
     scan = scan_phase(batches, lengths, bfinal, card)
 
+    # ---- C3, C4: the chain extension against its plain versions --------
+    chain_res = chain_phase(batches, lengths, bfinal, card)
+
     # ---- literal cost tables: CUDA against the CPU --------------------
     for b in batches:
         tab = po.literal_cost_table(b, lengths)
@@ -2639,9 +2992,8 @@ def main() -> int:
     print("literal cost tables: CUDA equals CPU on every batch", flush=True)
 
     # ---- the compress main path, through the entry point ---------------
-    pk.reset_launch_counts()
-    sk.reset_launch_counts()
-    dd.reset_launch_counts()
+    for mod in (pk, sk, dd, ck):
+        mod.reset_launch_counts()
     outs = [po.compress_chunks_lean(b, lengths, bfinal) for b in batches]
     torch.cuda.synchronize()
     best = time_best(lambda: [po.compress_chunks_lean(b, lengths, bfinal)
@@ -2650,12 +3002,14 @@ def main() -> int:
     launches = {"dp_parse": pk.dp_parse.launches,
                 "pack_groups": pk.pack_groups.launches,
                 "commit_fsm": sk.commit_fsm.launches,
-                "code_lens": sk.code_lens.launches}
+                "code_lens": sk.code_lens.launches,
+                "chain_relax": chain_counts(ck)["chain_relax"]}
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"the main path never launched {name}")
-    if dd.decompress_chunks_words.launches:
-        raise AssertionError("the compress path launched the decoder")
+    if dd.decompress_chunks_words.launches or \
+            chain_counts(ck)["chain_double"]:
+        raise AssertionError("the lean path launched the decoder or C4")
 
     comp_bytes = 0
     for bi, (words, total_bits) in enumerate(outs):
@@ -2707,22 +3061,27 @@ def main() -> int:
     corpus_d = torch.as_tensor(chunks.copy(), device=dev)
     greedy = {}
     for name, entry in tiers.items():
-        pk.reset_launch_counts()
-        sk.reset_launch_counts()
-        dd.reset_launch_counts()
+        for mod in (pk, sk, dd, ck):
+            mod.reset_launch_counts()
         outs_t = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
         t_launch = {"pack_groups": pk.pack_groups.launches,
                     "dp_parse": pk.dp_parse.launches,
                     "commit_fsm": sk.commit_fsm.launches,
-                    "code_lens": sk.code_lens.launches}
+                    "code_lens": sk.code_lens.launches,
+                    "chain_relax": ck.chain_extend_multi.launches,
+                    "chain_extend": ck.chain_extend.launches,
+                    "chain_extend2": ck.chain_extend2.launches}
+        # C4 once a call (dyn2 and dyn3: the A/B doubling, and the
+        # one-candidate one of the rescue pass)
+        two = name in ("dyn2", "dyn3")
         want = {"pack_groups": len(batches), "dp_parse": 0,
                 "commit_fsm": len(batches),
-                "code_lens": 0 if name == "static" else len(batches)}
+                "code_lens": 0 if name == "static" else len(batches),
+                "chain_relax": 0, "chain_extend": len(batches),
+                "chain_extend2": len(batches) if two else 0}
         if t_launch != want or dd.decompress_chunks_words.launches:
-            raise AssertionError(f"{name}: launches {t_launch}, not one "
-                                 f"pack_groups, commit_fsm and (but static) "
-                                 f"code_lens a call and nothing else")
+            raise AssertionError(f"{name}: launches {t_launch}, not {want}")
         words_t = torch.cat([w for w, _ in outs_t])
         bits_t = torch.cat([t for _, t in outs_t])
         if bits_t.tolist() != pinned[name]:
@@ -2806,9 +3165,8 @@ def main() -> int:
         dp_passes[f"level{k}"] = kw["passes"]
     dp_tiers = {}
     for name, entry in dp_entries.items():
-        pk.reset_launch_counts()
-        sk.reset_launch_counts()
-        dd.reset_launch_counts()
+        for mod in (pk, sk, dd, ck):
+            mod.reset_launch_counts()
         t0 = time.perf_counter()
         outs_t = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
@@ -2816,13 +3174,18 @@ def main() -> int:
         t_launch = {"dp_parse": pk.dp_parse.launches,
                     "pack_groups": pk.pack_groups.launches,
                     "commit_fsm": sk.commit_fsm.launches,
-                    "code_lens": sk.code_lens.launches}
+                    "code_lens": sk.code_lens.launches,
+                    **chain_counts(ck)}
         # a commit a cost pass; a code-length build a further pass and
-        # one for the emission
+        # one for the emission; C3 once a call, C4 once a call with the
+        # rescue pass (deep, levels 10-12)
+        rescue = name in ("deep", "level10")
         want = {"dp_parse": dp_passes[name] * len(batches),
                 "pack_groups": len(batches),
                 "commit_fsm": dp_passes[name] * len(batches),
-                "code_lens": dp_passes[name] * len(batches)}
+                "code_lens": dp_passes[name] * len(batches),
+                "chain_relax": len(batches),
+                "chain_double": len(batches) if rescue else 0}
         if t_launch != want or dd.decompress_chunks_words.launches:
             raise AssertionError(f"{name}: launches {t_launch}, not {want}")
         words_t = torch.cat([w for w, _ in outs_t])
@@ -3160,18 +3523,40 @@ def main() -> int:
     empty = floor_lib.empty_launch
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     empty.restype = ctypes.c_int
+    per_element = floor_lib.add_one_elem_launch
+    per_element.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    per_element.restype = ctypes.c_int
     x5 = torch.zeros(lo.STEP_COUNTS[-1] * lo.ROWS, lo.LANES,
                      dtype=torch.int32, device=dev)
 
-    def launch_floor():
+    def k5_per_element():
+        out = torch.empty_like(x5)
+        with _build.launch_context((x5, out),
+                                   "K5, per-element design") as stream:
+            rc = per_element(x5.data_ptr(), out.data_ptr(),
+                             lo.STEP_COUNTS[-1], lo.ROWS, stream)
+        if rc:
+            raise RuntimeError(f"K5, per-element design: CUDA error {rc}")
+        return out
+
+    if not torch.equal(k5_per_element(), x5 + 1):
+        raise AssertionError("K5's per-element design is not x + 1")
+
+    def launch_floor(threads):
         with _build.launch_context((x5,), "empty kernel") as stream:
-            rc = empty(lo.STEP_COUNTS[-1], min(lo.ROWS * lo.LANES, 1024),
-                       stream)
+            rc = empty(lo.STEP_COUNTS[-1], threads, stream)
         if rc:
             raise RuntimeError(f"empty kernel: CUDA error {rc}")
 
-    probes = {"empty kernel": launch_floor,
-              "K5": lambda: lo.grid_add_one(x5), "x + 1": lambda: x5 + 1}
+    # the floor on K5's grid (a thread per 16 bytes of a tile) and on the
+    # per-element design's (a thread per element)
+    probes = {"empty kernel": lambda: launch_floor(lo.ROWS * lo.LANES // 4),
+              "empty kernel, 1024 threads a block": lambda: launch_floor(
+                  min(lo.ROWS * lo.LANES, 1024)),
+              "K5": lambda: lo.grid_add_one(x5), "x + 1": lambda: x5 + 1,
+              "K5, per-element design": k5_per_element,
+              "K6's kernel on K5's input": lambda: lo.loop_add_one(x5)}
     floor_turns = {name: [] for name in probes}
     for turn in range(FLOOR_TURNS):
         for name in (list(probes) if turn % 2 == 0 else list(probes)[::-1]):
@@ -3182,7 +3567,9 @@ def main() -> int:
         min(floor_turns["x + 1"]) <= floor["K5"]["ms"]
         <= max(floor_turns["x + 1"]))
     print(f"K5 beside the launch floor ({lo.STEP_COUNTS[-1]} blocks of "
-          f"1024 threads, graph replay, in turns): {json.dumps(floor)}; "
+          f"{lo.ROWS * lo.LANES // 4} threads), its per-element design, "
+          f"K6's kernel and x + 1 (graph replay, in turns): "
+          f"{json.dumps(floor)}; "
           f"{card}", flush=True)
 
     # ---- the measurement main path, through its entry point ------------
@@ -3450,12 +3837,56 @@ def main() -> int:
             "soak_fuzz_launches": {k: v[name] for k, v in
                                    soak_fuzz["launches"].items()},
             "drivers_launches": drivers["launches"][name]})
+    # C3 on lean's inputs (K = 2, one round; also optimal's, K = 5 over
+    # two), C4 on dyn1's (one candidate; also dyn2's, two); the plain
+    # versions are the torch code these paths ran before the kernels.
+    # launches: C3 on the lean main path, C4 over the four greedy tiers
+    for name, replaces, key, other, row_launches in (
+            ("chain_relax", "libdeflate_tpu/compress/tpu_pipeline.py:690",
+             "lean", "optimal", launches["chain_relax"]),
+            ("chain_double", "libdeflate_tpu/compress/tpu_pipeline.py:631",
+             "dyn1", "dyn2", sum(r["launches"]["chain_extend"]
+                                 + r["launches"]["chain_extend2"]
+                                 for r in greedy.values()))):
+        row = chain_res[f"{name} {key}"]
+        by_bytes = row["bytes_bound_ms"] >= row["ops_bound_ms"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "libdeflate_tpu_torch/csrc/chain_extend.cu",
+            "replaces": replaces, "launches": row_launches,
+            "max_abs_err": max(chain_res["err"][name],
+                               soak_fuzz["max_abs_err"][name],
+                               drivers["max_abs_err"][name]),
+            "ms": row["ms"], "kernel_ms": row["kernel_ms"],
+            "kernel_graph_ms": row["kernel_graph_ms"],
+            "plain_ms": row["plain_ms"], "plain_turns": row["plain_turns"],
+            "bound_ms": max(row["bytes_bound_ms"], row["ops_bound_ms"]),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bytes_bound_ms": row["bytes_bound_ms"],
+            "ops_bound_ms": row["ops_bound_ms"],
+            "library_ms": None, "inputs": row["inputs"],
+            other: chain_res[f"{name} {other}"],
+            "held": chain_res["held"][name],
+            "greedy_tier_launches": {n: r["launches"]["chain_extend"]
+                                     + r["launches"]["chain_extend2"]
+                                     if name == "chain_double" else
+                                     r["launches"]["chain_relax"]
+                                     for n, r in greedy.items()},
+            "dp_tier_launches": {n: r["launches"][name]
+                                 for n, r in dp_tiers.items()},
+            "options_launches": opt["launches"][name],
+            "whole_file_launches": {level: n[name] for level, n in
+                                    file_launches["compress"].items()},
+            "soak_fuzz_launches": {k: v[name] for k, v in
+                                   soak_fuzz["launches"].items()},
+            "drivers_launches": drivers["launches"][name]})
     mesh_launches = mesh_res["launches"]
     for row in kernels:
         name = row["name"]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  mesh_res["side_err"][name])
-        if name in ("dp_parse", "pack_groups", "commit_fsm", "code_lens"):
+        if name in ("dp_parse", "pack_groups", "commit_fsm", "code_lens",
+                    "chain_relax", "chain_double"):
             row["mesh_launches"] = {
                 f"{k} shards": {level: n[name] for level, n in by.items()}
                 for k, by in mesh_launches.items() if k != "decode"}

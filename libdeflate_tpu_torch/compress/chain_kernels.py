@@ -1,0 +1,158 @@
+"""The candidate stage's chain extension: wrappers, launch counts.
+
+They replace XLA code, not Pallas kernels, both in
+``csrc/chain_extend.cu``:
+
+- ``chain_extend_multi`` (C3, kernel ``chain_relax``) replaces
+  ``_chain_extend_multi`` (``libdeflate_tpu/compress/tpu_pipeline.py:
+  690-736``), the multi-stride relaxation of 2, 3 or 5 candidates on
+  every DP tier; plain version ``pipeline.chain_extend_multi``.
+- ``chain_extend`` and ``chain_extend2`` (C4, kernel ``chain_double``)
+  replace ``_chain_extend`` (``:631-651``) and ``_chain_extend2``
+  (``:654-687``), the stride-8 doubling of the greedy tiers' sorted
+  matchfind and of the rescue pass; plain versions
+  ``pipeline.chain_extend`` and ``pipeline.chain_extend2``.
+
+Each takes its plain version's arguments and returns what it returns.  A
+wrapper given CUDA tensors launches its kernel or raises; it takes the
+plain version only for tensors on the CPU.  On CUDA every array is a
+contiguous int64 [..., n] of one shape (a row is the last axis, as
+``pipeline.ahead`` shifts it), with values within +-2**30 (the JAX
+package's int32); ``chain_extend_multi`` takes K = 2, 3 or 5 candidates
+(the only K the JAX package calls it with) and up to 16 strides of at
+least 1 summing to at most 1024.  Each wrapper counts its launches in its
+``launches`` attribute and launches through ``_build.launch_context``.
+``pipeline.sorted_matchfind`` and ``pipeline.parse_candidates`` call them
+through this module, which they import when called (this module imports
+``pipeline``).  ``tile`` sets the positions a block owns (1 to 1024; the
+kernels' halo of the strides' sum lies past it), for the checks that
+cross tiles on small rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from . import pipeline
+from .kernels import _check
+
+RELAX_KS = (2, 3, 5)
+MAX_STRIDES = 16
+MAX_HALO = 1024         # the strides' sum: the halo a tile loads
+TILE = 1024             # positions a block owns
+DOUBLE_STRIDES = (8, 16, 32, 64, 128, 256)   # C4's, as the plain loop's
+
+
+def reset_launch_counts() -> None:
+    chain_extend_multi.launches = 0
+    chain_extend.launches = 0
+    chain_extend2.launches = 0
+
+
+def check_relax(K: int, strides) -> None:
+    """Raise unless C3 takes K candidates and ``strides`` (strides1 then
+    strides2)."""
+    if K not in RELAX_KS:
+        raise ValueError(f"chain_extend_multi: {K} candidates; the kernel "
+                         f"takes {RELAX_KS}")
+    if len(strides) > MAX_STRIDES or any(s < 1 for s in strides) \
+            or sum(strides) > MAX_HALO:
+        raise ValueError(f"chain_extend_multi: strides {tuple(strides)}; "
+                         f"the kernel takes up to {MAX_STRIDES} of at "
+                         f"least 1 summing to at most {MAX_HALO}")
+
+
+def _check_arrays(what: str, arrays) -> None:
+    shape = arrays[0].shape
+    if any(a.shape != shape or a.dtype != torch.int64
+           or not a.is_contiguous() for a in arrays) or not shape:
+        raise ValueError(f"{what}: every array must be contiguous int64 of "
+                         f"one shape [..., n] on CUDA")
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def chain_relax_into(cands, strides, outs, tile: int = TILE) -> None:
+    """The bare launch of C3 on CUDA tensors: ``cands`` K (mlen, dist,
+    fine) triples, ``strides`` the whole list (strides1 then strides2),
+    ``outs`` K int64 arrays of the candidates' shape, every element
+    written.  Counts nothing: ``chain_extend_multi`` is the wrapper."""
+    flat = [x for c in cands for x in c]
+    n = flat[0].shape[-1]
+    P, I = _build.PTR, _build.INT
+    fn = _build.kernel("chain_extend", "chain_relax_launch",
+                       [P, P, I, I, I, P, I, I, P])
+    st = (ctypes.c_int * max(len(strides), 1))(*strides)
+    with _build.launch_context(flat + list(outs), "chain_relax") as stream:
+        _check(fn(_pointers(flat), _pointers(outs), len(cands),
+                  flat[0].numel() // n if n else 0, n, st, len(strides),
+                  tile, stream), "chain_relax")
+
+
+def chain_double_into(cands, outs, tile: int = TILE) -> None:
+    """The bare launch of C4 on CUDA tensors: ``cands`` one or two (mlen,
+    dist, fine) triples, ``outs`` [len] or [len, dist], int64 arrays of
+    their shape, every element written.  Counts nothing."""
+    flat = [x for c in cands for x in c]
+    n = flat[0].shape[-1]
+    P, I = _build.PTR, _build.INT
+    fn = _build.kernel("chain_extend", "chain_double_launch",
+                       [P, P, I, I, I, I, P])
+    with _build.launch_context(flat + list(outs), "chain_double") as stream:
+        _check(fn(_pointers(flat), _pointers(outs), len(cands),
+                  flat[0].numel() // n if n else 0, n, tile, stream),
+               "chain_double")
+
+
+def chain_extend_multi(cands, strides2=pipeline.STRIDES,
+                       strides1=pipeline.STRIDES, tile: int = TILE):
+    """N-candidate chain extension by multi-stride max-relaxation
+    (``_chain_extend_multi``), [(len, dist)] per candidate: C3 for CUDA
+    tensors, ``pipeline.chain_extend_multi`` for CPU tensors."""
+    cands = [tuple(c) for c in cands]
+    if cands and cands[0][0].device.type == "cpu":
+        return pipeline.chain_extend_multi(cands, strides2, strides1)
+    strides = tuple(strides1) + tuple(strides2)
+    check_relax(len(cands), strides)
+    _check_arrays("chain_extend_multi", [x for c in cands for x in c])
+    outs = [torch.empty_like(c[0]) for c in cands]
+    if outs[0].numel():
+        chain_relax_into(cands, strides, outs, tile)
+        _build.count_launch(chain_extend_multi)
+    return [(ln, c[1]) for ln, c in zip(outs, cands)]
+
+
+def chain_extend(mlen, dist, fine, tile: int = TILE):
+    """Stride-8 doubling (``_chain_extend``) -> (len, dist): C4 for CUDA
+    tensors, ``pipeline.chain_extend`` for CPU tensors."""
+    if mlen.device.type == "cpu":
+        return pipeline.chain_extend(mlen, dist, fine)
+    _check_arrays("chain_extend", (mlen, dist, fine))
+    out = torch.empty_like(mlen)
+    if out.numel():
+        chain_double_into([(mlen, dist, fine)], [out], tile)
+        _build.count_launch(chain_extend)
+    return out, dist
+
+
+def chain_extend2(mA, dA, fA, mB, dB, fB, tile: int = TILE):
+    """Two-candidate stride-8 doubling (``_chain_extend2``) -> (len,
+    dist): C4 for CUDA tensors, ``pipeline.chain_extend2`` for CPU
+    tensors."""
+    if mA.device.type == "cpu":
+        return pipeline.chain_extend2(mA, dA, fA, mB, dB, fB)
+    _check_arrays("chain_extend2", (mA, dA, fA, mB, dB, fB))
+    ln = torch.empty_like(mA)
+    dist = torch.empty_like(dA)
+    if ln.numel():
+        chain_double_into([(mA, dA, fA), (mB, dB, fB)], [ln, dist], tile)
+        _build.count_launch(chain_extend2)
+    return ln, dist
+
+
+reset_launch_counts()

@@ -8,7 +8,8 @@ Counterpart of ``libdeflate_tpu/compress/tpu_pipeline.py``: the constants
 ``sorted_matchfind_triple``), ``_row_cummax`` (397, as ``cummax``),
 ``_content_sorted_matchfind`` (410-538), ``_pay_better`` (541),
 ``_pool_probe`` (549), ``_chain_extend`` (631), ``_chain_extend2`` (654),
-``_chain_extend_multi`` (690), ``_parse_candidates`` (1086-1235, as
+``_chain_extend_multi`` (690; on the card these three are the kernels of
+``chain_kernels``), ``_parse_candidates`` (1086-1235, as
 ``parse_candidates``), ``_greedy_commit_merge`` (771; on the card its
 kernel, ``scan_kernels.commit_fsm``),
 ``_exclusive_bit_offsets`` (828), ``_group_premerge`` (861),
@@ -207,13 +208,14 @@ def sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 2,
     ws = (w, w4) if w8 is None or w12 is None else (w, w4, w8, w12)
     order, probe = _segment_probe(h, ws, seg)
     pays = [_pack_inv(*probe(d)) for d in range(1, depth + 1)]
+    from . import chain_kernels as ck
     if not wide_ext:
         pay, = _unpermute(order, h.shape, functools.reduce(torch.maximum,
                                                           pays))
-        return chain_extend(*_unpack_inv(pay))
+        return ck.chain_extend(*_unpack_inv(pay))
     a, b = _best_two(pays)
     pa, pb = _unpermute(order, h.shape, _pay(*a), _pay(*b))
-    return chain_extend2(*_unpay(pa), *_unpay(pb))
+    return ck.chain_extend2(*_unpay(pa), *_unpay(pb))
 
 
 def sorted_matchfind_lean(h, ws, seg: int, depth: int = DEPTH):
@@ -379,8 +381,8 @@ def content_sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 6,
 def chain_extend(mlen, dist, fine):
     """Stride-8 doubling (``_chain_extend``): where a match is exactly s
     bytes (word-granular) and the position s ahead has the same distance,
-    splice its length and remainder in; s = 8, 16, 32, 64, 128.  Returns
-    (len, dist), lengths capped at MAX_LEN."""
+    splice its length and remainder in; s = 8, 16, 32, 64, 128, 256.
+    Returns (len, dist), lengths capped at MAX_LEN."""
     r, f = mlen, fine
     s = 8
     while s < MAX_LEN:
@@ -526,16 +528,17 @@ def parse_candidates(b: torch.Tensor, length: torch.Tensor, depth: int = 6,
         rawA, rawB, rawC = sorted_matchfind_triple(h, ws, sort_seg, depth)
     else:
         rawA, rawB, rawC = sorted_matchfind_lean(h, ws, sort_seg, depth)
+    from . import chain_kernels as ck
     if use_content:
         rawD, rawE = content_sorted_matchfind(
             h, words, w4, w8, w12, sort_seg, max(depth * 2 // 3, 4), wide,
             content_doublings, content_round_probes)
-        ext = chain_extend_multi([rawA, rawB, rawC, rawD, rawE])
+        ext = ck.chain_extend_multi([rawA, rawB, rawC, rawD, rawE])
     elif ext_c:
-        ext = chain_extend_multi([rawA, rawB, rawC], strides2, strides1)
+        ext = ck.chain_extend_multi([rawA, rawB, rawC], strides2, strides1)
     else:
         # C (nearest occurrence) stays at its raw word-granular LCP
-        ext = chain_extend_multi([rawA, rawB], strides2, strides1)
+        ext = ck.chain_extend_multi([rawA, rawB], strides2, strides1)
         mC0, dC0, fC0 = rawC
         ext.append((torch.clamp(mC0 + torch.where(mC0 >= 4, fC0, 0),
                                 max=MAX_LEN), dC0))

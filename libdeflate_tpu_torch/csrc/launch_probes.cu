@@ -21,7 +21,10 @@
 // written once (under a microsecond at 3.35 TB/s); in practice the fixed
 // cost of a launch and of scheduling blocks, which is what they measure.
 // Design: K5 is the simplest kernel that does the work, so that its time
-// is the overhead: a thread per element of a tile.  K6 must not be
+// is the overhead: a block a tile (a grid step), a thread per 16 bytes of
+// it (the first design took a thread per element, 4-byte loads; the two
+// are timed in turns by chip_smoke.py, which builds the earlier one at
+// run time).  K6 must not be
 // latency-bound on one SM (a single block waits for one DRAM round trip
 // per 4 KB tile): its threads move 16 bytes each (an int4 of a tile), and
 // each block issues the loads of up to kLoopAhead of its tiles before it
@@ -43,17 +46,17 @@ constexpr int kLoopThreads = 256;  // int4s in a (8, 128) int32 tile
 constexpr int kLoopAhead = 4;      // tiles (K6) or pieces (K7) loaded
                                    // before their stores
 
-__global__ void add_one_grid_kernel(const int* __restrict__ x,
-                                    int* __restrict__ o, int tile) {
-  const size_t base = (size_t)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x)
-    o[base + i] = x[base + i] + 1;
-}
-
 __device__ __forceinline__ int4 add_one4(int4 v) {
   // wrapping int32 x + 1, in unsigned arithmetic (signed overflow is UB)
   return make_int4((int)((unsigned)v.x + 1u), (int)((unsigned)v.y + 1u),
                    (int)((unsigned)v.z + 1u), (int)((unsigned)v.w + 1u));
+}
+
+// K5: one block a (rows, 128) tile of `tile4` int4s, one int4 a thread.
+__global__ void add_one_grid_kernel(const int4* __restrict__ x,
+                                    int4* __restrict__ o, int tile4) {
+  const size_t i = (size_t)blockIdx.x * tile4 + threadIdx.x;
+  o[i] = add_one4(x[i]);
 }
 
 // Tiles of kLoopThreads int4s, one a thread; block b loops over tiles b,
@@ -116,17 +119,16 @@ grid_copy_kernel(const float* __restrict__ x, float* __restrict__ o, int n,
   if (ends && i < tail) o[n - tail + i] = tv;
 }
 
-int threads_for(int tile) { return tile < 1024 ? tile : 1024; }
-
 }  // namespace
 
-// K5: x, o int32 [n_steps * rows][128]; one block per (rows, 128) tile.
+// K5: x, o int32 [n_steps * rows][128], 16-byte aligned, 1 <= rows <= 8;
+// one block per (rows, 128) tile, rows * 32 threads.
 extern "C" int grid_add_one_launch(const int* x, int* o, int n_steps,
                                    int rows, void* stream) {
-  const int tile = rows * kLanes;
+  const int tile4 = rows * kLanes / 4;
   if (n_steps > 0)
-    add_one_grid_kernel<<<n_steps, threads_for(tile), 0,
-                          (cudaStream_t)stream>>>(x, o, tile);
+    add_one_grid_kernel<<<n_steps, tile4, 0, (cudaStream_t)stream>>>(
+        (const int4*)x, (int4*)o, tile4);
   return (int)cudaGetLastError();
 }
 

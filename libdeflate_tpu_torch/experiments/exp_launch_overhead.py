@@ -87,10 +87,13 @@ def add_one_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def grid_add_one(x: torch.Tensor, rows: int = ROWS) -> torch.Tensor:
-    """x + 1, one block per (rows, 128) tile of x (int32 [n * rows, 128])."""
+    """x + 1, one block per (rows, 128) tile of x (int32 [n * rows, 128],
+    16-byte aligned on CUDA)."""
     n_steps = _check(x, rows)
     if x.device.type == "cpu":
         return add_one_plain(x)
+    if x.data_ptr() % 16:
+        raise ValueError("grid_add_one: x must be 16-byte aligned")
     out = launch_probe("grid_add_one", "grid_add_one_launch", x, n_steps,
                        rows)
     _build.count_launch(grid_add_one)

@@ -3,7 +3,7 @@
 On a machine with a CUDA card, from the repository root:
 
     python3 -m libdeflate_tpu_torch.experiments.pass_turns \\
-        [--against DIR] [--tiers lean,dyn2,optfast,dyn1,static]
+        [--against DIR] [--tiers lean,dyn2,optfast,dyn1,static,optimal]
         [--mesh 1,6 [--shards 1,2,4]]
 
 Each turn is a process of its own that imports ``libdeflate_tpu_torch``
@@ -49,7 +49,8 @@ TIERS = {"lean": ("compress.optimal", "compress_chunks_lean"),
          "dyn2": ("compress.dynamic", "compress_chunks_dynamic2"),
          "optfast": ("compress.optimal", "compress_chunks_optfast"),
          "dyn1": ("compress.dynamic", "compress_chunks_dynamic"),
-         "static": ("compress.pipeline", "compress_chunks_static")}
+         "static": ("compress.pipeline", "compress_chunks_static"),
+         "optimal": ("compress.optimal", "compress_chunks_optimal")}
 WARM_CALLS = 3         # whole-file calls before the timed ones
 HERE = Path(__file__).resolve()
 ROOT = HERE.parents[2]

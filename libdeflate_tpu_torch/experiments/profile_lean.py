@@ -9,8 +9,9 @@ the next one's input:
 
 - candidates: ``pipeline.parse_candidates`` (depth 6, no content pass,
   16-byte payloads, C relaxed), the position pass alone
-  (``sorted_matchfind_lean``) and ``chain_extend_multi`` over three and
-  two of its triples;
+  (``sorted_matchfind_lean``) and the relaxation, C3
+  (``chain_kernels.chain_extend_multi``), over three and two of its
+  triples;
 - costs: ``optimal.literal_costs_with`` and ``dist_cost`` x4;
 - the DP, K1 (``kernels.dp_parse``), at 28, 46 and 80 rungs;
 - the commit, C1 (``optimal.commit``);
@@ -38,16 +39,15 @@ import sys
 
 import torch
 
-from ..compress import kernels
+from ..compress import chain_kernels, kernels
 from ..compress.bits import to_i32
 from ..compress.dynamic import (DYN_CAPW_DEEP, dyn_nwords, emit_dynamic_post,
                                 emit_dynamic_pre)
 from ..compress.optimal import (DP_SEG, SEED_LC_LEN, commit,
                                 compress_chunks_optimal_pallas_with,
                                 dist_cost, literal_costs_with)
-from ..compress.pipeline import (_positions, chain_extend_multi,
-                                 group_premerge, parse_candidates,
-                                 sorted_matchfind_lean)
+from ..compress.pipeline import (_positions, group_premerge,
+                                 parse_candidates, sorted_matchfind_lean)
 from ..device import resolve_device
 from .driver_common import Bench, device_args, header, on_device, text_batch
 
@@ -81,8 +81,9 @@ def stages(bufs, lengths, bfinal, bench) -> dict:
                   bufs, lengths)
     bp, pos, lenA, dA, lenB, dB, lenC, dC, d3 = cands
     raws = bench("  pos-pass sort (5 ops, triple)", posonly, bufs, lengths)
-    bench("  chain_extend_multi x3", chain_extend_multi, list(raws))
-    bench("  chain_extend_multi x2 (no C)", chain_extend_multi,
+    bench("  chain_extend_multi x3", chain_kernels.chain_extend_multi,
+          list(raws))
+    bench("  chain_extend_multi x2 (no C)", chain_kernels.chain_extend_multi,
           list(raws[:2]))
     cost_lit = bench("_literal_costs (257-sym hist)",
                      lambda b, l: literal_costs_with(b, l)[0], bp, lengths)

@@ -9,8 +9,9 @@ the next one's input:
 
 - candidates: the position pass with 32-byte payloads
   (``pipeline.sorted_matchfind_triple``), the content pass
-  (``content_sorted_matchfind``, depth 4), ``chain_extend_multi`` over
-  five and three triples, and ``parse_candidates`` at its defaults;
+  (``content_sorted_matchfind``, depth 4), the relaxation, C3
+  (``chain_kernels.chain_extend_multi``), over five and three triples,
+  and ``parse_candidates`` at its defaults;
 - costs: ``optimal.literal_costs_with`` and ``dist_cost`` x4;
 - the DP, K1 (``kernels.dp_parse``) at LEN_LADDER (``dp_parse_pallas``'s
   default ladder);
@@ -38,7 +39,7 @@ import sys
 
 import torch
 
-from ..compress import kernels
+from ..compress import chain_kernels, kernels
 from ..compress.bits import to_i32
 from ..compress.dynamic import (DYN_CAPW, DYN_CAPW_DEEP,
                                 compress_chunks_dynamic, dyn_nwords,
@@ -46,7 +47,7 @@ from ..compress.dynamic import (DYN_CAPW, DYN_CAPW_DEEP,
 from ..compress.optimal import (DP_SEG, SEED_LC_LEN, code_lens_from_items,
                                 commit, compress_chunks_optimal_pallas_with,
                                 dist_cost, literal_costs_with)
-from ..compress.pipeline import (_positions, ahead, chain_extend_multi,
+from ..compress.pipeline import (_positions, ahead,
                                  content_sorted_matchfind, group_place,
                                  group_premerge, parse_candidates,
                                  sorted_matchfind_triple)
@@ -93,9 +94,10 @@ def stages(bufs, lengths, bfinal, bench) -> dict:
                  lengths)
     craw = bench("content pass (11 ops, 3 keys)", cand_content, bufs,
                  lengths)
-    bench("chain_extend_multi x5", chain_extend_multi,
+    bench("chain_extend_multi x5", chain_kernels.chain_extend_multi,
           list(raws) + list(craw))
-    bench("chain_extend_multi x3", chain_extend_multi, list(raws))
+    bench("chain_extend_multi x3", chain_kernels.chain_extend_multi,
+          list(raws))
     cands = bench("_parse_candidates total",
                   lambda b, l: parse_candidates(
                       b, l, depth=DEPTH, two_pass=False, hash3=False,
