@@ -29,11 +29,12 @@ two paths through their entry points:
   package's candidate stage, equal to their plain versions on the card
   on every call of one batch of lean, optfast, optimal, deep, static,
   dyn1, dyn2 and dyn3 (their rescue passes too), on the scripts' lean
-  triples at every stride set the repository passes, and on
-  ``experiments/crafted_chain.py``'s sets at tiles of 64, 256 and 1024
-  positions; one kernel node a wrapper call in a CUDA graph; each timed
-  beside its plain version in turns.  No compress path may run the
-  plain chain extensions on CUDA tensors (``guard_plain_chain``), and
+  triples at every stride set the repository passes, on
+  ``experiments/crafted_chain.py``'s sets and shapes at tiles of 64, 256
+  and 1024 positions, and on 66000 rows; one kernel node a wrapper call
+  in a CUDA graph; each timed beside its plain version in turns.  No
+  compress path may run the plain chain extensions on CUDA tensors
+  (``guard_plain_chain``), and
   every tier's launch counts show C3 on each DP call and C4 on each
   greedy call and rescue pass;
 - compress: lean min-cost-DP raw-DEFLATE compress of a 16 MiB corpus in
@@ -2176,18 +2177,25 @@ def chain_phase(batches, lengths, bfinal, card: str) -> dict:
     static and dyn1 one candidate, dyn2 and dyn3 two, and the rescue pass
     of dyn2, dyn3 and deep one), on the scripts' lean triples
     (``profile_lean``'s ``chain_extend_multi`` x3 and x2), on the x3
-    triples at every stride set of ``crafted_chain.STRIDE_SETS``, and on
-    crafted_chain's sets at every stride set, K = 2, 3 and 5 and tiles of
-    64, 256 and 1024 positions (C4's at one and two candidates).  A CUDA
-    graph captured around one wrapper call holds its one kernel node.
+    triples at every stride set of ``crafted_chain.STRIDE_SETS``, on
+    crafted_chain's sets and shapes (rows shorter than a tile, short rows
+    of several tiles) at every stride set, K = 2, 3 and 5 and tiles of 64,
+    256 and 1024 positions (C4's at one and two candidates), and on
+    ``crafted_chain.TALL_SHAPE``'s rows, more than a grid dimension holds
+    (C3 at K = 3, C4 at one and two candidates); C3 at K = 5 on one stride
+    of 684, the most a block's shared memory holds at the default tile,
+    and the wrapper's ValueError at 685.  A CUDA graph captured around one
+    wrapper call holds its one kernel node.
     Times on lean's inputs (C3 at K = 2, one round; also optimal's, K = 5
     over two) and dyn1's (C4, one candidate; also dyn2's, two), by CUDA
     events: the wrapper, its bare launch (also by graph replay), and the
     plain version on the card in turns with it (kernel, plain, plain,
     kernel); bounds from the bytes (each input read once, each output
-    written once) and the operations (C3: 6 integer operations a (stride,
-    k, j) and position, its inner step's compare, add, select, compare
-    and two selects; C4: 6 a stride and candidate pair).  The
+    written once) and the operations (C3: 4K^2 + 3K integer operations a
+    stride and position, its inner step's K adds, K compares r_k >= s,
+    and for each k j = 0's compare, select, compare and two selects and
+    each later j's two compares and two selects, a compare that ands in a
+    predicate counting one; C4: 6 a stride and candidate pair).  The
     comparisons' launches are not counted.  Returns the largest errors,
     the times and the bounds."""
     from collections import Counter
@@ -2255,7 +2263,9 @@ def chain_phase(batches, lengths, bfinal, card: str) -> dict:
     # the crafted sets at every stride set and tile
     tiles = cc.MIRROR_TILES + (ck.TILE,)
     for K in cc.RELAX_KS:
-        for set_name, cands in cc.relax_sets(K).items():
+        sets = dict(cc.relax_sets(K))
+        sets.update(cc.relax_shape_sets(K))
+        for set_name, cands in sets.items():
             t = [tuple(torch.as_tensor(x, device=dev) for x in c)
                  for c in cands]
             for name, (s1, s2) in cc.STRIDE_SETS.items():
@@ -2273,18 +2283,42 @@ def chain_phase(batches, lengths, bfinal, card: str) -> dict:
                     held["chain_relax"] += 1
                 ck.chain_extend_multi.launches = n
     for nc, name in ((1, "chain_extend"), (2, "chain_extend2")):
-        for set_name, cands in cc.double_sets(nc).items():
+        sets = dict(cc.double_sets(nc))
+        sets.update(cc.double_shape_sets(nc))
+        for set_name, cands in sets.items():
             args = tuple(torch.as_tensor(x, device=dev) for c in cands
                          for x in c)
             for tile in tiles:
                 hold(name, args, f"crafted: {set_name}, tile {tile}", tile)
+    # more rows than a grid dimension holds (65535), at the default tile
+    tall = {"C3": cc.relax_shape_sets(3, {"tall": cc.TALL_SHAPE})["tall"],
+            "C4": cc.double_shape_sets(2, {"tall": cc.TALL_SHAPE})["tall"]}
+    t = [tuple(torch.as_tensor(x, device=dev) for x in c)
+         for c in tall["C3"]]
+    hold("chain_extend_multi", (t,), f"crafted: {cc.TALL_SHAPE} rows, K = 3")
+    t = [torch.as_tensor(x, device=dev) for c in tall["C4"] for x in c]
+    hold("chain_extend", tuple(t[:3]), f"crafted: {cc.TALL_SHAPE} rows")
+    hold("chain_extend2", tuple(t), f"crafted: {cc.TALL_SHAPE} rows")
+    # the edge of C3's domain: K = 5 on the most one stride can be
+    edge = [tuple(torch.as_tensor(x, device=dev) for x in c)
+            for c in next(iter(cc.relax_sets(5).values()))]
+    hold("chain_extend_multi", (edge, (684,), ()),
+         "crafted: K = 5, one stride of 684")
+    try:
+        ck.chain_extend_multi(edge, (685,), ())
+    except ValueError as e:
+        if "shared memory" not in str(e):
+            raise
+    else:
+        raise AssertionError("C3 took one stride of 685 at K = 5")
     print(f"C3 chain_relax, C4 chain_double: equal to their plain versions "
           f"on {json.dumps(dict(held))} calls (every call of one batch of "
           f"lean, optfast, optimal, deep, static, dyn1, dyn2 and dyn3; "
           f"profile_lean's x3 and x2; the x3 triples at "
-          f"{len(cc.STRIDE_SETS)} stride sets; crafted_chain's sets at every "
-          f"stride set, K = {cc.RELAX_KS} and C4's one and two candidates, "
-          f"tiles {tiles})", flush=True)
+          f"{len(cc.STRIDE_SETS)} stride sets; crafted_chain's sets and "
+          f"shapes at every stride set, K = {cc.RELAX_KS} and C4's one and "
+          f"two candidates, tiles {tiles}; {cc.TALL_SHAPE[0]} rows at the "
+          f"default tile; K = 5 at one stride of 684)", flush=True)
 
     lean = inputs["lean chain_extend_multi"]
     dyn1 = inputs["dyn1 chain_extend"]
@@ -2321,7 +2355,7 @@ def chain_phase(batches, lengths, bfinal, card: str) -> dict:
                     lambda: ck.chain_relax_into(cands, strides, outs),
                     lambda: PLAIN_CHAIN["chain_extend_multi"](*args))
         nbytes = K * 32 * npos
-        nops = 6 * len(strides) * K * K * npos
+        nops = (4 * K * K + 3 * K) * len(strides) * npos
         row.update(inputs=f"{tier}, batch 0: K = {K}, strides {strides}, "
                    f"{list(cands[0][0].shape)}",
                    bytes_bound_ms=1e3 * nbytes / H100_BYTES_PER_S,

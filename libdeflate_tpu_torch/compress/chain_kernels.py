@@ -20,13 +20,15 @@ contiguous int64 [..., n] of one shape (a row is the last axis, as
 ``pipeline.ahead`` shifts it), with values within +-2**30 (the JAX
 package's int32); ``chain_extend_multi`` takes K = 2, 3 or 5 candidates
 (the only K the JAX package calls it with) and up to 16 strides of at
-least 1 summing to at most 1024.  Each wrapper counts its launches in its
+least 1 summing to at most 1024 whose carry and two tile buffers fit a
+block's 227 KiB of shared memory (``smem_bytes``, ``MAX_SMEM``; at K = 5
+and the default tile, one stride of at most 684).  Each wrapper counts its launches in its
 ``launches`` attribute and launches through ``_build.launch_context``.
 ``pipeline.sorted_matchfind`` and ``pipeline.parse_candidates`` call them
 through this module, which they import when called (this module imports
-``pipeline``).  ``tile`` sets the positions a block owns (1 to 1024; the
-kernels' halo of the strides' sum lies past it), for the checks that
-cross tiles on small rows.
+``pipeline``).  ``tile`` sets the positions of a tile (1 to 1024), the
+unit a block of the kernels' persistent grid walks down a row, for the
+checks that cross tiles on small rows.  Any number of rows launches.
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ from .kernels import _check
 
 RELAX_KS = (2, 3, 5)
 MAX_STRIDES = 16
-MAX_HALO = 1024         # the strides' sum: the halo a tile loads
-TILE = 1024             # positions a block owns
+MAX_HALO = 1024         # the strides' sum: the carry a block keeps
+MAX_SMEM = 227 * 1024 - 4 * MAX_STRIDES   # dynamic: less the strides' copy
+TILE = 1024             # positions a tile
 DOUBLE_STRIDES = (8, 16, 32, 64, 128, 256)   # C4's, as the plain loop's
 
 
@@ -52,9 +55,18 @@ def reset_launch_counts() -> None:
     chain_extend2.launches = 0
 
 
-def check_relax(K: int, strides) -> None:
+def smem_bytes(K: int, strides, tile: int = TILE) -> int:
+    """A block's shared memory at K candidates: two tile buffers of r, d
+    and f, each max(tile + the largest stride, the strides' sum)
+    positions wide, and the carry of the strides' sum (r and f), int32."""
+    halo = sum(strides)
+    width = max(tile + max(strides, default=0), halo)
+    return 4 * (6 * K * width + 2 * K * halo)
+
+
+def check_relax(K: int, strides, tile: int = TILE) -> None:
     """Raise unless C3 takes K candidates and ``strides`` (strides1 then
-    strides2)."""
+    strides2) at ``tile``."""
     if K not in RELAX_KS:
         raise ValueError(f"chain_extend_multi: {K} candidates; the kernel "
                          f"takes {RELAX_KS}")
@@ -63,6 +75,12 @@ def check_relax(K: int, strides) -> None:
         raise ValueError(f"chain_extend_multi: strides {tuple(strides)}; "
                          f"the kernel takes up to {MAX_STRIDES} of at "
                          f"least 1 summing to at most {MAX_HALO}")
+    if smem_bytes(K, strides, tile) > MAX_SMEM:
+        raise ValueError(f"chain_extend_multi: strides {tuple(strides)} at "
+                         f"{K} candidates and tile {tile} need "
+                         f"{smem_bytes(K, strides, tile)} bytes of shared "
+                         f"memory a block; the kernel takes at most "
+                         f"{MAX_SMEM}")
 
 
 def _check_arrays(what: str, arrays) -> None:
@@ -118,7 +136,7 @@ def chain_extend_multi(cands, strides2=pipeline.STRIDES,
     if cands and cands[0][0].device.type == "cpu":
         return pipeline.chain_extend_multi(cands, strides2, strides1)
     strides = tuple(strides1) + tuple(strides2)
-    check_relax(len(cands), strides)
+    check_relax(len(cands), strides, tile)
     _check_arrays("chain_extend_multi", [x for c in cands for x in c])
     outs = [torch.empty_like(c[0]) for c in cands]
     if outs[0].numel():

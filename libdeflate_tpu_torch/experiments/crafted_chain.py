@@ -26,18 +26,25 @@ every row ends in a partial tile.  The sets hold:
 - random lengths over a few distances.
 
 ``relax_mirror`` and ``double_mirror`` follow the kernels of
-``csrc/chain_extend.cu`` step by step: each row cut into tiles of
-``tile`` positions, each tile loaded with a halo of the strides' sum and
-zero past the row's end, the region updated shrinking by s each step and
-updated in place in chunks of the block's ``threads`` positions in
-ascending order (a chunk's reads, then its writes), the final lengths
-from the tile's first ``tile`` positions.  With ``stats`` (a Counter)
-they count what the crafted sets must reach: splices taken from the
-halo (``halo``), reads past the row's end inside the updated region
+``csrc/chain_extend.cu`` step by step: the persistent grid's runs of
+flat (row, tile) indices (``blocks`` blocks), each walked from its
+highest tile down; the prologue above a run that does not start at its
+row's last tile; at each step the level of the tile above carried into
+the positions past the tile (zeros past the row's end) and the tile's
+own first s positions saved for the tile below; every new value computed
+from the old ones, then written.  With ``stats`` (a Counter) they count
+what the crafted sets must reach: splices taken from the carried
+positions (``halo``), reads past the row's end inside a tile
 (``zero_fill``) and changes made from them (``zero_take``), visible ties
 (``tie``: a later j as long as the best so far, with another
 remainder), lengths past 258 before the clamp (``over_258``), C4's four
-splice kinds and equal final lengths of A and B (``tie_ab``).  The CPU
+splice kinds and equal final lengths of A and B (``tie_ab``), and the
+walk's own: prologues (``prologue``), tiles walked past a run's first
+(``walk``), runs that cross into another row (``row_cross``), tiles of
+rows shorter than a tile (``short_row``) and tiles whose next tile down
+(the one loaded meanwhile) ends a row part way (``end_in_prefetch``).
+``relax_shape_sets`` and ``double_shape_sets`` hold rows of other
+shapes (``SHAPES``) for those.  The CPU
 tests hold the mirrors and the plain versions to each other and to the
 JAX package; ``chip_smoke.py`` holds the kernels to the plain versions
 on the same sets, at the same tiles.
@@ -45,6 +52,7 @@ on the same sets, at the same tiles.
 
 from __future__ import annotations
 
+from collections import Counter
 
 import numpy as np
 
@@ -63,22 +71,19 @@ STRIDE_SETS = {
 RELAX_KS = (2, 3, 5)
 DOUBLE_STRIDES = (8, 16, 32, 64, 128, 256)   # every power of two below 258
 MIRROR_TILES = (64, 256)        # below the 510 of two rounds' halo
-THREADS = 512                   # chain_extend.cu's kThreads
+TILE = 1024                     # the wrappers' tile
+BLOCKS = 264                    # a grid the card runs (132 SMs x 2)
 MAX_LEN = 258
 
 
-def _tiles(x: np.ndarray, tile: int, halo: int) -> np.ndarray:
-    """[rows * tiles, tile + halo] windows of x [rows, n], zero past each
-    row's end."""
-    rows, n = x.shape
-    t0 = np.arange(0, n, tile)
-    idx = t0[:, None] + np.arange(tile + halo)[None, :]
-    pad = np.concatenate([x, np.zeros((rows, tile + halo), x.dtype)], 1)
-    return pad[:, np.minimum(idx, n)].reshape(-1, tile + halo)
-
-
-def _untile(v: np.ndarray, rows: int, n: int, tile: int) -> np.ndarray:
-    return v[:, :tile].reshape(rows, -1)[:, :n]
+def runs(tiles: int, blocks: int) -> tuple[np.ndarray, np.ndarray]:
+    """The persistent grid's runs: (first, end) flat tile indices of each
+    of min(tiles, blocks) blocks, balanced to within one tile."""
+    g = min(tiles, blocks)
+    per, extra = divmod(tiles, g)
+    b = np.arange(g)
+    g0 = b * per + np.minimum(b, extra)
+    return g0, g0 + per + (b < extra)
 
 
 def _final(r: np.ndarray, f: np.ndarray) -> np.ndarray:
@@ -86,87 +91,144 @@ def _final(r: np.ndarray, f: np.ndarray) -> np.ndarray:
     return np.minimum(r + np.where(r >= 4, f.astype(np.int64), 0), MAX_LEN)
 
 
-def _schedule(arrays, strides, tile, threads, step, stats):
-    """The tile schedule shared by both mirrors: ``arrays`` K (mlen,
-    dist, fine) triples [rows, n]; ``step(r, d, f, p, s)`` gives the new
-    (r, f) [K, tiles, len(p)] of the tile positions p.  Returns (r, f,
-    d) [K, tiles, tile + halo] after the last step."""
+def _schedule(arrays, strides, tile, blocks, step, stats):
+    """The walk shared by both mirrors: ``arrays`` K (mlen, dist, fine)
+    triples [rows, n]; ``step(r, d, f, rs, ds, fs, s)`` gives the new (r,
+    f) of positions whose old values are (r, d, f) from the old values
+    (rs, ds, fs) s ahead, every array [K, blocks, positions].  Returns
+    (r, f) [K, rows, n] after the last step.
+
+    As the kernel: each block walks its run of flat (row, tile) indices
+    down; a run that does not start at its row's last tile first steps
+    the original ``sum(strides)`` positions above its first tile through a
+    region shrinking by s each step (the prologue); at step q a tile
+    takes above it the level q - 1 of the tile above (the carry, zeros
+    above a row's last tile) and the original d, saves its own first s
+    positions' level q - 1 into the carry, computes every new value from
+    the old ones (the registers), then writes them (not after the last
+    step)."""
     rows, n = np.asarray(arrays[0][0]).shape
-    halo = sum(strides)
-    W = tile + halo
-    r, d, f = (np.stack([_tiles(np.asarray(c[i]), tile, halo)
-                         for c in arrays]).astype(np.int32)
-               for i in range(3))
-    pos = (np.arange(0, n, tile)[None, :, None]
-           + np.arange(W)[None, None, :])
-    pos = np.broadcast_to(pos, (rows,) + pos.shape[1:]).reshape(-1, W)
-    valid = W
-    for s in strides:
-        valid -= s
-        for c in range(0, valid, threads):
-            p = np.arange(c, min(c + threads, valid))
-            nr, nf = step(r, d, f, p, s)
-            if stats is not None:
-                took = (nr != r[:, :, p]) | (nf != f[:, :, p])
-                past = pos[:, p + s] >= n
-                stats["halo"] += int(took[:, :, p + s >= tile].sum())
-                stats["zero_fill"] += int(past.sum())
-                stats["zero_take"] += int((took & past[None]).sum())
-            r[:, :, p] = nr
-            f[:, :, p] = nf
-    if stats is not None:
-        rt = r[:, :, :tile].astype(np.int64)
-        inside = pos[None, :, :tile] < n
-        stats["over_258"] += int(((rt + np.where(rt >= 4, f[:, :, :tile], 0)
-                                   > MAX_LEN) & inside).sum())
-    return r, d, f
+    K, T = len(arrays), tile
+    H, smax = sum(strides), max(strides, default=0)
+    per_row = -(-n // T)
+    g0, g1 = runs(rows * per_row, blocks)
+    G = len(g0)
+    span = per_row * T + max(T + smax, H)
+    R, D, F = (np.stack([np.concatenate(
+        [np.asarray(c[i]), np.zeros((rows, span - n), np.int64)], 1)
+        for c in arrays]).astype(np.int32) for i in range(3))
+    cr = np.zeros((K, G, H), np.int32)
+    cf = np.zeros((K, G, H), np.int32)
+    out_r = np.zeros((K, rows, per_row * T), np.int32)
+    out_f = np.zeros((K, rows, per_row * T), np.int32)
+    count = stats if stats is not None else Counter()
+
+    row, col = np.divmod(g1 - 1, per_row)
+    pro = np.flatnonzero(col != per_row - 1)       # the prologues
+    count["prologue"] += len(pro)
+    if len(pro):
+        idx = (col[pro] * T + T)[:, None] + np.arange(H)[None]
+        br, bd, bf = (X[:, row[pro, None], idx] for X in (R, D, F))
+        valid, off = H, 0
+        for s in strides:
+            cr[:, pro, off:off + s] = br[:, :, :s]
+            cf[:, pro, off:off + s] = bf[:, :, :s]
+            valid -= s
+            nr, nf = step(br[:, :, :valid], bd[:, :, :valid],
+                          bf[:, :, :valid], br[:, :, s:s + valid],
+                          bd[:, :, s:s + valid], bf[:, :, s:s + valid], s)
+            br[:, :, :valid], bf[:, :, :valid] = nr, nf
+            off += s
+
+    for w in range(int((g1 - g0).max())):
+        live = g1 - 1 - w >= g0
+        t = np.maximum(g1 - 1 - w, g0)
+        row, col = np.divmod(t, per_row)
+        a0 = col * T
+        top = (col == per_row - 1)[None, :, None]
+        count["walk"] += int(live.sum()) if w else 0
+        count["row_cross"] += int((live & top[0, :, 0]).sum()) if w else 0
+        count["short_row"] += int(live.sum()) if n < T else 0
+        nxt = live & (t - 1 >= g0) & ((t - 1) % per_row == per_row - 1)
+        count["end_in_prefetch"] += int(nxt.sum()) if n % T else 0
+        idx = a0[:, None] + np.arange(T + smax)[None]
+        xr, xd, xf = (X[:, row[:, None], idx] for X in (R, D, F))
+        xr[:, :, T:], xf[:, :, T:] = 0, 0
+        pos = idx[None]                 # each buffer position in its row
+        r, f = xr[:, :, :T].copy(), xf[:, :, :T].copy()
+        off = 0
+        for q, s in enumerate(strides):
+            xr[:, :, T:T + s] = np.where(top, 0, cr[:, :, off:off + s])
+            xf[:, :, T:T + s] = np.where(top, 0, cf[:, :, off:off + s])
+            cr[:, :, off:off + s] = xr[:, :, :s]
+            cf[:, :, off:off + s] = xf[:, :, :s]
+            nr, nf = step(r, xd[:, :, :T], f, xr[:, :, s:s + T],
+                          xd[:, :, s:s + T], xf[:, :, s:s + T], s)
+            took = ((nr != r) | (nf != f)) & live[None, :, None]
+            past = live[None, :, None] & (pos[:, :, s:s + T] >= n)
+            count["halo"] += int(took[:, :, max(T - s, 0):].sum())
+            count["zero_fill"] += int(past.sum())
+            count["zero_take"] += int((took & past).sum())
+            r, f = nr, nf
+            if q + 1 < len(strides):
+                xr[:, :, :T], xf[:, :, :T] = r, f
+            off += s
+        out_r[:, row[live, None], idx[live, :T]] = r[:, live]
+        out_f[:, row[live, None], idx[live, :T]] = f[:, live]
+    r, f = out_r[:, :, :n], out_f[:, :, :n]
+    rt = r.astype(np.int64)
+    count["over_258"] += int((rt + np.where(rt >= 4, f, 0) > MAX_LEN).sum())
+    return r, f
 
 
-def relax_mirror(cands, strides1=STRIDES, strides2=STRIDES, tile=1024,
-                 threads=THREADS, stats=None):
+def relax_mirror(cands, strides1=STRIDES, strides2=STRIDES, tile=TILE,
+                 blocks=BLOCKS, stats=None):
     """C3 (``chain_relax``) on numpy: [(len, dist)] per candidate of the
-    K (mlen, dist, fine) [rows, n] triples ``cands``."""
+    K (mlen, dist, fine) [rows, n] triples ``cands``, with the kernel's
+    arithmetic: j = 0 as the plain loop (a cand of 0 where it cannot
+    match, which a negative r takes), a later j only where it can match
+    with s + its r strictly longer."""
     K = len(cands)
-    rows, n = np.asarray(cands[0][0]).shape
 
-    def step(r, d, f, p, s):
-        rs, ds, fs = r[:, :, p + s], d[:, :, p + s], f[:, :, p + s]
-        nr, nf = r[:, :, p].copy(), f[:, :, p].copy()
+    def step(r, d, f, rs, ds, fs, s):
+        srs = rs + np.int32(s)
+        nr, nf = r.copy(), f.copy()
         for k in range(K):
-            can = r[k][:, p] >= s
+            can = r[k] >= s
             for j in range(K):
-                cand = np.where(can & (ds[j] == d[k][:, p]), s + rs[j], 0)
+                match = can & (ds[j] == d[k])
                 if stats is not None:
-                    stats["tie"] += int(((cand == nr[k]) & can
-                                         & (ds[j] == d[k][:, p])
+                    stats["tie"] += int((match & (srs[j] == nr[k])
                                          & (fs[j] != nf[k])).sum())
-                better = cand > nr[k]
+                if j == 0:
+                    cand = np.where(match, srs[0], 0)
+                    better = cand > nr[k]
+                    nr[k] = np.where(better, cand, nr[k])
+                else:
+                    better = match & (srs[j] > nr[k])
+                    nr[k] = np.where(better, srs[j], nr[k])
                 nf[k] = np.where(better, fs[j], nf[k])
-                nr[k] = np.where(better, cand, nr[k])
         return nr, nf
 
-    r, _, f = _schedule(cands, tuple(strides1) + tuple(strides2), tile,
-                        threads, step, stats)
-    return [(_untile(_final(r[k], f[k]), rows, n, tile),
-             np.asarray(cands[k][1])) for k in range(K)]
+    r, f = _schedule(cands, tuple(strides1) + tuple(strides2), tile, blocks,
+                     step, stats)
+    return [(_final(r[k], f[k]), np.asarray(cands[k][1])) for k in range(K)]
 
 
-def double_mirror(cands, tile=1024, threads=THREADS, stats=None):
+def double_mirror(cands, tile=TILE, blocks=BLOCKS, stats=None):
     """C4 (``chain_double``) on numpy: (len, dist) of one (nc = 1,
     ``chain_extend``) or two (``chain_extend2``) (mlen, dist, fine)
     [rows, n] triples ``cands``."""
     nc = len(cands)
-    rows, n = np.asarray(cands[0][0]).shape
 
-    def step(r, d, f, p, s):
-        rs, ds, fs = r[:, :, p + s], d[:, :, p + s], f[:, :, p + s]
+    def step(r, d, f, rs, ds, fs, s):
         if nc == 1:
-            take = (r[0][:, p] == s) & (ds[0] == d[0][:, p])
+            take = (r[0] == s) & (ds[0] == d[0])
             if stats is not None:
                 stats["take"] += int(take.sum())
-            return (np.where(take, r[0][:, p] + rs[0], r[0][:, p])[None],
-                    np.where(take, fs[0], f[0][:, p])[None])
-        rA, rB, dA, dB = r[0][:, p], r[1][:, p], d[0][:, p], d[1][:, p]
+            return (np.where(take, r[0] + rs[0], r[0])[None],
+                    np.where(take, fs[0], f[0])[None])
+        rA, rB, dA, dB = r[0], r[1], d[0], d[1]
         tA1 = (rA == s) & (ds[0] == dA)
         tA2 = (rA == s) & ~tA1 & (ds[1] == dA)
         tB1 = (rB == s) & (ds[0] == dB)
@@ -177,14 +239,12 @@ def double_mirror(cands, tile=1024, threads=THREADS, stats=None):
                 stats[name] += int(t.sum())
         nr = np.stack([rA + np.where(tA1, rs[0], np.where(tA2, rs[1], 0)),
                        rB + np.where(tB1, rs[0], np.where(tB2, rs[1], 0))])
-        nf = np.stack([np.where(tA1, fs[0], np.where(tA2, fs[1],
-                                                      f[0][:, p])),
-                       np.where(tB1, fs[0], np.where(tB2, fs[1],
-                                                     f[1][:, p]))])
+        nf = np.stack([np.where(tA1, fs[0], np.where(tA2, fs[1], f[0])),
+                       np.where(tB1, fs[0], np.where(tB2, fs[1], f[1]))])
         return nr, nf
 
-    r, _, f = _schedule(cands, DOUBLE_STRIDES, tile, threads, step, stats)
-    lens = [_untile(_final(r[k], f[k]), rows, n, tile) for k in range(nc)]
+    r, f = _schedule(cands, DOUBLE_STRIDES, tile, blocks, step, stats)
+    lens = [_final(r[k], f[k]) for k in range(nc)]
     if nc == 1:
         return lens[0], np.asarray(cands[0][1])
     use_b = lens[1] > lens[0]
@@ -313,3 +373,48 @@ def double_sets(nc: int, seed: int = 0) -> dict:
     sets["random"] = blank()
     return {name: [tuple(np.asarray(x, np.int64) for x in t) for t in c]
             for name, c in sets.items()}
+
+
+# rows of other shapes (rows, n), for the walk's own traps: every row
+# shorter than the smallest tile the checks use (64), and short rows of
+# several tiles each, the last partial, so that a run crosses rows and
+# the tile it loads next ends a row.  SHAPE_BLOCKS is a grid smaller
+# than their tiles at every checked tile, so that runs walk.
+SHAPES = {"rows shorter than a tile": (6, 50),
+          "short rows of several tiles": (40, 300)}
+SHAPE_BLOCKS = 24
+# more rows than one grid dimension held (65535), for the card only
+TALL_SHAPE = (66000, 24)
+
+
+def _shaped(rng, K: int, shape, lengths) -> list:
+    """K (mlen, dist, fine) triples of ``shape``: noise, a chain of one
+    distance over the middle half of every row, dist 0, negative lengths
+    (one at each row's last position); ``lengths`` the lengths the chain
+    and the last positions take."""
+    rows, n = shape
+    c = [list(_noise(rng, shape)) for _ in range(K)]
+    lo, hi = n // 4, n - n // 4
+    for k in range(K):
+        c[k][0][:, lo:hi] = rng.choice(lengths, (rows, hi - lo))
+        c[k][1][:, lo:hi] = 700 + k % 2
+        c[k][1][rng.random(shape) < 0.1] = 0
+        c[k][0][rng.random(shape) < 0.05] = -4
+        c[k][0][:, -3:] = lengths[0]
+        c[k][0][:, -1] = -4     # takes the zero above the row's end
+    return [tuple(np.asarray(x, np.int64) for x in t) for t in c]
+
+
+def relax_shape_sets(K: int, shapes=None, seed: int = 0) -> dict:
+    """C3's sets of ``shapes`` (SHAPES by default) for K candidates."""
+    rng = np.random.default_rng(seed + 1000 + K)
+    return {name: _shaped(rng, K, shape, (4, 8, 16, 32))
+            for name, shape in (shapes or SHAPES).items()}
+
+
+def double_shape_sets(nc: int, shapes=None, seed: int = 0) -> dict:
+    """C4's sets of ``shapes`` (SHAPES by default) for one or two
+    candidates."""
+    rng = np.random.default_rng(seed + 2000 + nc)
+    return {name: _shaped(rng, nc, shape, (8,) + DOUBLE_STRIDES)
+            for name, shape in (shapes or SHAPES).items()}

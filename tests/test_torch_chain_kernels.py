@@ -5,16 +5,20 @@ multi-stride relaxation; C4 ``chain_kernels.chain_extend`` and
 ``chain_extend2``, the stride-8 doubling) runs only on the card.  This
 file holds:
 
-- (a) the numpy mirrors of the kernels' schedule
-  (libdeflate_tpu_torch/experiments/crafted_chain.py: tiles, a halo of
-  the strides' sum, the region shrinking by s each step, updated in place
-  a block's width at a time, zero fill past the row's end) against the
-  plain versions at tiles of 64 and 256 positions, below the 510 of two
-  rounds' halo, on the crafted sets (rows of 5000 positions, a multiple
-  of no tile; chains across tiles; ties between j; dist 0; lengths past
-  258 before the clamp; negative lengths; the row's last positions), at
+- (a) the numpy mirrors of the kernels' walk
+  (libdeflate_tpu_torch/experiments/crafted_chain.py: a persistent grid
+  of runs of tiles walked down each row, each step's first s positions
+  carried to the tile below, a prologue above a run's first tile, zero
+  fill past the row's end, every new value computed from the old ones
+  and then written) against the plain versions at tiles of 64 and 256
+  positions on the crafted sets (rows of 5000 positions, a multiple of
+  no tile; chains across tiles; ties between j; dist 0; lengths past 258
+  before the clamp; negative lengths; the row's last positions), at
   every stride set the repository passes, with the sets' reach of each
-  trap asserted;
+  trap asserted; on rows of other shapes (rows shorter than a tile;
+  short rows of several tiles, where runs cross rows and the tile loaded
+  next ends a row) over a grid of fewer blocks than tiles; and over
+  grids of 1, 7 and 1000 blocks;
 - (b) the wrappers on CPU tensors against the JAX package's
   libdeflate_tpu/compress/tpu_pipeline.py::_chain_extend_multi for the
   cases tests/test_torch_content.py::test_chain_extend_multi leaves out
@@ -24,7 +28,9 @@ file holds:
 - (c) the routing: a CPU run of lean, dyn1 and dyn2 calls the three
   wrappers (a spy on the module);
 - (d) the checks that reject a K outside {2, 3, 5} and strides the kernel
-  does not take, before any launch.
+  does not take, before any launch;
+- (e) experiments/chain_variants.py's arguments and the main-path inputs
+  it records from one call of each tier.
 
 The kernels themselves are held to the plain versions on the card by
 chip_smoke.py on the same sets and tiles.  Tolerance: exact.
@@ -145,6 +151,62 @@ def test_double_sets_reach_the_traps():
     assert reach[2, "ties between A and B"]["tie_ab"] > 1000
 
 
+@pytest.mark.parametrize("K", cc.RELAX_KS)
+def test_relax_mirror_shapes(K):
+    """The walk's own traps (``crafted_chain.SHAPES``) at tiles 64 and 256
+    over a grid of SHAPE_BLOCKS blocks: rows shorter than a tile, runs
+    that cross rows, prologues, the tile loaded next ending a row."""
+    s1, s2 = MAIN_STRIDES[K]
+    reach = Counter()
+    for name, cands in cc.relax_shape_sets(K).items():
+        want = pipeline.chain_extend_multi(torch_cands(cands), s2, s1)
+        for tile in cc.MIRROR_TILES:
+            st = Counter()
+            assert_pairs(cc.relax_mirror(cands, s1, s2, tile,
+                                         cc.SHAPE_BLOCKS, st), want,
+                         f"K={K}, {name}, tile {tile}")
+            reach[name, "short_row"] += st["short_row"]
+            for trap in ("walk", "row_cross", "prologue", "end_in_prefetch",
+                         "halo", "zero_take"):
+                reach[trap] += st[trap]
+    assert reach["rows shorter than a tile", "short_row"] > 0
+    assert min(reach[t] for t in ("walk", "row_cross", "prologue",
+                                  "end_in_prefetch", "halo",
+                                  "zero_take")) > 0, dict(reach)
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+def test_double_mirror_shapes(nc):
+    reach = Counter()
+    for name, cands in cc.double_shape_sets(nc).items():
+        tc = torch_cands(cands)
+        want = (pipeline.chain_extend(*tc[0]) if nc == 1
+                else pipeline.chain_extend2(*tc[0], *tc[1]))
+        for tile in cc.MIRROR_TILES:
+            st = Counter()
+            assert_pairs([cc.double_mirror(cands, tile, cc.SHAPE_BLOCKS,
+                                           st)], [want],
+                         f"{nc} candidates, {name}, tile {tile}")
+            reach.update(st)
+    assert min(reach[t] for t in ("short_row", "walk", "row_cross",
+                                  "prologue", "end_in_prefetch",
+                                  "halo")) > 0, dict(reach)
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 1000])
+def test_mirrors_over_grids(blocks):
+    """Any grid gives the plain versions' answer: one block walking every
+    tile of both rows, a few, and more blocks than tiles."""
+    cands = cc.relax_sets(2)["chains across tiles"]
+    want = pipeline.chain_extend_multi(torch_cands(cands), (), cc.STRIDES)
+    assert_pairs(cc.relax_mirror(cands, cc.STRIDES, (), 64, blocks), want,
+                 f"{blocks} blocks")
+    two = cc.double_sets(2)["splices through the other candidate"]
+    tc = torch_cands(two)
+    assert_pairs([cc.double_mirror(two, 64, blocks)],
+                 [pipeline.chain_extend2(*tc[0], *tc[1])], f"{blocks} blocks")
+
+
 # ---- (b) the wrappers on CPU tensors against JAX ------------------------
 
 @pytest.mark.parametrize("K,name", [
@@ -198,6 +260,44 @@ def test_entries_reach_the_wrappers(monkeypatch, tier, entry, wanted):
         (tier, dict(calls))
 
 
+# ---- (e) the measurement script's arguments and inputs ---------------
+
+def test_chain_variants_arguments():
+    from pathlib import Path
+
+    from libdeflate_tpu_torch.experiments import chain_variants as cv
+    assert cv.parse_args([]) is None
+    assert cv.parse_args(["--against", "old"]) == Path("old")
+    for bad in (["--variants", "no warp skip"], ["--tiles"], ["--against"],
+                ["--against", "old", "new"]):
+        with pytest.raises(SystemExit):
+            cv.parse_args(bad)
+
+
+def test_chain_variants_records_the_main_inputs():
+    """One CPU call of each tier gives the inputs the script times:
+    lean's K = 2 over one round, optimal's K = 5 over two, dyn1's one
+    candidate and dyn2's two, and profile_lean's K = 3 over two."""
+    from libdeflate_tpu_torch.experiments import chain_variants as cv
+    bufs = torch.from_numpy(np.stack([text_chunk(4096),
+                                      text_chunk(4096)[::-1].copy()]))
+    got = cv.record_inputs(bufs, torch.tensor([4096, 3000]),
+                           torch.tensor([True, True]), device="cpu")
+    assert {t: name for t, (name, _) in got.items()} == {
+        "lean": "chain_extend_multi", "optimal": "chain_extend_multi",
+        "dyn1": "chain_extend", "dyn2": "chain_extend2",
+        "profile_lean x3": "chain_extend_multi"}
+    shapes = {}
+    for tier, (name, args) in got.items():
+        cands, strides = cv.split(name, args)
+        assert all(x.shape == (2, 4096) and x.dtype == torch.int64
+                   for c in cands for x in c), tier
+        shapes[tier] = (len(cands), strides)
+    assert shapes == {"lean": (2, cc.STRIDES), "optimal": (5, cc.STRIDES * 2),
+                      "dyn1": (1, None), "dyn2": (2, None),
+                      "profile_lean x3": (3, cc.STRIDES * 2)}
+
+
 # ---- (d) what the kernels take ------------------------------------------
 
 @pytest.mark.parametrize("K", [0, 1, 4, 6])
@@ -211,6 +311,22 @@ def test_relax_rejects_other_k(K):
 def test_relax_rejects_other_strides(strides):
     with pytest.raises(ValueError, match="strides"):
         ck.check_relax(3, strides)
+
+
+@pytest.mark.parametrize("K, strides, tile, fits", [
+    (5, (684,), ck.TILE, True), (5, (685,), ck.TILE, False),
+    (5, (600, 424), ck.TILE, False), (5, (1024,), 512, True),
+    (3, (1024,), ck.TILE, True), (5, cc.STRIDES * 2, ck.TILE, True)])
+def test_relax_takes_what_shared_memory_holds(K, strides, tile, fits):
+    """A block's shared memory (two tile buffers and the carry, 227 KiB
+    less the strides' copy) bounds the strides at K = 5: one stride of
+    at most 684 at the default tile, more at a smaller tile."""
+    assert (ck.smem_bytes(K, strides, tile) <= ck.MAX_SMEM) == fits
+    if fits:
+        ck.check_relax(K, strides, tile)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            ck.check_relax(K, strides, tile)
 
 
 def test_relax_checks_before_launch():
