@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import from_numpy_batch
+from ..utils.profiling import stage_marks
 from . import kernels
 from .bits import M32, bsr, length_slot, offset_slot, rev16, to_i32
 from .pipeline import (
@@ -610,19 +611,22 @@ def compress_chunks_dynamic_with(
     parser's options (``greedy_options``; ``lcp`` 8 or 12 gives the
     matchfind 8-byte payloads), then one dynamic block a chunk.  The
     A/B chain extension follows ``two_pass or hash3`` here, as on that
-    path.  Same contract as ``compress_chunks_dynamic``."""
+    path.  Same contract as ``compress_chunks_dynamic``; with a profiler
+    session on, each stage is the range ``stage.<name>``."""
     options, refine_passes = greedy_options(two_pass, depth, hash3, lcp)
-    mark = on_stage or (lambda name: None)
-    bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
-    mark("candidates")
-    bp, pos, span, is_match, dist, fsm_seg = greedy_candidates(
-        bufs, lengths, **options)
-    mark("commit")
-    cm, cl, eff = commit_items(span, is_match, dist, pos, lengths, fsm_seg)
-    out = emit_dynamic_block(bp, bfinal, cm, cl, eff, dist, bufs.shape[1],
-                             refine_passes, mark)
-    mark("end")
-    return out
+    with stage_marks(on_stage) as mark:
+        bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal,
+                                                 device)
+        mark("candidates")
+        bp, pos, span, is_match, dist, fsm_seg = greedy_candidates(
+            bufs, lengths, **options)
+        mark("commit")
+        cm, cl, eff = commit_items(span, is_match, dist, pos, lengths,
+                                   fsm_seg)
+        out = emit_dynamic_block(bp, bfinal, cm, cl, eff, dist,
+                                 bufs.shape[1], refine_passes, mark)
+        mark("end")
+        return out
 
 
 def compress_chunks_dynamic(bufs, lengths, bfinal, device=None,

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import from_numpy_batch
+from ..utils.profiling import stage_marks
 from . import kernels
 from .bits import bsr, length_slot, offset_slot
 from .dynamic import (
@@ -311,47 +312,51 @@ def _compress_dp(bufs, lengths, bfinal, device, on_stage, *,
     (15-bit codes if any, else 11-bit), premerged in groups of
     ``pm_group`` items.  ``on_stage(name)`` marks each stage's start and
     the end; a further pass's stages are named with its number
-    ("dp_2")."""
-    mark = on_stage or (lambda name: None)
-    bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
-    n = bufs.shape[1]
+    ("dp_2").  With a profiler session on, each stage is the range
+    ``stage.<name>`` (``utils.profiling.stage_marks``)."""
+    with stage_marks(on_stage) as mark:
+        bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal,
+                                                 device)
+        n = bufs.shape[1]
 
-    mark("candidates")
-    bp, pos, lenA, dA, lenB, dB, lenC, dC, d3 = parse_candidates(
-        bufs, lengths, **candidates)
-    n_pad = bp.shape[1]
-    S_eff = S if (n_pad % S == 0 and n_pad >= S) else n_pad
-    dists = (dA, dB, dC, d3)
+        mark("candidates")
+        bp, pos, lenA, dA, lenB, dB, lenC, dC, d3 = parse_candidates(
+            bufs, lengths, **candidates)
+        n_pad = bp.shape[1]
+        S_eff = S if (n_pad % S == 0 and n_pad >= S) else n_pad
+        dists = (dA, dB, dC, d3)
 
-    mark("costs")
-    if lit1:
-        cost_lit = mean_literal_costs(
-            literal_hist_rows(bp, lengths, lit_sample), n_pad, lit1 == "row")
-    else:
-        cost_lit, _ = literal_costs_with(bp, lengths, sample=lit_sample)
-    cds = [dist_cost(d) for d in dists]
-    lc_len = torch.as_tensor(seed_lc_len(match_bias16), device=bp.device)
-    for k in range(1, passes + 1):
-        if k > 1:
-            mark(f"code_lens_{k}")
-            lit_lens, dist_lens = code_lens_from_items(bp, cm, cl, eff, dist)
-            mark(f"costs_{k}")
-            cost_lit, _ = literal_costs_with(bp, lengths,
-                                             table=lit_lens[:, :256] * BIT)
-            lc_len = lc_len_from_lens(lit_lens)
-            dtab = torch.where(dist_lens > 0, dist_lens, 14) * BIT
-            cds = [dist_cost_from(dtab, d) for d in dists]
-        sfx = "" if k == 1 else f"_{k}"
-        mark("dp" + sfx)
-        span, dist = kernels.dp_parse(
-            cost_lit, lenA, dA, cds[0], lenB, dB, cds[1], lenC, dC, cds[2],
-            d3, cds[3], lc_len, S_eff, ladder)
-        mark("commit" + sfx)
-        cm, cl, eff = commit(span, dist, pos, lengths, S_eff)
-    words, total_bits = emit_dynamic_block(bp, bfinal, cm, cl, eff, dist, n,
-                                           refine, mark, blocks, pm_group)
-    mark("end")
-    return words, total_bits
+        mark("costs")
+        if lit1:
+            cost_lit = mean_literal_costs(
+                literal_hist_rows(bp, lengths, lit_sample), n_pad,
+                lit1 == "row")
+        else:
+            cost_lit, _ = literal_costs_with(bp, lengths, sample=lit_sample)
+        cds = [dist_cost(d) for d in dists]
+        lc_len = torch.as_tensor(seed_lc_len(match_bias16), device=bp.device)
+        for k in range(1, passes + 1):
+            if k > 1:
+                mark(f"code_lens_{k}")
+                lit_lens, dist_lens = code_lens_from_items(bp, cm, cl, eff,
+                                                           dist)
+                mark(f"costs_{k}")
+                cost_lit, _ = literal_costs_with(
+                    bp, lengths, table=lit_lens[:, :256] * BIT)
+                lc_len = lc_len_from_lens(lit_lens)
+                dtab = torch.where(dist_lens > 0, dist_lens, 14) * BIT
+                cds = [dist_cost_from(dtab, d) for d in dists]
+            sfx = "" if k == 1 else f"_{k}"
+            mark("dp" + sfx)
+            span, dist = kernels.dp_parse(
+                cost_lit, lenA, dA, cds[0], lenB, dB, cds[1], lenC, dC,
+                cds[2], d3, cds[3], lc_len, S_eff, ladder)
+            mark("commit" + sfx)
+            cm, cl, eff = commit(span, dist, pos, lengths, S_eff)
+        words, total_bits = emit_dynamic_block(
+            bp, bfinal, cm, cl, eff, dist, n, refine, mark, blocks, pm_group)
+        mark("end")
+        return words, total_bits
 
 
 # each entry's configuration, as the JAX entries set it

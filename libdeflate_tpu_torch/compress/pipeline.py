@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import from_numpy_batch
+from ..utils.profiling import stage_marks
 from .bits import M32, bsr, length_slot, offset_slot, rev, rev16, to_i32
 
 MULT = 0x1E35A7BD
@@ -857,34 +858,38 @@ def compress_chunks_static(bufs, lengths, bfinal, device=None,
     (words int32[B, W] holding the uint32 bit patterns, total_bits
     int64[B]).  Runs on CUDA unless ``device`` names another device; the
     bits are placed by the pack kernel on CUDA, by ``group_place`` on the
-    CPU.  ``on_stage(name)`` marks each stage's start and the end."""
+    CPU.  ``on_stage(name)`` marks each stage's start and the end; with a
+    profiler session on, each stage is the range ``stage.<name>``."""
     from .kernels import pack_groups     # kernels imports this module
-    mark = on_stage or (lambda name: None)
-    bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal, device)
-    n = bufs.shape[1]
-    mark("candidates")
-    bp, pos, span, is_match, dist, fsm_seg = greedy_candidates(bufs, lengths)
-    mark("commit")
-    cm, cl, eff = commit_items(span, is_match, dist, pos, lengths, fsm_seg)
-    mark("emit_pre")
-    val, nb = static_items(bp, cm, cl, eff, dist)
-    offs, body_bits = exclusive_bit_offsets(nb)
-    mark("premerge")
-    sbuf, gw = group_premerge(val, nb, offs + 3, capw=GROUP_CAPW)
-    mark("pack")
-    words = pack_groups(sbuf, gw, static_nwords(n))
-    mark("post")
-    # block header (BFINAL 0, BTYPE 01), the 7-bit EOB, then the stored
-    # sync-flush block: its 3-bit header, byte padding, LEN 0 and NLEN
-    end = body_bits + 3
-    pad = (-(end + 10)) % 8
-    zero = torch.zeros_like(end)
-    vals = torch.stack([zero + 0b010, zero, bfinal.to(torch.int64),
-                        zero + 0xFFFF0000], 1)
-    words = add_bits(words, vals,
-                     torch.stack([zero, end, end + 7, end + 10 + pad], 1))
-    mark("end")
-    return to_i32(words), end + 10 + pad + 32
+    with stage_marks(on_stage) as mark:
+        bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal,
+                                                 device)
+        n = bufs.shape[1]
+        mark("candidates")
+        bp, pos, span, is_match, dist, fsm_seg = greedy_candidates(bufs,
+                                                                    lengths)
+        mark("commit")
+        cm, cl, eff = commit_items(span, is_match, dist, pos, lengths,
+                                   fsm_seg)
+        mark("emit_pre")
+        val, nb = static_items(bp, cm, cl, eff, dist)
+        offs, body_bits = exclusive_bit_offsets(nb)
+        mark("premerge")
+        sbuf, gw = group_premerge(val, nb, offs + 3, capw=GROUP_CAPW)
+        mark("pack")
+        words = pack_groups(sbuf, gw, static_nwords(n))
+        mark("post")
+        # block header (BFINAL 0, BTYPE 01), the 7-bit EOB, then the stored
+        # sync-flush block: its 3-bit header, byte padding, LEN 0 and NLEN
+        end = body_bits + 3
+        pad = (-(end + 10)) % 8
+        zero = torch.zeros_like(end)
+        vals = torch.stack([zero + 0b010, zero, bfinal.to(torch.int64),
+                            zero + 0xFFFF0000], 1)
+        words = add_bits(words, vals,
+                         torch.stack([zero, end, end + 7, end + 10 + pad], 1))
+        mark("end")
+        return to_i32(words), end + 10 + pad + 32
 
 
 def device_stream_to_bytes(words, total_bits: int) -> bytes:

@@ -47,6 +47,7 @@ import torch
 
 from .. import _build
 from ..device import as_tensor, resolve_device
+from ..utils.profiling import span
 from .tables import (
     BAD_DATA,
     FLUSHB,
@@ -464,21 +465,25 @@ def decompress_chunks(bufs, in_lens, out_cap: int, device=None):
     """Unknown-size entry of the mesh path (``pallas_decode.
     decompress_chunks``): uint8[B, N], int32[B] -> (uint8[B, out_cap],
     out_lens, consumed, status).  The bytes are padded to N rounded up to 4
-    plus 8 * STAGE_W on the device, then read as words."""
+    plus 8 * STAGE_W on the device, then read as words.  With a profiler
+    session on, the padding is the range ``decode.prepare`` and the
+    decoder's call ``decode.kernel``."""
     dev = resolve_device(device)
-    bufs = as_tensor(bufs, np.uint8).to(dev)
-    if bufs.dtype != torch.uint8 or bufs.dim() != 2:
-        raise ValueError(f"bufs must be uint8[B, N], got {bufs.dtype} "
-                         f"{tuple(bufs.shape)}")
-    B, N = bufs.shape
-    padded = -(-N // 4) * 4 + 8 * STAGE_W
-    b8 = torch.zeros(B, padded, dtype=torch.uint8, device=dev)
-    b8[:, :N] = bufs
-    cap4 = -(-out_cap // 4) * 4
-    out, status, oplens, consumed = decompress_chunks_words(
-        b8.view(torch.int32), in_lens,
-        torch.full((B,), cap4, dtype=torch.int32), cap4, known_size=False,
-        device=dev)
+    with span("decode.prepare"):
+        bufs = as_tensor(bufs, np.uint8).to(dev)
+        if bufs.dtype != torch.uint8 or bufs.dim() != 2:
+            raise ValueError(f"bufs must be uint8[B, N], got {bufs.dtype} "
+                             f"{tuple(bufs.shape)}")
+        B, N = bufs.shape
+        padded = -(-N // 4) * 4 + 8 * STAGE_W
+        b8 = torch.zeros(B, padded, dtype=torch.uint8, device=dev)
+        b8[:, :N] = bufs
+        cap4 = -(-out_cap // 4) * 4
+    with span("decode.kernel"):
+        out, status, oplens, consumed = decompress_chunks_words(
+            b8.view(torch.int32), in_lens,
+            torch.full((B,), cap4, dtype=torch.int32), cap4,
+            known_size=False, device=dev)
     return out[:, :out_cap], oplens, consumed, status
 
 

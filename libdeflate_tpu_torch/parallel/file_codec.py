@@ -10,6 +10,13 @@ from the per-chunk device checksums by the combine operators.
 Per-chunk stored fallback preserves the compress_bound contract on
 incompressible chunks, as the reference's cost comparison picks stored
 blocks (lib/deflate_compress.c:1779-1814).
+
+With a profiler session on, a call's ranges (``utils.profiling.span``)
+are ``codec.pad``, the mesh's (``mesh.*``, with the tier entry's
+``stage.*`` inside), ``codec.to_host`` (the words, sizes and checksums to
+the host), ``codec.fragments`` (the per-chunk bytes and the join) with
+one ``codec.stored`` inside it a stored-fallback chunk, and
+``codec.trailer`` (the checksums' combine; the header and trailer).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from ..formats import gzip_fmt, zlib_fmt
 from ..formats.deflate import BLOCKTYPE_UNCOMPRESSED
 from ..ops.checksums_host import adler32_combine
 from ..ops.crc32_math import crc32_combine
+from ..utils.profiling import span
 from . import mesh as mesh_mod
 
 DEFAULT_CHUNK_SIZE = 1 << 20
@@ -73,32 +81,37 @@ def deflate_compress_dp(
     if len(data) == 0:
         return stored_fragment(b"", True), 0, 1
 
-    bufs, lengths, bfinal, nchunks = mesh_mod.pad_chunks(data, chunk_size,
-                                                         ndev)
+    with span("codec.pad"):
+        bufs, lengths, bfinal, nchunks = mesh_mod.pad_chunks(
+            data, chunk_size, ndev)
     words, _, crcs, adlers, all_bits = mesh_mod.compress_chunks_dp(
         mesh, bufs, lengths, bfinal, level=level
     )
-    words = words.cpu().numpy()
-    # the gathered sizes are the global byte layout; assemble from them
-    total_bits = all_bits.tolist()
-    crcs = crcs.tolist()
-    adlers = adlers.tolist()
+    with span("codec.to_host"):
+        words = words.cpu().numpy()
+        # the gathered sizes are the global byte layout; assemble from them
+        total_bits = all_bits.tolist()
+        crcs = crcs.tolist()
+        adlers = adlers.tolist()
 
-    parts = []
-    for i in range(nchunks):
-        dev_bytes = int(total_bits[i]) // 8
-        chunk = data[i * chunk_size : i * chunk_size + int(lengths[i])]
-        stored_size = 5 * max(-(-len(chunk) // 65535), 1) + len(chunk) + 5
-        if dev_bytes <= stored_size:
-            parts.append(device_stream_to_bytes(words[i], total_bits[i]))
-        else:
-            parts.append(stored_fragment(chunk, bool(bfinal[i])))
-    stream = b"".join(parts)
+    with span("codec.fragments"):
+        parts = []
+        for i in range(nchunks):
+            dev_bytes = int(total_bits[i]) // 8
+            chunk = data[i * chunk_size : i * chunk_size + int(lengths[i])]
+            stored_size = 5 * max(-(-len(chunk) // 65535), 1) + len(chunk) + 5
+            if dev_bytes <= stored_size:
+                parts.append(device_stream_to_bytes(words[i], total_bits[i]))
+            else:
+                with span("codec.stored"):
+                    parts.append(stored_fragment(chunk, bool(bfinal[i])))
+        stream = b"".join(parts)
 
-    crc = 0
-    for i in range(nchunks):
-        crc = crc32_combine(crc, int(crcs[i]), int(lengths[i]))
-    adler = _adler_combine_chunks(adlers, lengths, nchunks)
+    with span("codec.trailer"):
+        crc = 0
+        for i in range(nchunks):
+            crc = crc32_combine(crc, int(crcs[i]), int(lengths[i]))
+        adler = _adler_combine_chunks(adlers, lengths, nchunks)
     return stream, crc, adler
 
 
@@ -106,19 +119,21 @@ def gzip_compress_dp(data: bytes, mesh: mesh_mod.ChunkMesh | None = None,
                      chunk_size: int = DEFAULT_CHUNK_SIZE,
                      level: int = 1) -> bytes:
     stream, crc, _ = deflate_compress_dp(data, mesh, chunk_size, level)
-    return (
-        gzip_fmt.make_header(level)
-        + stream
-        + gzip_fmt.make_trailer(crc, len(data))
-    )
+    with span("codec.trailer"):
+        return (
+            gzip_fmt.make_header(level)
+            + stream
+            + gzip_fmt.make_trailer(crc, len(data))
+        )
 
 
 def zlib_compress_dp(data: bytes, mesh: mesh_mod.ChunkMesh | None = None,
                      chunk_size: int = DEFAULT_CHUNK_SIZE,
                      level: int = 1) -> bytes:
     stream, _, adler = deflate_compress_dp(data, mesh, chunk_size, level)
-    return (
-        zlib_fmt.make_header(level)
-        + stream
-        + zlib_fmt.make_trailer(adler)
-    )
+    with span("codec.trailer"):
+        return (
+            zlib_fmt.make_header(level)
+            + stream
+            + zlib_fmt.make_trailer(adler)
+        )

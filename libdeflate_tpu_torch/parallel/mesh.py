@@ -8,10 +8,12 @@ process drives the same split over a ``ChunkMesh``, a tuple of
 ``torch.device``, with every shard at once:
 
 - each shard runs in a worker thread of its own (one
-  ``threading.Thread`` a shard, all started before any is joined): the
-  chunk compressor of its level on its own device, as one batched call
-  (the JAX shard's ``vmap``), and the per-chunk device checksums beside
-  it (``ops/checksums.py``), or the decoder;
+  ``threading.Thread`` a shard, all started before any is joined), and
+  the one shard of a one-device mesh on the calling thread, as
+  ``shard_map`` over one device is a plain call: the chunk compressor of
+  its level on its own device, as one batched call (the JAX shard's
+  ``vmap``), and the per-chunk device checksums beside it
+  (``ops/checksums.py``), or the decoder;
 - a CUDA shard runs on its device as the current device and on a
   ``torch.cuda.Stream`` of its own (one a device and shard index, kept
   across calls), which first waits for the caller's stream: the calling
@@ -27,7 +29,12 @@ process drives the same split over a ``ChunkMesh``, a tuple of
   reads.  A tensor that one stream allocated and another reads is marked
   with ``record_stream``;
 - a shard that raises makes the call raise its error (the first in shard
-  order) once every thread has ended.
+  order) once every thread has ended;
+- with a profiler session on, the call's ranges (``utils.profiling.span``)
+  are ``mesh.inputs`` (the shards' inputs to their devices),
+  ``mesh.shards`` (from the first shard's start to the last one's end
+  and the event waits), ``mesh.gather`` and, in each compress shard,
+  ``stage.crc32`` and ``stage.adler32`` beside the tier entry's stages.
 
 The default mesh is every CUDA device, as JAX's ``jax.devices()``; on a
 machine with one card, that card alone, whose batch the tier entry runs
@@ -53,6 +60,7 @@ from ..compress.pipeline import compress_chunks_static
 from ..decompress import decode, fsm
 from ..device import as_tensor, from_numpy_batch, resolve_device
 from ..ops.checksums import adler32_chunks, crc32_chunks
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -150,8 +158,9 @@ def _shard_call(k: int, dev: torch.device, fn, args, caller):
 
 def _at_once(mesh: ChunkMesh, fn, shard_args):
     """fn(device, *args) for every shard at once, one worker thread a
-    shard, ``shard_args`` each shard's tensors on its device.  Returns
-    each field of fn's tuple gathered in shard order on the mesh's first
+    shard (a one-device mesh's shard on the calling thread),
+    ``shard_args`` each shard's tensors on its device.  Returns each
+    field of fn's tuple gathered in shard order on the mesh's first
     device.  A shard's error is raised once every thread has ended."""
     callers = {dev: torch.cuda.current_stream(dev) for dev in mesh.devices
                if dev.type == "cuda"}
@@ -163,26 +172,32 @@ def _at_once(mesh: ChunkMesh, fn, shard_args):
         except BaseException as e:          # raised once every shard ends
             ended[k] = None, e
 
-    threads = [threading.Thread(target=run, args=(k, dev, args),
-                                name=f"chunk-shard_{k}")
-               for k, (dev, args) in enumerate(zip(mesh.devices,
-                                                   shard_args))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    outs = []
-    for dev, (result, error) in zip(mesh.devices, ended):
-        if error is not None:
-            raise error
-        out, done = result
-        if done is not None:
-            callers[dev].wait_event(done)
-            for t in out:
-                t.record_stream(callers[dev])
-        outs.append(out)
+    with span("mesh.shards"):
+        if len(mesh.devices) == 1:
+            (dev,), (args,) = mesh.devices, shard_args
+            ended[0] = _shard_call(0, dev, fn, args, callers.get(dev)), None
+        else:
+            threads = [threading.Thread(target=run, args=(k, dev, args),
+                                        name=f"chunk-shard_{k}")
+                       for k, (dev, args) in enumerate(zip(mesh.devices,
+                                                           shard_args))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        outs = []
+        for dev, (result, error) in zip(mesh.devices, ended):
+            if error is not None:
+                raise error
+            out, done = result
+            if done is not None:
+                callers[dev].wait_event(done)
+                for t in out:
+                    t.record_stream(callers[dev])
+            outs.append(out)
     lead = mesh.devices[0]
-    return [torch.cat([p.to(lead) for p in col]) for col in zip(*outs)]
+    with span("mesh.gather"):
+        return [torch.cat([p.to(lead) for p in col]) for col in zip(*outs)]
 
 
 def compress_chunks_dp(mesh: ChunkMesh, bufs, lengths, bfinal,
@@ -200,12 +215,17 @@ def compress_chunks_dp(mesh: ChunkMesh, bufs, lengths, bfinal,
 
     def shard(dev, b, n, f):
         words, total_bits = compress(b, n, f, device=dev)
-        return (words, total_bits, crc32_chunks(b, n, device=dev),
-                adler32_chunks(b, n, device=dev))
+        with span("stage.crc32"):
+            crcs = crc32_chunks(b, n, device=dev)
+        with span("stage.adler32"):
+            adlers = adler32_chunks(b, n, device=dev)
+        return words, total_bits, crcs, adlers
 
-    words, total_bits, crcs, adlers = _at_once(mesh, shard, [
-        from_numpy_batch(bufs[part], lengths[part], bfinal[part], dev)
-        for dev, part in _shards(mesh, bufs.shape[0])])
+    with span("mesh.inputs"):
+        shard_args = [
+            from_numpy_batch(bufs[part], lengths[part], bfinal[part], dev)
+            for dev, part in _shards(mesh, bufs.shape[0])]
+    words, total_bits, crcs, adlers = _at_once(mesh, shard, shard_args)
     return words, total_bits, crcs, adlers, total_bits.clone()
 
 
@@ -253,10 +273,11 @@ def decompress_chunks_dp(mesh: ChunkMesh, bufs, in_lens, out_lens,
                              torch.ones_like(status), status)
         return out, oplens, consumed, status
 
-    out, oplens, consumed, status = _at_once(mesh, shard, [
-        (bufs[part].to(dev), in_lens[part].to(dev),
-         out_lens[part].to(dev, torch.int32))
-        for dev, part in _shards(mesh, bufs.shape[0])])
+    with span("mesh.inputs"):
+        shard_args = [(bufs[part].to(dev), in_lens[part].to(dev),
+                       out_lens[part].to(dev, torch.int32))
+                      for dev, part in _shards(mesh, bufs.shape[0])]
+    out, oplens, consumed, status = _at_once(mesh, shard, shard_args)
     return out, oplens, consumed, status, oplens.clone()
 
 

@@ -9,9 +9,15 @@ Counterpart of ``libdeflate_tpu/utils/profiling.py``:
   tree (the JAX version copies the arrays to the host, its only reliable
   barrier); CPU tensors need no wait;
 - ``device_trace``: a context manager around ``torch.profiler`` (CPU
-  activity, and CUDA activity where CUDA is present) that writes a Chrome
-  trace into a directory given as its argument or by
-  ``LIBDEFLATE_TPU_TRACE``, read at call time; a no-op without one.
+  activity, and CUDA activity where CUDA is present, on every thread)
+  that writes a Chrome trace into a directory given as its argument or
+  by ``LIBDEFLATE_TPU_TRACE``, read at call time; a no-op without one;
+- ``span`` and ``stage_marks``: the program's own ranges (the whole-file
+  entry's ``codec.*``, the mesh's ``mesh.*``, the tier entries'
+  ``stage.*``, the decoder's ``decode.*``), ``record_function`` ranges in
+  whatever ``torch.profiler`` session the caller has started, so they
+  share its clock with the kernels and copies.  With no session a span
+  costs one read of the profiler's flag.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ import time
 from collections import OrderedDict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# what ``span`` returns with no profiler session: reusable, allocates nothing
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _cuda_devices(tree, found: set) -> set:
@@ -92,8 +102,51 @@ def device_trace(trace_dir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    from torch._C._profiler import _ExperimentalConfig
+
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    # every thread's ops and ranges: a mesh of several shards runs each
+    # shard in a worker thread of its own
+    with profile(activities=activities, experimental_config=
+                 _ExperimentalConfig(profile_all_threads=True)) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(
         trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` when a profiler session
+    is on; otherwise a reusable no-op context (one flag read)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def stage_marks(on_stage=None):
+    """Yields the ``mark(name)`` a tier entry calls as each stage begins
+    and with ``"end"`` after the last.  Each mark calls ``on_stage(name)``
+    (when given), closes the open stage range and, with a profiler
+    session on, opens ``stage.<name>`` (``"end"`` only closes).  Leaving
+    the block, by an error too, closes the open range."""
+    open_range = None
+
+    def close():
+        nonlocal open_range
+        if open_range is not None:
+            rng, open_range = open_range, None
+            rng.__exit__(None, None, None)
+
+    def mark(name: str) -> None:
+        nonlocal open_range
+        if on_stage is not None:
+            on_stage(name)
+        close()
+        if name != "end" and _autograd_profiler._is_profiler_enabled:
+            open_range = torch.profiler.record_function("stage." + name)
+            open_range.__enter__()
+
+    try:
+        yield mark
+    finally:
+        close()

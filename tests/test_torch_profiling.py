@@ -6,7 +6,8 @@
   ``report`` text;
 - ``device_trace`` writes a Chrome trace into a given directory, or into
   the one ``LIBDEFLATE_TPU_TRACE`` names (read at call time), on the CPU,
-  and does nothing without one;
+  and does nothing without one; the trace holds every thread's ranges, so
+  a two-shard mesh's two worker threads each show their tier stages;
 - ``sync`` walks nested lists, tuples and dicts of tensors and other
   leaves.
 """
@@ -14,9 +15,11 @@
 import io
 import json
 
+import numpy as np
 import torch
 
 from libdeflate_tpu.utils import profiling as jprof
+from libdeflate_tpu_torch.parallel import mesh as pm
 from libdeflate_tpu_torch.utils import profiling as prof
 
 RECORDS = [("compress", 0.0123), ("decompress", 0.5), ("compress", 0.25),
@@ -50,11 +53,23 @@ def test_phase_equals_jax():
 
 def test_device_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     monkeypatch.delenv("LIBDEFLATE_TPU_TRACE", raising=False)
+    bufs = np.frombuffer(b"the shard's stages " * 200, np.uint8)[
+        :2 * 1024].reshape(2, 1024)
     with prof.device_trace(str(tmp_path / "given")) as p:
         torch.arange(1000).sum()
+        pm.compress_chunks_dp(pm.make_chunk_mesh(["cpu"] * 2), bufs,
+                              np.full(2, 1024, np.int32), np.ones(2, bool),
+                              level=0)
     assert p is not None
     (trace,) = (tmp_path / "given").glob("trace_*.json")
-    assert "traceEvents" in json.loads(trace.read_text())
+    events = json.loads(trace.read_text())["traceEvents"]
+    # each shard thread's stage ranges
+    threads = {e["tid"] for e in events if e.get("cat") == "user_annotation"
+               and e["name"] == "stage.candidates"}
+    assert len(threads) == 2
+    assert {e["name"] for e in events if e.get("tid") in threads
+            and e["name"].startswith("stage.")} >= {
+        "stage.candidates", "stage.commit", "stage.pack", "stage.crc32"}
     # the environment knob, read when the context is entered
     monkeypatch.setenv("LIBDEFLATE_TPU_TRACE", str(tmp_path / "env"))
     with prof.device_trace():
