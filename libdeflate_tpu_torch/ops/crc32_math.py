@@ -5,12 +5,17 @@ holding what ``ops/checksums.py`` needs.  The CRC register update is linear
 over GF(2), so "advance the register by k zero bytes" is a 32x32 bit matrix
 ``A^k``; ``A^(2^j)`` is precomputed by squaring, which gives O(log n)
 ``crc32_combine`` and the per-level matrices of the checksum's combine tree.
+``crc32_combine_by_table`` applies ``A^k`` as four 256-entry tables of
+ints, built once a length: the whole-file trailer combines every chunk at
+one length.
 
 All matrices are stored column-major as uint32 vectors: ``M @ v`` = XOR of
 ``cols[j]`` over the set bits ``j`` of ``v``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -122,3 +127,28 @@ BLOCK_BITS_MATRIX = _make_block_bits_matrix()
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     """CRC of A||B from crc32(A), crc32(B), |B| (zlib-compatible)."""
     return int(advance(np.uint32(crc1), len2)) ^ crc2
+
+
+@functools.lru_cache(maxsize=64)
+def _advance_tables(nbytes: int) -> tuple[list[int], ...]:
+    """``advance`` past ``nbytes`` zero bytes as four 256-entry tables, one
+    a byte of the register: entry b of table k is the XOR of the operator's
+    columns 8k + j over the set bits j of b."""
+    basis = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32))
+    cols = advance(basis, nbytes).tolist()
+    tables = []
+    for k in range(4):
+        t = [0] * 256
+        for b in range(1, 256):
+            low = b & -b
+            t[b] = t[b ^ low] ^ cols[8 * k + low.bit_length() - 1]
+        tables.append(t)
+    return tuple(tables)
+
+
+def crc32_combine_by_table(crc1: int, crc2: int, len2: int) -> int:
+    """``crc32_combine`` by the cached tables of ``len2``: four lookups and
+    XORs a call once a length's tables are built."""
+    t0, t1, t2, t3 = _advance_tables(len2)
+    return (t0[crc1 & 0xFF] ^ t1[crc1 >> 8 & 0xFF] ^ t2[crc1 >> 16 & 0xFF]
+            ^ t3[crc1 >> 24 & 0xFF] ^ crc2)

@@ -7,7 +7,9 @@ lengths 0 to 4096); ``crc32_fixed`` and ``adler32_fixed`` on randomized
 sizes, lengths and initial values (the JAX functions on one padded shape,
 since the result does not depend on the bytes past ``length``); the
 Adler-32 s2-overflow edge (5553 bytes of 0xFF from 0xFFFFFFFF).  The port's
-libdeflate_tpu_torch/ops/crc32_math.py tables against the JAX package's.
+libdeflate_tpu_torch/ops/crc32_math.py tables against the JAX package's,
+and its table-driven ``crc32_combine_by_table`` against ``crc32_combine``
+and zlib.
 
 Tolerance: exact.
 """
@@ -49,6 +51,33 @@ def test_crc32_combine_matches_reference(rng):
     x = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
     assert pm.crc32_combine(zlib.crc32(x[:1000]), zlib.crc32(x[1000:]),
                             2000) == zlib.crc32(x)
+
+
+@pytest.mark.parametrize("len2", [0, 1, 2, 65535, 1 << 20, (1 << 20) + 1,
+                                  (1 << 32) + 5, "random"])
+def test_crc32_combine_by_table(len2, rng):
+    """Equal to ``crc32_combine`` on random registers and, where the data
+    fits, to zlib's CRC-32 of the joined data."""
+    lens = ([int(n) for n in rng.integers(0, 1 << 24, 6)] if len2 == "random"
+            else [len2])
+    for n in lens:
+        for _ in range(3):
+            a, b = (int(x) for x in rng.integers(0, 2**32, 2))
+            assert pm.crc32_combine_by_table(a, b, n) == \
+                pm.crc32_combine(a, b, n)
+        if n <= (1 << 20) + 1:
+            x = rng.integers(0, 256, 100 + n, dtype=np.uint8).tobytes()
+            assert pm.crc32_combine_by_table(
+                zlib.crc32(x[:100]), zlib.crc32(x[100:]), n) == zlib.crc32(x)
+
+
+def test_crc32_combine_by_table_over_a_file_with_a_short_last_chunk(rng):
+    data = rng.integers(0, 256, 5 * 65536 + 1234, dtype=np.uint8).tobytes()
+    crc = 0
+    for i in range(0, len(data), 65536):
+        chunk = data[i:i + 65536]
+        crc = pm.crc32_combine_by_table(crc, zlib.crc32(chunk), len(chunk))
+    assert crc == zlib.crc32(data)
 
 
 @pytest.mark.parametrize("name", ["crc32", "adler32"])

@@ -5,7 +5,9 @@
   mesh at levels 6 and 1 gives the whole-file entry's, the mesh's and
   the tier entry's ranges, nested and in order: the stage ranges follow
   the ``on_stage`` marks, and there is one ``codec.stored`` a chunk that
-  fell back to a stored block;
+  fell back to a stored block; ``codec.grow`` opens inside
+  ``codec.to_host`` on the thread's first call and not on a second call
+  of the same size;
 - with no session nothing enters ``record_function``, and ``on_stage``
   callers get the marks they always got;
 - a one-shard mesh runs its shard on the calling thread, with the
@@ -64,6 +66,7 @@ def _inside(inner, outer) -> bool:
 
 @pytest.mark.parametrize("level", [6, 1])
 def test_compress_spans_nest_in_order(level, monkeypatch, tmp_path):
+    monkeypatch.setattr(file_codec, "_assembly", threading.local())
     marks, stored = [], []
     compressor = pm.chunk_compressor
     monkeypatch.setattr(pm, "chunk_compressor", lambda lv: functools.partial(
@@ -84,10 +87,11 @@ def test_compress_spans_nest_in_order(level, monkeypatch, tmp_path):
     assert len({s[1] for s in spans}) == 1       # all on the caller's thread
     (shards,) = [s for s in spans if s[0] == "mesh.shards"]
     (fragments,) = [s for s in spans if s[0] == "codec.fragments"]
+    (to_host,) = [s for s in spans if s[0] == "codec.to_host"]
     stages = [s for s in spans if s[0].startswith("stage.")]
     inner = [s for s in spans if s[0] == "codec.stored"]
-    assert [s[0] for s in spans if s not in stages and s not in inner] \
-        == OUTER
+    grow = [s for s in spans if s[0] == "codec.grow"]
+    assert [s[0] for s in spans if s not in stages + inner + grow] == OUTER
     assert [s[0] for s in stages] == [f"stage.{m}" for m in marks
                                       if m != "end"] + ["stage.crc32",
                                                         "stage.adler32"]
@@ -97,7 +101,14 @@ def test_compress_spans_nest_in_order(level, monkeypatch, tmp_path):
     assert all(_inside(s, shards) for s in stages)
     assert all(a[3] <= b[2] for a, b in zip(stages, stages[1:]))
     assert len(inner) == len(stored) == 1 and _inside(inner[0], fragments)
-    assert file_codec.gzip_compress_dp(DATA, mesh, CHUNK, level) == member
+    assert len(grow) == 1 and _inside(grow[0], to_host)
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert file_codec.gzip_compress_dp(DATA, mesh, CHUNK, level) == member
+    names = [s[0] for s in _spans(prof, tmp_path)
+             if not s[0].startswith("stage.")]
+    assert "codec.grow" not in names and len(stored) == 2
+    assert [n for n in names if n != "codec.stored"] == OUTER
 
 
 def _refuse(*args, **kwargs):
