@@ -833,7 +833,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     stored_size = 5 * -(-CHUNK // 65535) + CHUNK + 5
     originals = {name: getattr(pm, name) for name in (
         "chunk_compressor", "crc32_chunks", "adler32_chunks",
-        "compress_chunks_dp")}
+        "compress_shards")}
     file_launches = {}
     errs = {"dp_parse": 0, "pack_groups": 0}
     for level, (pin_name, dp_calls, timed_calls) in FILE_LEVELS.items():
@@ -842,8 +842,8 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
         recs = {name: Recording(getattr(pk, name)) for name in errs}
 
         def compress_dp(*args, **kwargs):
-            out = originals["compress_chunks_dp"](*args, **kwargs)
-            gathered.append(out[4].tolist())
+            out = originals["compress_shards"](*args, **kwargs)
+            gathered.append(torch.cat([s[1].cpu() for s in out]).tolist())
             return out
 
         pm.chunk_compressor = lambda lv: clock.wrap(
@@ -851,7 +851,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
         pm.crc32_chunks = clock.wrap("checksums", originals["crc32_chunks"])
         pm.adler32_chunks = clock.wrap("checksums",
                                        originals["adler32_chunks"])
-        pm.compress_chunks_dp = compress_dp
+        pm.compress_shards = compress_dp
         for name, rec in recs.items():
             setattr(pk, name, rec)
         try:

@@ -33,7 +33,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import from_numpy_batch
+from ..device import constant, from_numpy_batch
 from ..utils.profiling import stage_marks
 from . import kernels
 from .bits import M32, bsr, length_slot, offset_slot, rev16, to_i32
@@ -129,7 +129,7 @@ P19_LENS, P19_TAB, P19_LENS_PERM = _p19_fixed()
 
 
 def _const(x, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+    return constant(x, np.int64, dev)
 
 
 def dyn_nwords(n: int, blocks: int = 1) -> int:
@@ -244,19 +244,24 @@ def build_code_lens_pair(hist_lit: torch.Tensor, hist_dist: torch.Tensor,
     return lens[:, 0], lens[:, 1, :NDIST], ok[:, 0], ok[:, 1]
 
 
+# RFC 1951 3.2.2's loop ``code = (code + bl_count[ln - 1]) << 1`` unrolled:
+# the first code of length ln is the sum over j < ln of bl_count[j] << (ln - j)
+_FIRST_CODE_WEIGHTS = np.array(
+    [[1 << (ln - j) if j < ln else 0 for ln in range(MAX_CODE_LEN_DEEP + 1)]
+     for j in range(MAX_CODE_LEN_DEEP + 1)], np.int64)
+
+
 def canonical_table(lens: torch.Tensor) -> torch.Tensor:
     """T[sym] = rev_code<<4 | len per row, canonical per RFC 1951 3.2.2
-    (``_canonical_table``)."""
+    (``_canonical_table``).  The first code of each length comes from one
+    product with ``_FIRST_CODE_WEIGHTS``, not a loop of 15 small steps."""
     lens = lens.to(torch.int64)
     l_iota = torch.arange(MAX_CODE_LEN_DEEP + 1, device=lens.device)
     onehot = (lens[..., None] == l_iota).to(torch.int64)   # [R, nsym, 16]
     bl_count = onehot.sum(1)
     bl_count[:, 0] = 0
-    first = torch.zeros_like(bl_count)
-    code = torch.zeros_like(bl_count[:, 0])
-    for ln in range(1, MAX_CODE_LEN_DEEP + 1):
-        code = (code + bl_count[:, ln - 1]) << 1
-        first[:, ln] = code
+    first = (bl_count[..., None] * _const(_FIRST_CODE_WEIGHTS,
+                                          lens.device)).sum(-2)
     # rank among same-length symbols of lower index
     rank = (torch.cumsum(onehot, 1) - onehot).gather(2, lens[..., None])[..., 0]
     code = first.gather(1, lens) + rank

@@ -34,12 +34,13 @@ honours it).
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..device import from_numpy_batch
+from ..device import constant, from_numpy_batch
 from ..utils.profiling import stage_marks
 from . import kernels
 from .bits import bsr, length_slot, offset_slot
@@ -151,6 +152,31 @@ def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
     return fma_f32(_f32(_LOG_Q2), e, r)
 
 
+# xla_log_f32 of the whole numbers below a power of two, by device and
+# size: made once, finished before any stream reads them, never freed
+_whole_logs: dict[tuple[torch.device, int], torch.Tensor] = {}
+_whole_logs_lock = threading.Lock()
+
+
+def whole_logs(most: int, dev: torch.device) -> torch.Tensor:
+    """``xla_log_f32`` of 0, 1, ... at least ``most`` as one float32
+    table on ``dev`` (0's entry unused), so that the seed costs of counts
+    up to ``most`` read their logarithms: a few ops where computing them
+    takes some 400, which the mesh's shard threads each pay for."""
+    key = (dev, 1 << max(most, 1).bit_length())
+    table = _whole_logs.get(key)
+    if table is None:
+        with _whole_logs_lock:
+            table = _whole_logs.get(key)
+            if table is None:
+                table = xla_log_f32(torch.arange(key[1], device=dev).to(
+                    torch.float32))
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+                _whole_logs[key] = table
+    return table
+
+
 def literal_hist_rows(bp: torch.Tensor, length: torch.Tensor,
                       sample: int = 1) -> torch.Tensor:
     """The per-row byte histogram that ``_literal_costs`` keeps as its
@@ -184,15 +210,18 @@ def literal_cost_table(bp: torch.Tensor, length: torch.Tensor,
     if cache is None:
         cache = literal_hist_rows(bp, length, sample)
     h = cache.sum(1)[:, :256]
-    return seed_costs(h, torch.clamp(h.sum(1), min=1))
+    return seed_costs(h, torch.clamp(h.sum(1), min=1), most=bp.shape[1])
 
 
-def seed_costs(h: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+def seed_costs(h: torch.Tensor, total: torch.Tensor,
+               most: int) -> torch.Tensor:
     """Cost of counts h [R, K] out of total [R]: round(16*log2(total/h))
-    clamped to [16, 240], 240 where h is 0."""
-    inv_ln2 = _f32(_INV_LN2).to(h.device)
-    lt = xla_log_f32(total.to(torch.float32)) * inv_ln2
-    lh = xla_log_f32(torch.clamp(h, min=1).to(torch.float32))
+    clamped to [16, 240], 240 where h is 0.  ``most`` bounds every count
+    (the logarithms come from ``whole_logs``' table)."""
+    inv_ln2 = constant(np.float32(_INV_LN2), np.float32, h.device)
+    logs = whole_logs(most, h.device)
+    lt = logs[total] * inv_ln2
+    lh = logs[torch.clamp(h, min=1)]
     bits = fma_f32(-lh, inv_ln2, lt[:, None])
     cost = torch.clamp(torch.round(bits * BIT).to(torch.int64),
                        BIT, 15 * BIT)
@@ -212,7 +241,7 @@ def mean_literal_costs(cache: torch.Tensor, n_pad: int,
         h = h.sum(1, keepdim=True)
     B, m, _ = h.shape
     total = torch.clamp(h.sum(2), min=1)
-    c = seed_costs(h.reshape(B * m, 256), total.reshape(B * m))
+    c = seed_costs(h.reshape(B * m, 256), total.reshape(B * m), most=n_pad)
     mean = (h * c.reshape(B, m, 256)).sum(2) // total
     return mean.repeat_interleave(n_pad // m, dim=1)
 
@@ -334,7 +363,7 @@ def _compress_dp(bufs, lengths, bfinal, device, on_stage, *,
         else:
             cost_lit, _ = literal_costs_with(bp, lengths, sample=lit_sample)
         cds = [dist_cost(d) for d in dists]
-        lc_len = torch.as_tensor(seed_lc_len(match_bias16), device=bp.device)
+        lc_len = constant(seed_lc_len(match_bias16), np.int32, bp.device)
         for k in range(1, passes + 1):
             if k > 1:
                 mark(f"code_lens_{k}")

@@ -108,12 +108,22 @@ def _gf2_apply(mbits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _advance_dyn(reg: torch.Tensor, nbytes: torch.Tensor,
                  mats: torch.Tensor) -> torch.Tensor:
     """Advance registers past a per-row number of zero bytes (or rewind,
-    with the inverse matrices): ``_advance_dyn`` of the JAX code."""
-    out = reg
-    for j in range(32):
-        bit = ((nbytes >> j) & 1).bool()
-        out = torch.where(bit, _gf2_apply(mats[j], out), out)
-    return out
+    with the inverse matrices): ``_advance_dyn`` of the JAX code, which
+    applies ``mats[j]`` for each set bit j of ``nbytes`` in turn.  Here
+    the 32 matrices the bits select (the identity where a bit is clear)
+    are multiplied in a log-depth tree, mod 2, and applied once: a few
+    dozen ops where the loop takes some 500, which the mesh's shard
+    threads each pay for.  The matrices are powers of one advance, so
+    they commute and the order of the products does not matter; the 0/1
+    sums are at most 32, exact in float32 and TF32."""
+    sh = torch.arange(32, device=reg.device)
+    bit = ((nbytes[..., None] >> sh) & 1).bool()
+    m = torch.where(bit[..., None, None], mats[:32],
+                    torch.eye(32, device=reg.device))
+    while m.shape[-3] > 1:
+        m = (torch.matmul(m[..., 0::2, :, :], m[..., 1::2, :, :]).to(
+            torch.int64) & 1).to(torch.float32)
+    return _gf2_apply(m[..., 0, :, :], reg)
 
 
 def _rows_u8(bufs, lengths, inits, dev):

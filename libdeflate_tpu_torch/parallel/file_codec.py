@@ -11,29 +11,41 @@ Per-chunk stored fallback preserves the compress_bound contract on
 incompressible chunks, as the reference's cost comparison picks stored
 blocks (lib/deflate_compress.c:1779-1814).
 
-The member is laid out from the sizes alone: the gathered total_bits, the
-checksums and the chunk lengths come to the host in one sync, each
-chunk's slot follows from them (its device bytes, or its stored fragment
-where those are longer), and the header, every fragment and the trailer
-are written into one buffer of the calling thread, kept across calls and
-grown only when a member needs more (pinned memory on a CUDA mesh).  On
-a CUDA mesh each kept chunk's bytes are copied straight from the words
-into their slot, and nothing else of the words leaves the card.  The
+The file goes to the devices from one batch buffer of the calling
+thread, kept across calls (pinned memory on a CUDA mesh): the file in
+one copy, the last chunk's tail and the mesh's padding rows zeroed, each
+shard's rows to its device without blocking (``mesh.compress_shards``).
+The shards' results stay on their own devices: nothing is gathered.
+
+The member is laid out from the sizes alone: each shard's total_bits and
+checksums come to the host in one sync a shard, each chunk's slot
+follows from them and the chunk lengths (its device bytes, or its stored
+fragment where those are longer), and the header, every fragment and the
+trailer are written into a second buffer of the calling thread, kept
+across calls and grown only when a member needs more (pinned on a CUDA
+mesh).  On a CUDA mesh each kept chunk's bytes are copied straight from
+its card's words into their slot, every card's copies issued before any
+card is waited on, and nothing else of the words leaves the cards.  The
 returned ``bytes`` is the one copy of the member.
 
 With a profiler session on, a call's ranges (``utils.profiling.span``)
-are ``codec.pad``, the mesh's (``mesh.*``, with the tier entry's
-``stage.*`` inside), ``codec.to_host`` (the sizes and checksums, then
-the kept chunks' bytes into their slots on a CUDA mesh) with
-``codec.grow`` inside it when the buffer is allocated or grown,
-``codec.fragments`` (the stored chunks, and the kept chunks' bytes on a
-CPU mesh) with one ``codec.stored`` inside it a stored-fallback chunk,
-and ``codec.trailer`` (the checksums' combine; the header, the trailer
-and the member's copy out of the buffer).
+are ``codec.pad`` (with ``codec.grow`` inside it when the batch buffer
+is allocated or grown), the mesh's (``mesh.*``, one ``mesh.card_in`` a
+shard, the tier entry's ``stage.*`` inside), ``codec.to_host`` (the
+sizes and checksums, then one ``mesh.card_out`` a shard: on a CUDA mesh
+its kept chunks' bytes into their slots and the wait on them, on a CPU
+mesh its words handed to the host) with ``codec.grow`` inside it when
+the member buffer is allocated or grown, ``codec.fragments`` (the stored
+chunks, and the kept chunks' bytes on a CPU mesh) with one
+``codec.stored`` inside it a stored-fallback chunk, and
+``codec.trailer`` (the checksums' combine; the header, the trailer and
+the member's copy out of the buffer).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
 
 import numpy as np
@@ -49,8 +61,9 @@ from . import mesh as mesh_mod
 
 DEFAULT_CHUNK_SIZE = 1 << 20
 
-# each calling thread's assembly buffers, by whether they are pinned: two
-# callers on two threads never share one
+# each calling thread's buffers, by whether they are pinned: the members'
+# (``bufs``) and the batches' (``batch``); two callers on two threads
+# never share one
 _assembly = threading.local()
 
 
@@ -108,10 +121,12 @@ def _layout(total_bits: list, sizes: list, start: int):
     return slots, off
 
 
-def _host_buffer(nbytes: int, pinned: bool) -> torch.Tensor:
-    """The calling thread's uint8 assembly buffer of at least ``nbytes``,
-    (re)allocated inside a ``codec.grow`` range only when it is smaller."""
-    bufs = _assembly.__dict__.setdefault("bufs", {})
+def _thread_buffer(kind: str, nbytes: int, pinned: bool) -> torch.Tensor:
+    """The calling thread's uint8 buffer of ``kind`` ("bufs", the member;
+    "batch", the padded chunks on their way to the devices) of at least
+    ``nbytes``, (re)allocated inside a ``codec.grow`` range only when it
+    is smaller."""
+    bufs = _assembly.__dict__.setdefault(kind, {})
     buf = bufs.get(pinned)
     if buf is None or buf.numel() < nbytes:
         with span("codec.grow"):
@@ -121,17 +136,37 @@ def _host_buffer(nbytes: int, pinned: bool) -> torch.Tensor:
     return buf
 
 
+def _host_buffer(nbytes: int, pinned: bool) -> torch.Tensor:
+    """The calling thread's member buffer (``_thread_buffer``)."""
+    return _thread_buffer("bufs", nbytes, pinned)
+
+
 def _copy_kept(words: torch.Tensor, slots: list, buf: torch.Tensor) -> None:
     """Each kept chunk's bytes, the first ``length`` of its row of the
-    int32 words read as little-endian bytes, into its slot of ``buf``,
-    asynchronously from CUDA words, then one wait on the stream that made
-    them."""
+    int32 words read as little-endian bytes, into its slot of ``buf``
+    (``slots`` one a row, from the first; rows past them are padding),
+    asynchronously from CUDA words on their device's current stream,
+    which the caller waits on."""
     rows = words.view(torch.uint8)
     for i, (off, size, stored) in enumerate(slots):
         if not stored:
             buf[off:off + size].copy_(rows[i, :size], non_blocking=True)
-    if words.is_cuda:
-        torch.cuda.current_stream(words.device).synchronize()
+
+
+def _copy_out(shards: list, slots: list, buf: torch.Tensor) -> None:
+    """Every shard's kept chunks into their slots of ``buf``, each from its
+    own device: all the shards' copies issued before any device is waited
+    on.  One ``mesh.card_out`` range a shard covers its copies and its
+    wait; the ranges nest, so the last shard's is innermost and each
+    wait falls in its own shard's range."""
+    per = shards[0][0].shape[0]
+    with contextlib.ExitStack() as waits:
+        for k, (words, *_) in enumerate(shards):
+            waits.enter_context(span("mesh.card_out"))
+            _copy_kept(words, slots[k * per:(k + 1) * per], buf)
+            if words.is_cuda:
+                waits.callback(
+                    torch.cuda.current_stream(words.device).synchronize)
 
 
 def _gzip_trailer(crc: int, adler: int, isize: int) -> bytes:
@@ -165,25 +200,39 @@ def _compress_dp(data: bytes, mesh, chunk_size: int, level: int,
         with span("codec.trailer"):
             return head + stream + frame[2](0, 1, 0), 0, 1
 
+    on_card = any(dev.type == "cuda" for dev in mesh.devices)
     with span("codec.pad"):
         bufs, lengths, bfinal, nchunks = mesh_mod.pad_chunks(
-            data, chunk_size, len(mesh.devices))
-    words, _, crcs, adlers, all_bits = mesh_mod.compress_chunks_dp(
-        mesh, bufs, lengths, bfinal, level=level
-    )
+            data, chunk_size, len(mesh.devices),
+            functools.partial(_thread_buffer, "batch", pinned=on_card))
+    try:
+        shards = mesh_mod.compress_shards(mesh, bufs, lengths, bfinal,
+                                          level=level)
+    except BaseException:
+        # the copies may still read the batch buffer, which this thread's
+        # next call rewrites
+        for dev in set(mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        raise
     sizes = lengths[:nchunks].tolist()
     with span("codec.to_host"):
-        # the one sync: the gathered sizes (the global byte layout) and
-        # the checksums
-        total_bits, crcs, adlers = torch.stack(
-            [all_bits, crcs, adlers])[:, :nchunks].tolist()
+        # one sync a shard: its sizes (the global byte layout) and its
+        # checksums, on its own device
+        per_shard = [torch.stack(s[1:]).tolist() for s in shards]
+        total_bits, crcs, adlers = (
+            [v for rows in per_shard for v in rows[j]][:nchunks]
+            for j in range(3))
         slots, end = _layout(total_bits, sizes, len(head))
-        on_card = words.is_cuda
         buf = _host_buffer(end + tail, on_card)
         if on_card:
-            _copy_kept(words, slots, buf)
+            _copy_out(shards, slots, buf)
         else:
-            words = words.numpy()
+            words = []
+            for s in shards:
+                with span("mesh.card_out"):     # a CPU shard's words as is
+                    words.append(s[0].numpy())
+            words = np.concatenate(words)
         out = buf.numpy()
 
     with span("codec.fragments"):

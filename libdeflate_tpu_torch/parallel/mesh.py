@@ -22,19 +22,28 @@ process drives the same split over a ``ChunkMesh``, a tuple of
   stream of the calling thread (``_build.launch_context``), so the
   shards' kernels run side by side on one card or across cards; a CPU
   shard runs in its thread with no stream;
-- the gather waits, on the caller's streams, for an event at the end of
-  each shard's stream, then concatenates the shards' results in shard
-  order into one ``[B]`` tensor on the mesh's first device: the global
-  byte layout that the whole-file assembly (``parallel/file_codec.py``)
-  reads.  A tensor that one stream allocated and another reads is marked
-  with ``record_stream``;
+- the caller's stream on each device waits for an event at the end of
+  each of its shards' streams; ``compress_shards`` hands back each
+  shard's results on its own device, in shard order, and the whole-file
+  assembly (``parallel/file_codec.py``) reads every card's sizes and
+  kept bytes from there, so no word crosses between cards.
+  ``compress_chunks_dp`` and ``decompress_chunks_dp`` then gather the
+  shards' results in shard order into one ``[B]`` tensor on the mesh's
+  first device, the JAX mesh's contract.  A tensor that one stream
+  allocated and another reads is marked with ``record_stream``;
+- the compress shards' chunks go to their devices from the caller's
+  batch (pinned host memory in the whole-file entry) without blocking,
+  each on its device's caller stream, every copy issued before any shard
+  starts;
 - a shard that raises makes the call raise its error (the first in shard
   order) once every thread has ended;
 - with a profiler session on, the call's ranges (``utils.profiling.span``)
-  are ``mesh.inputs`` (the shards' inputs to their devices),
-  ``mesh.shards`` (from the first shard's start to the last one's end
-  and the event waits), ``mesh.gather`` and, in each compress shard,
-  ``stage.crc32`` and ``stage.adler32`` beside the tier entry's stages.
+  are ``mesh.inputs`` (the shards' inputs to their devices, one
+  ``mesh.card_in`` inside it a compress shard), ``mesh.shards`` (from the
+  first shard's start to the last one's end and the event waits),
+  ``mesh.gather`` where the results are gathered and, in each compress
+  shard, ``stage.crc32`` and ``stage.adler32`` beside the tier entry's
+  stages.
 
 The default mesh is every CUDA device, as JAX's ``jax.devices()``; on a
 machine with one card, that card alone, whose batch the tier entry runs
@@ -160,8 +169,9 @@ def _at_once(mesh: ChunkMesh, fn, shard_args):
     """fn(device, *args) for every shard at once, one worker thread a
     shard (a one-device mesh's shard on the calling thread),
     ``shard_args`` each shard's tensors on its device.  Returns each
-    field of fn's tuple gathered in shard order on the mesh's first
-    device.  A shard's error is raised once every thread has ended."""
+    shard's tuple of tensors on its own device, in shard order, the
+    caller's stream on that device waiting for the shard's.  A shard's
+    error is raised once every thread has ended."""
     callers = {dev: torch.cuda.current_stream(dev) for dev in mesh.devices
                if dev.type == "cuda"}
     ended = [None] * len(mesh.devices)
@@ -195,19 +205,28 @@ def _at_once(mesh: ChunkMesh, fn, shard_args):
                 for t in out:
                     t.record_stream(callers[dev])
             outs.append(out)
+    return outs
+
+
+def _gather(mesh: ChunkMesh, outs):
+    """Each field of the shards' tuples concatenated in shard order on the
+    mesh's first device."""
     lead = mesh.devices[0]
     with span("mesh.gather"):
         return [torch.cat([p.to(lead) for p in col]) for col in zip(*outs)]
 
 
-def compress_chunks_dp(mesh: ChunkMesh, bufs, lengths, bfinal,
-                       level: int = 1):
-    """Compress [B, N] chunks data-parallel over the mesh.
+def compress_shards(mesh: ChunkMesh, bufs, lengths, bfinal, level: int = 1):
+    """Compress [B, N] chunks data-parallel over the mesh, without the
+    gather: each shard's (words int32[B/n, W], total_bits, crcs, adlers)
+    on its own device, in shard order.
 
-    B must be a multiple of the mesh size (pad with empty chunks).  Every
-    shard runs at once (``_at_once``).  Returns (words int32[B, W]
-    holding the uint32 bit patterns, total_bits [B], crcs [B], adlers [B],
-    all_bits [B]), on the mesh's first device."""
+    B must be a multiple of the mesh size n (pad with empty chunks).  Each
+    shard's rows go to its device on that device's caller stream without
+    blocking (truly asynchronous from pinned ``bufs``, which the caller
+    leaves unchanged until it has waited on the results), one
+    ``mesh.card_in`` range a shard; then every shard runs at once
+    (``_at_once``)."""
     compress = chunk_compressor(level)
     bufs = as_tensor(bufs, np.uint8)
     lengths = as_tensor(lengths, np.int64)
@@ -222,10 +241,27 @@ def compress_chunks_dp(mesh: ChunkMesh, bufs, lengths, bfinal,
         return words, total_bits, crcs, adlers
 
     with span("mesh.inputs"):
-        shard_args = [
-            from_numpy_batch(bufs[part], lengths[part], bfinal[part], dev)
-            for dev, part in _shards(mesh, bufs.shape[0])]
-    words, total_bits, crcs, adlers = _at_once(mesh, shard, shard_args)
+        shard_args = []
+        for dev, part in _shards(mesh, bufs.shape[0]):
+            with span("mesh.card_in"):
+                shard_args.append(from_numpy_batch(
+                    bufs[part], lengths[part], bfinal[part], dev,
+                    non_blocking=True))
+    return _at_once(mesh, shard, shard_args)
+
+
+def compress_chunks_dp(mesh: ChunkMesh, bufs, lengths, bfinal,
+                       level: int = 1):
+    """Compress [B, N] chunks data-parallel over the mesh.
+
+    B must be a multiple of the mesh size (pad with empty chunks).  Every
+    shard runs at once (``compress_shards``).  Returns (words int32[B, W]
+    holding the uint32 bit patterns, total_bits [B], crcs [B], adlers [B],
+    all_bits [B]), gathered on the mesh's first device.  Pinned ``bufs``
+    are read asynchronously: leave them unchanged until the results have
+    been waited on."""
+    words, total_bits, crcs, adlers = _gather(mesh, compress_shards(
+        mesh, bufs, lengths, bfinal, level))
     return words, total_bits, crcs, adlers, total_bits.clone()
 
 
@@ -277,24 +313,35 @@ def decompress_chunks_dp(mesh: ChunkMesh, bufs, in_lens, out_lens,
         shard_args = [(bufs[part].to(dev), in_lens[part].to(dev),
                        out_lens[part].to(dev, torch.int32))
                       for dev, part in _shards(mesh, bufs.shape[0])]
-    out, oplens, consumed, status = _at_once(mesh, shard, shard_args)
+    out, oplens, consumed, status = _gather(mesh, _at_once(mesh, shard,
+                                                           shard_args))
     return out, oplens, consumed, status, oplens.clone()
 
 
-def pad_chunks(data: bytes, chunk_size: int, multiple_of: int):
+def pad_chunks(data: bytes, chunk_size: int, multiple_of: int, alloc=None):
     """Split ``data`` into fixed-size padded chunk arrays for the device
     path: (bufs uint8[B, chunk_size], lengths int32[B], bfinal bool[B],
-    nchunks), B the chunk count rounded up to ``multiple_of``."""
+    nchunks), B the chunk count rounded up to ``multiple_of``.
+
+    ``bufs`` is a fresh zeroed array, or with ``alloc`` the first B rows
+    of ``alloc(B * chunk_size)``, a writable CPU uint8 tensor (the
+    whole-file entry's batch buffer, kept across calls): the file goes in
+    as one copy, then the last chunk's tail and the padding rows are
+    zeroed, so nothing of an earlier file is left in them."""
     n = len(data)
     nchunks = max(-(-n // chunk_size), 1)
     b = -(-nchunks // multiple_of) * multiple_of
-    bufs = np.zeros((b, chunk_size), dtype=np.uint8)
+    if alloc is None:
+        bufs = np.zeros((b, chunk_size), dtype=np.uint8)
+        flat = bufs.reshape(-1)
+    else:
+        bufs = alloc(b * chunk_size)[: b * chunk_size].view(b, chunk_size)
+        flat = bufs.numpy().reshape(-1)
+        flat[n:] = 0
+    flat[:n] = np.frombuffer(data, dtype=np.uint8)
     lengths = np.zeros(b, dtype=np.int32)
-    arr = np.frombuffer(data, dtype=np.uint8)
-    for i in range(nchunks):
-        seg = arr[i * chunk_size : (i + 1) * chunk_size]
-        bufs[i, : len(seg)] = seg
-        lengths[i] = len(seg)
+    lengths[:nchunks] = chunk_size
+    lengths[nchunks - 1] = n - (nchunks - 1) * chunk_size
     bfinal = np.zeros(b, dtype=bool)
     bfinal[nchunks - 1] = True
     return bufs, lengths, bfinal, nchunks

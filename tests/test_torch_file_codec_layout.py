@@ -33,7 +33,7 @@ from libdeflate_tpu_torch.parallel import mesh as pm
 
 LEVELS = (0, 1, 6)
 NDEV = (1, 8)
-COMPRESS_CHUNKS_DP = pm.compress_chunks_dp     # the mesh's, unpatched
+COMPRESS_SHARDS = pm.compress_shards     # the mesh's, unpatched
 
 
 def reference_deflate(data, mesh, chunk_size, level):
@@ -79,21 +79,32 @@ def _outputs(data: bytes, level: int):
     """compress_chunks_dp's five outputs for ``data`` padded to 8 chunks,
     on one CPU device."""
     bufs, lengths, bfinal, _ = pm.pad_chunks(data, CS, 8)
-    return bufs, COMPRESS_CHUNKS_DP(pm.make_chunk_mesh(["cpu"]), bufs,
-                                    lengths, bfinal, level=level)
+    (outs,) = COMPRESS_SHARDS(pm.make_chunk_mesh(["cpu"]), bufs, lengths,
+                              bfinal, level=level)
+    return bufs, (*outs, outs[1].clone())
 
 
 @pytest.fixture
 def replay(monkeypatch):
-    """``pm.compress_chunks_dp`` answered from ``_outputs``: the rows of
-    the call's batch (its chunks, then the mesh's empty padding)."""
+    """``pm.compress_chunks_dp`` and the codec's ``pm.compress_shards``
+    answered from ``_outputs``: the rows of the call's batch (its chunks,
+    then the mesh's empty padding), gathered or split into the mesh's
+    shards."""
     def replayed(mesh, bufs, lengths, bfinal, level=1):
-        data = bytes(bufs.reshape(-1)[: int(np.sum(lengths))])
+        bufs = np.asarray(bufs)
+        data = bufs.reshape(-1)[: int(np.sum(lengths))].tobytes()
         want_bufs, outs = _outputs(data, level)
         b = len(bufs)
         assert b <= len(want_bufs) and np.array_equal(bufs, want_bufs[:b])
         return [t[:b].clone() for t in outs]
+
+    def shards(mesh, bufs, lengths, bfinal, level=1):
+        outs = replayed(mesh, bufs, lengths, bfinal, level)[:4]
+        per = len(bufs) // len(mesh.devices)
+        return [tuple(t[k * per:(k + 1) * per] for t in outs)
+                for k in range(len(mesh.devices))]
     monkeypatch.setattr(pm, "compress_chunks_dp", replayed)
+    monkeypatch.setattr(pm, "compress_shards", shards)
 
 
 @pytest.fixture

@@ -86,7 +86,7 @@ def test_seed_cost_sweep(lo, hi, step):
         want = np.asarray(_jax_seed_costs(jnp.asarray(tot, jnp.int32),
                                           jnp.asarray(h, jnp.int32)))
         got = optimal.seed_costs(torch.from_numpy(h)[None],
-                                 torch.from_numpy(tot)).numpy()
+                                 torch.from_numpy(tot), most=hi).numpy()
         live = h[None, :] <= tot[:, None]
         bad = np.argwhere(live & (got != want))
         assert bad.size == 0, [(int(tot[i]), int(h[j])) for i, j in bad[:5]]

@@ -5,9 +5,12 @@
   mesh at levels 6 and 1 gives the whole-file entry's, the mesh's and
   the tier entry's ranges, nested and in order: the stage ranges follow
   the ``on_stage`` marks, and there is one ``codec.stored`` a chunk that
-  fell back to a stored block; ``codec.grow`` opens inside
-  ``codec.to_host`` on the thread's first call and not on a second call
-  of the same size;
+  fell back to a stored block; ``codec.grow`` opens inside ``codec.pad``
+  (the batch buffer) and ``codec.to_host`` (the member buffer) on the
+  thread's first call and not on a second call of the same size;
+- on meshes of one and two devices, ``mesh.card_in`` and
+  ``mesh.card_out`` open once a device, inside ``mesh.inputs`` and
+  ``codec.to_host`` on the calling thread;
 - with no session nothing enters ``record_function``, and ``on_stage``
   callers get the marks they always got;
 - a one-shard mesh runs its shard on the calling thread, with the
@@ -41,9 +44,9 @@ DATA = TEXT[:CHUNK] + np.random.default_rng(7).integers(
     0, 256, CHUNK, dtype=np.uint8).tobytes()
 PROGRAM = ("codec.", "mesh.", "stage.", "decode.")
 # the call's ranges outside the mesh's shards, in order
-OUTER = ["codec.pad", "mesh.inputs", "mesh.shards", "mesh.gather",
-         "codec.to_host", "codec.fragments", "codec.trailer",
-         "codec.trailer"]
+OUTER = ["codec.pad", "mesh.inputs", "mesh.card_in", "mesh.shards",
+         "codec.to_host", "mesh.card_out", "codec.fragments",
+         "codec.trailer", "codec.trailer"]
 
 
 def _spans(prof, tmp_path):
@@ -88,6 +91,7 @@ def test_compress_spans_nest_in_order(level, monkeypatch, tmp_path):
     (shards,) = [s for s in spans if s[0] == "mesh.shards"]
     (fragments,) = [s for s in spans if s[0] == "codec.fragments"]
     (to_host,) = [s for s in spans if s[0] == "codec.to_host"]
+    (pad,) = [s for s in spans if s[0] == "codec.pad"]
     stages = [s for s in spans if s[0].startswith("stage.")]
     inner = [s for s in spans if s[0] == "codec.stored"]
     grow = [s for s in spans if s[0] == "codec.grow"]
@@ -101,7 +105,9 @@ def test_compress_spans_nest_in_order(level, monkeypatch, tmp_path):
     assert all(_inside(s, shards) for s in stages)
     assert all(a[3] <= b[2] for a, b in zip(stages, stages[1:]))
     assert len(inner) == len(stored) == 1 and _inside(inner[0], fragments)
-    assert len(grow) == 1 and _inside(grow[0], to_host)
+    # the batch buffer's and the member buffer's first allocations
+    assert len(grow) == 2 and _inside(grow[0], pad) and _inside(grow[1],
+                                                                to_host)
 
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         assert file_codec.gzip_compress_dp(DATA, mesh, CHUNK, level) == member
@@ -109,6 +115,23 @@ def test_compress_spans_nest_in_order(level, monkeypatch, tmp_path):
              if not s[0].startswith("stage.")]
     assert "codec.grow" not in names and len(stored) == 2
     assert [n for n in names if n != "codec.stored"] == OUTER
+
+
+@pytest.mark.parametrize("ndev", [1, 2])
+def test_card_ranges_open_once_a_device(ndev, tmp_path):
+    mesh = pm.make_chunk_mesh(["cpu"] * ndev)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        member = file_codec.gzip_compress_dp(DATA, mesh, CHUNK, 1)
+    assert zlib.decompress(member, 31) == DATA
+    spans = _spans(prof, tmp_path)
+    caller = next(s[1] for s in spans if s[0] == "codec.pad")
+    for name, outer in (("mesh.card_in", "mesh.inputs"),
+                        ("mesh.card_out", "codec.to_host")):
+        (around,) = [s for s in spans if s[0] == outer]
+        mine = [s for s in spans if s[0] == name]
+        assert len(mine) == ndev and around[1] == caller
+        assert all(_inside(s, around) for s in mine)
+    assert not [s for s in spans if s[0] == "mesh.gather"]
 
 
 def _refuse(*args, **kwargs):
