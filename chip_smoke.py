@@ -37,6 +37,18 @@ two paths through their entry points:
   (``guard_plain_chain``), and
   every tier's launch counts show C3 on each DP call and C4 on each
   greedy call and rescue pass;
+- the sorted matchfind's probes (``probe_phase``): C5
+  (``csrc/segment_probe.cu``), which replaces the XLA code of the JAX
+  package's ``_sorted_matchfind`` after its sort, equal to its plain
+  versions (``pipeline.sorted_best``, ``pipeline.sorted_matchfind_lean``)
+  on every call of one batch of each tier, on
+  ``experiments/crafted_probe.py``'s sets at every (form, depth, width)
+  the callers run and at depth 32, and at 64 x 1 MiB in each form, timed
+  there beside its plain version in turns, the sort and its bound.  No
+  compress path may run those plain versions on CUDA tensors
+  (``guard_plain_probe``), and every tier's, option's, whole-file, mesh,
+  soak and drivers launch count shows C5 once a static, dyn1, lean,
+  optfast and level 5-7 call and once a rescue pass;
 - compress: lean min-cost-DP raw-DEFLATE compress of a 16 MiB corpus in
   1 MiB chunks, 4 chunks per call, through ``compress_chunks_lean``; K1,
   K2, C1 and C2 each launched; every chunk round-trips through zlib, and
@@ -322,6 +334,10 @@ FILE_CHAIN = {0: {"chain_relax": 0, "chain_double": 1},
               6: {"chain_relax": 1, "chain_double": 0},
               9: {"chain_relax": 1, "chain_double": 0},
               12: {"chain_relax": 1, "chain_double": 1}}
+# C5's launches a call of a level's tier on one shard: the greedy tiers'
+# and level 6's main pass, level 12's rescue pass; level 9's 32-byte
+# triple stays plain
+FILE_PROBE = {0: 1, 1: 1, 6: 1, 9: 0, 12: 1}
 
 
 def card_line() -> str:
@@ -665,6 +681,7 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.experiments.harness import record_calls
@@ -678,7 +695,7 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
     launches, words = {}, {}
     chain = {}
     for name, (entry, dp_calls, pin) in entries.items():
-        for mod in (pk, sk, dd, ck):
+        for mod in (pk, sk, dd, ck, qk):
             mod.reset_launch_counts()
         outs = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
@@ -695,6 +712,12 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
                     (0, nb) if dp_calls else (nb, 2 * nb)):
             raise AssertionError(f"options, {name}: C3/C4 launches "
                                  f"{chain[name]}")
+        # C5 once a call: the lean candidates, the greedy pass or (deep
+        # with round probes) the rescue pass
+        if qk.segment_probe.launches != nb:
+            raise AssertionError(f"options, {name}: C5 launches "
+                                 f"{qk.segment_probe.launches}, not {nb}")
+        chain[name].update(probe_counts())
         # a commit and a code-length build a cost pass (the last build is
         # the emission's), one each for the greedy configuration
         want = {"dp_parse": dp_calls * len(batches),
@@ -818,6 +841,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
@@ -855,7 +879,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
         for name, rec in recs.items():
             setattr(pk, name, rec)
         try:
-            for mod in (pk, sk, dd, ck):
+            for mod in (pk, sk, dd, ck, qk):
                 mod.reset_launch_counts()
             out = fc.gzip_compress_dp(corpus, mesh, CHUNK, level)
             torch.cuda.synchronize()
@@ -864,7 +888,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
                         "commit_fsm": sk.commit_fsm.launches,
                         "code_lens": sk.code_lens.launches,
                         "decode_chunks": dd.decompress_chunks_words.launches,
-                        **chain_counts(ck)}
+                        **chain_counts(ck), **probe_counts()}
         finally:
             for name, rec in recs.items():
                 setattr(pk, name, rec.wrapper)
@@ -909,7 +933,8 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
                 "commit_fsm": passes * ndev,
                 "code_lens": 0 if pin_name == "static" else passes * ndev,
                 "decode_chunks": 0,
-                **{n: c * ndev for n, c in FILE_CHAIN[level].items()}}
+                **{n: c * ndev for n, c in FILE_CHAIN[level].items()},
+                "segment_probe": FILE_PROBE[level] * ndev}
         if launches != want:
             raise AssertionError(f"whole file, level {level}: launches "
                                  f"{launches}, not {want}")
@@ -1079,7 +1104,8 @@ SIDE_KERNELS = {"dp_parse": "dp_parse_kernel",
                 "loop_add_one": "add_one_loop_kernel",
                 "grid_copy": "grid_copy_kernel",
                 "chain_relax": "chain_relax_kernel",
-                "chain_double": "chain_double_kernel"}
+                "chain_double": "chain_double_kernel",
+                "segment_probe": "segment_probe_kernel"}
 
 
 def side_stream_calls(root: Path, dev) -> dict:
@@ -1089,11 +1115,13 @@ def side_stream_calls(root: Path, dev) -> dict:
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
     from libdeflate_tpu_torch.experiments import crafted_chain as cc
     from libdeflate_tpu_torch.experiments import crafted_dp as cdp
+    from libdeflate_tpu_torch.experiments import crafted_probe as cq
     from libdeflate_tpu_torch.experiments import crafted_streams as cs
     from libdeflate_tpu_torch.experiments import exp_device_roundup as rd
     from libdeflate_tpu_torch.experiments import exp_launch_overhead as lo
@@ -1122,6 +1150,9 @@ def side_stream_calls(root: Path, dev) -> dict:
              for c in cc.relax_sets(3)["random"]]
     double = [torch.as_tensor(x, device=dev)
               for c in cc.double_sets(2)["random"] for x in c]
+    h, bp, seg, _ = cq.probe_sets()["short, n_pad 5120"]
+    probe = (torch.as_tensor(h, device=dev), torch.as_tensor(bp, device=dev),
+             seg, 6, 16, "lean")
     return {
         "dp_parse": (lambda: pk.dp_parse(*dp, 256),
                      pk.dp_parse_plain(*cpu(dp), 256)),
@@ -1155,11 +1186,13 @@ def side_stream_calls(root: Path, dev) -> dict:
                 [tuple(x.cpu() for x in c) for c in relax]))),
         "chain_double": (lambda: list(ck.chain_extend2(*double)),
                          list(pp.chain_extend2(*cpu(double)))),
+        "segment_probe": (lambda: probe_flat(qk.segment_probe(*probe)),
+                          probe_flat(qk.segment_probe(*cpu(probe)))),
     }
 
 
 def side_stream_phase(root: Path, dev, card: str) -> dict:
-    """Every kernel wrapper (K1-K7, F1, C1-C4) called from a worker
+    """Every kernel wrapper (K1-K7, F1, C1-C5) called from a worker
     thread whose current stream is a side stream of its own: each result
     equals the plain version, and a profiler trace shows each kernel on
     that stream, not on the stream of the calling thread's marker op.
@@ -1170,6 +1203,7 @@ def side_stream_phase(root: Path, dev, card: str) -> dict:
 
     from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
@@ -1181,7 +1215,8 @@ def side_stream_phase(root: Path, dev, card: str) -> dict:
     wrappers = [pk.dp_parse, pk.pack_groups, dd.decompress_chunks_words,
                 tk.tokenize_chunks, fsm.decompress_chunks, sk.commit_fsm,
                 sk.code_lens, lo.grid_add_one, lo.loop_add_one, rd.grid_copy,
-                ck.chain_extend_multi, ck.chain_extend, ck.chain_extend2]
+                ck.chain_extend_multi, ck.chain_extend, ck.chain_extend2,
+                qk.segment_probe]
     counts = [w.launches for w in wrappers]
     calls = side_stream_calls(root, dev)
     for name, (fn, _) in calls.items():      # built and warm on this stream
@@ -1263,6 +1298,7 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
@@ -1286,10 +1322,10 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
                 "code_lens": sk.code_lens.launches,
                 "decode_chunks": dd.decompress_chunks_words.launches,
                 "fsm_decode": fsm.decompress_chunks.launches,
-                **chain_counts(ck)}
+                **chain_counts(ck), **probe_counts()}
 
     def reset():
-        for mod in (pk, sk, dd, fsm, ck):
+        for mod in (pk, sk, dd, fsm, ck, qk):
             mod.reset_launch_counts()
 
     def pinned(name, out, level):
@@ -1320,7 +1356,8 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
                     "commit_fsm": passes * k,
                     "code_lens": 0 if pin_name == "static" else passes * k,
                     "decode_chunks": 0, "fsm_decode": 0,
-                    **{n: c * k for n, c in FILE_CHAIN[level].items()}}
+                    **{n: c * k for n, c in FILE_CHAIN[level].items()},
+                    "segment_probe": FILE_PROBE[level] * k}
             if got != want:
                 raise AssertionError(f"mesh, {k} shards, level {level}: "
                                      f"launches {got}, not {want}")
@@ -2149,6 +2186,61 @@ def chain_counts(ck) -> dict:
             + ck.chain_extend2.launches}
 
 
+# C5's forms and pipeline's plain versions of them, which
+# guard_plain_probe keeps in PLAIN_PROBE before it puts guards in their
+# place; the comparisons call these
+PROBE_PLAIN = {"best": "sorted_best", "lean": "sorted_matchfind_lean"}
+PLAIN_PROBE: dict = {}
+
+
+def guard_plain_probe(pp) -> None:
+    """Keep ``pipeline``'s plain versions of C5's two forms in PLAIN_PROBE
+    and put guards in their place that raise when given CUDA tensors: the
+    wrapper takes them for CPU tensors only, so no compress path may reach
+    them on the card."""
+    for form, name in PROBE_PLAIN.items():
+        plain = PLAIN_PROBE.setdefault(form, getattr(pp, name))
+
+        def guard(h, *args, _name=name, _plain=plain, **kw):
+            if h.is_cuda:
+                raise AssertionError(f"pipeline.{_name} ran on CUDA tensors: "
+                                     f"a compress path went around C5")
+            return _plain(h, *args, **kw)
+        setattr(pp, name, guard)
+
+
+def probe_plain(args) -> list:
+    """The plain version of one C5 call (``segment_probe``'s positional
+    arguments) on the same tensors, as a flat list."""
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
+    h, bp, seg, depth, width, form, shift = \
+        tuple(args) + ("best", 0)[len(args) - 5:]
+    return probe_flat(PLAIN_PROBE[form](h, qk.payload_words(bp, width, shift),
+                                        seg, depth))
+
+
+def probe_check(qk, args, where: str) -> int:
+    """C5's wrapper on ``args`` against its plain version on the same CUDA
+    tensors; its launch uncounted.  Returns the largest difference (0)."""
+    n = qk.segment_probe.launches
+    got = qk.segment_probe(*args)
+    qk.segment_probe.launches = n
+    return require_equal(f"segment_probe ({where})", probe_flat(got),
+                         probe_plain(args))
+
+
+def probe_counts() -> dict:
+    """C5's launches so far."""
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
+    return {"segment_probe": qk.segment_probe.launches}
+
+
+def probe_flat(out) -> list:
+    """C5's result, a best triple or lean's three, as a flat list."""
+    return [x for t in out for x in t] if isinstance(out[0], tuple) \
+        else list(out)
+
+
 def chain_flat(name: str, out) -> list:
     """A chain extension's result as a flat list of tensors."""
     return ([x for pair in out for x in pair]
@@ -2387,6 +2479,157 @@ def chain_phase(batches, lengths, bfinal, card: str) -> dict:
     print(f"chain phase: {out['seconds']:.3f} s", flush=True)
     return out
 
+# C5's callers on one batch: C5 calls a call (the main pass of static,
+# dyn1 and the lean candidates; the rescue pass of dyn2, dyn3, deep and
+# levels 10-12; none where the 32-byte triple runs)
+PROBE_TIERS = {"static": 1, "dyn1": 1, "dyn2": 1, "dyn3": 1, "lean": 1,
+               "optfast": 1, "optimal": 0, "deep": 1, "level5": 1,
+               "level8": 0, "level10": 1}
+# the main path's shape: 64 chunks of 1 MiB, as one benchmark call
+PROBE_MAIN_ROWS = 64
+
+
+def probe_phase(root: Path, chunks: np.ndarray, batches, lengths, bfinal,
+                card: str) -> dict:
+    """C5 (``csrc/segment_probe.cu``), the sorted matchfind's probes
+    after the sort, which replaces XLA code of the JAX package's candidate
+    stage, held to its plain versions (``pipeline.sorted_best``,
+    ``pipeline.sorted_matchfind_lean`` on the payload words) on the card,
+    exact: on every call of one batch of each tier (PROBE_TIERS: its
+    count of calls checked), on ``experiments/crafted_probe.py``'s sets
+    at every (form, depth, width) of ``crafted_probe.RUNS``, at depth 32
+    (33 raises), and at the main path's shape (PROBE_MAIN_ROWS x 1 MiB,
+    the corpus repeated) in level 6's lean form, dyn1's and the static
+    tier's best form and the rescue pass's.  There it times by CUDA
+    events the wrapper (the sort and C5) in turns with the plain version
+    on the card (wrapper, plain, plain, wrapper), the bare launch (also
+    by graph replay) and the sort alone, beside the bound from the bytes
+    (each position's key and byte read once, 24 or 72 bytes written).
+    The comparisons' launches are not counted.  Returns the largest
+    error, the calls held, and the rows of times."""
+    import functools as ft
+
+    from libdeflate_tpu_torch.compress import dynamic as pd
+    from libdeflate_tpu_torch.compress import optimal as po
+    from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
+    from libdeflate_tpu_torch.experiments import crafted_probe as cq
+    from libdeflate_tpu_torch.experiments.harness import record_many
+    from libdeflate_tpu_torch.experiments.timing import cuda_ms, graph_ms
+    t_phase = time.perf_counter()
+    dev = lengths.device
+    err, held = 0, 0
+
+    def hold(args, where):
+        nonlocal err, held
+        err = max(err, probe_check(qk, args, where))
+        held += 1
+
+    entries = {"static": pp.compress_chunks_static,
+               "dyn1": pd.compress_chunks_dynamic,
+               "dyn2": pd.compress_chunks_dynamic2,
+               "dyn3": pd.compress_chunks_dynamic3,
+               "lean": po.compress_chunks_lean,
+               "optfast": po.compress_chunks_optfast,
+               "optimal": po.compress_chunks_optimal,
+               "deep": po.compress_chunks_optimal_deep,
+               **{f"level{k}": ft.partial(po.compress_chunks_optimal_with,
+                                          **kw)
+                  for k, kw in po.MESH_LEVEL_OPTIONS.items()}}
+    calls_by_tier = {}
+    for tier, entry in entries.items():
+        n0 = qk.segment_probe.launches
+        _, calls = record_many([(qk, "segment_probe")],
+                               lambda: entry(batches[0], lengths, bfinal))
+        seen = calls["segment_probe"]
+        if qk.segment_probe.launches - n0 != PROBE_TIERS[tier] \
+                or len(seen) != PROBE_TIERS[tier]:
+            raise AssertionError(f"{tier}: C5 launched "
+                                 f"{qk.segment_probe.launches - n0} times "
+                                 f"in {len(seen)} calls, not "
+                                 f"{PROBE_TIERS[tier]}")
+        for i, args in enumerate(seen):
+            hold(args, f"{tier}, batch 0, call {i + 1}")
+        calls_by_tier[tier] = len(seen)
+    print(f"C5 on each tier's own inputs: {json.dumps(calls_by_tier)} "
+          f"calls, each equal to its plain version", flush=True)
+    for name, (h, bp, seg, shift) in cq.probe_sets().items():
+        hd, bd = torch.as_tensor(h, device=dev), torch.as_tensor(bp,
+                                                                device=dev)
+        for form, depth, width in cq.RUNS:
+            hold((hd, bd, seg, depth, width, form, shift),
+                 f"crafted: {name}, {form}, depth {depth}, {width} bytes")
+    h, bp, seg, _ = cq.probe_sets()["text, 64 KiB"]
+    deep = (torch.as_tensor(h, device=dev), torch.as_tensor(bp, device=dev),
+            seg, qk.MAX_DEPTH, 16, "lean", 0)
+    hold(deep, f"crafted: text, 64 KiB, depth {qk.MAX_DEPTH}")
+    try:
+        qk.segment_probe(*deep[:3], qk.MAX_DEPTH + 1, 16, "lean")
+    except ValueError as e:
+        if "depth" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"C5 took depth {qk.MAX_DEPTH + 1}")
+    print(f"C5 segment_probe: equal to its plain versions on the crafted "
+          f"sets at {len(cq.RUNS)} runs each and at depth "
+          f"{qk.MAX_DEPTH}; depth {qk.MAX_DEPTH + 1} refused", flush=True)
+
+    reps = -(-PROBE_MAIN_ROWS // len(chunks))
+    big = torch.as_tensor(np.concatenate([chunks] * reps)[:PROBE_MAIN_ROWS],
+                          device=dev)
+    lens = torch.full((PROBE_MAIN_ROWS,), CHUNK, dtype=torch.int64,
+                      device=dev)
+    rows = {}
+    for what, wide, form, depth, width, half in (
+            ("level 6 (lean)", True, "lean", 6, 16, False),
+            ("dyn1", True, "best", 6, 16, False),
+            ("static", False, "best", 2, 16, False),
+            ("rescue pass", False, "best", 2, 8, True)):
+        bp, _, _, _, h, seg, _, junk = pp._row_inputs(big, lens, wide)
+        shift = seg // 2 if half else 0
+        if half:
+            h = torch.cat([h[:, shift:], torch.full_like(h[:, :shift], junk)],
+                          1)
+        args = (h, bp, seg, depth, width, form, shift)
+        hold(args, f"main path: {what}, {PROBE_MAIN_ROWS} x 1 MiB")
+        keys = qk.sort_keys(h, seg)
+        outs = [torch.empty_like(h) for _ in range(qk.OUTPUTS[form])]
+        n0 = qk.segment_probe.launches
+        turns = {"wrapper": [], "plain": []}
+        for who in ("wrapper", "plain", "plain", "wrapper"):
+            turns[who].append(
+                cuda_ms(lambda: qk.segment_probe(*args), 10)
+                if who == "wrapper" else cuda_ms(lambda: probe_plain(args),
+                                                 1))
+
+        def bare():
+            qk.segment_probe_into(bp, keys, outs, form, width, seg, depth,
+                                  shift)
+
+        npos = h.numel()
+        row = {"ms": sum(turns["wrapper"]) / 2,
+               "kernel_ms": cuda_ms(bare, 20),
+               "kernel_graph_ms": graph_ms(bare, 20),
+               "sort_ms": cuda_ms(lambda: qk.sort_keys(h, seg), 10),
+               "plain_ms": sum(turns["plain"]) / 2, "turns": turns,
+               "bytes_a_position": 9 + 8 * qk.OUTPUTS[form],
+               "bytes_bound_ms": 1e3 * npos * (9 + 8 * qk.OUTPUTS[form])
+               / H100_BYTES_PER_S,
+               "inputs": f"{what}: {form}, depth {depth}, {width}-byte "
+                         f"payloads, segments of {seg}, shift {shift}, "
+                         f"{list(h.shape)}"}
+        qk.segment_probe.launches = n0
+        rows[what] = row
+        print(f"C5 segment_probe ({what}): {json.dumps(row)}; {card}",
+              flush=True)
+        del bp, h, keys, outs, args
+        torch.cuda.empty_cache()
+    out = {"err": err, "held": held, "tiers": calls_by_tier, "main": rows,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"probe phase: {out['seconds']:.3f} s, {held} calls held",
+          flush=True)
+    return out
+
 
 def soak_fuzz_phase(root: Path, card: str) -> dict:
     """The randomized harnesses on the card.  The soak
@@ -2415,6 +2658,7 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.decompress import fsm
@@ -2426,9 +2670,10 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
                 "decode_chunks": dd.decompress_chunks_words,
                 "fsm_decode": fsm.decompress_chunks}
     targets = [(pk, "dp_parse"), (pk, "pack_groups"), (sk, "commit_fsm"),
-               (sk, "code_lens")] + [(ck, name) for name in CHAIN_KERNELS]
+               (sk, "code_lens"), (qk, "segment_probe")] + [
+                   (ck, name) for name in CHAIN_KERNELS]
     err = dict.fromkeys(wrappers, 0)
-    err.update(chain_relax=0, chain_double=0)
+    err.update(chain_relax=0, chain_double=0, segment_probe=0)
     held = Counter()
     plain_s = Counter()
     k1_tiers = []
@@ -2472,17 +2717,26 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
                                                        f"soak, {tier}"))
                 plain_s[kern] += time.perf_counter() - t0
                 held[kern] += 1
+        for args in calls["segment_probe"]:   # restores its own count
+            t0 = time.perf_counter()
+            err["segment_probe"] = max(err["segment_probe"], probe_check(
+                qk, args, f"soak, {tier}"))
+            plain_s["segment_probe"] += time.perf_counter() - t0
+            held["segment_probe"] += 1
         for name, w in wrappers.items():
             w.launches = counts[name]
         return res
 
     def chain_launches():
-        return {**chain_counts(ck), "chain_extend2": ck.chain_extend2.launches}
+        return {**chain_counts(ck), "chain_extend2": ck.chain_extend2.launches,
+                **probe_counts()}
 
     # C3 a DP tier's call; C4 a greedy call, dyn2's and dyn3's A/B one and
-    # the rescue pass of dyn2, dyn3 and deep
-    chain_want = {"chain_relax": 5, "chain_double": 7, "chain_extend2": 2}
-    for mod in (pk, sk, dd, fsm, ck):
+    # the rescue pass of dyn2, dyn3 and deep; C5 a call of static, dyn1,
+    # lean and optfast and the rescue pass of dyn2, dyn3 and deep
+    chain_want = {"chain_relax": 5, "chain_double": 7, "chain_extend2": 2,
+                  "segment_probe": 7}
+    for mod in (pk, sk, dd, fsm, ck, qk):
         mod.reset_launch_counts()
     pins = json.loads((root / SOAK_PINS).read_text())
     res = soak.run(SOAK_BATCHES, SOAK_SEED, soak.TIERS, pins=pins, call=call,
@@ -2524,7 +2778,7 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
     launches["soak"].update(chain_soak)
     # chunks of 0-258 bytes in 1 MiB rows, one batch a tier, K1 held to
     # its plain version on all of their calls
-    for mod in (pk, sk, dd, fsm, ck):
+    for mod in (pk, sk, dd, fsm, ck, qk):
         mod.reset_launch_counts()
     short = True
     t0 = time.perf_counter()
@@ -2546,7 +2800,7 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
           f"launches {json.dumps(launches['short'])}; "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    for mod in (pk, sk, dd, fsm, ck):
+    for mod in (pk, sk, dd, fsm, ck, qk):
         mod.reset_launch_counts()
     fz = fuzz.run(FUZZ_ITERS, FUZZ_SEED, 1,
                   log=functools.partial(print, flush=True))
@@ -2564,7 +2818,7 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
         raise AssertionError(f"fuzz: {c['damaged']} damaged rows and "
                              f"{c['device compress rows']} compress rows")
     for name in ("pack_groups", "commit_fsm", "code_lens", "decode_chunks",
-                 "fsm_decode", "chain_double"):
+                 "fsm_decode", "chain_double", "segment_probe"):
         if launches["fuzz"][name] <= 0:
             raise AssertionError(f"the fuzz's device target never launched "
                                  f"{name}")
@@ -2621,6 +2875,7 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.experiments import (ablate_lean,
@@ -2647,9 +2902,10 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
                 "commit_fsm": sk.commit_fsm, "code_lens": sk.code_lens,
                 "decode_chunks": dd.decompress_chunks_words}
     targets = [(pk, "dp_parse"), (pk, "pack_groups"), (sk, "commit_fsm"),
-               (sk, "code_lens")] + [(ck, name) for name in CHAIN_KERNELS]
+               (sk, "code_lens"), (qk, "segment_probe")] + [
+                   (ck, name) for name in CHAIN_KERNELS]
     err = dict.fromkeys(wrappers, 0)
-    err.update(chain_relax=0, chain_double=0)
+    err.update(chain_relax=0, chain_double=0, segment_probe=0)
     held = dict.fromkeys(err, 0)
     plain_s = 0.0
 
@@ -2685,6 +2941,10 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
                 err[kern] = max(err[kern], chain_check(
                     ck, name, args, f"drivers, {where}"))
                 held[kern] += 1
+        for args in calls["segment_probe"]:          # every call
+            err["segment_probe"] = max(err["segment_probe"], probe_check(
+                qk, args, f"drivers, {where}"))
+            held["segment_probe"] += 1
         plain_s += time.perf_counter() - t0
         for name, w in wrappers.items():
             w.launches = counts[name]
@@ -2721,7 +2981,7 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
                                      f"sha256 {digest[:16]}, the JAX package "
                                      f"{want[k][0]} {want[k][1][:16]}")
 
-    for mod in (pk, sk, dd, ck):
+    for mod in (pk, sk, dd, ck, qk):
         mod.reset_launch_counts()
     log = functools.partial(print, flush=True)
     # ---- the stage profilers, reps 1 ------------------------------------
@@ -2839,6 +3099,7 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
         raise AssertionError(f"checksum probes: {cs} {dec}")
     launches = {name: w.launches for name, w in wrappers.items()}
     launches.update(chain_counts(ck))
+    launches.update(probe_counts())
     for name in launches:
         if launches[name] <= 0:
             raise AssertionError(f"the drivers never launched {name}")
@@ -2868,6 +3129,7 @@ def main() -> int:
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
     from libdeflate_tpu_torch.compress import pipeline as pp
+    from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
     from libdeflate_tpu_torch.experiments import crafted_dp as cdp
@@ -2889,6 +3151,8 @@ def main() -> int:
     # from here on no compress path may run the plain chain extensions on
     # the card: C3 and C4 take their place
     guard_plain_chain(pp)
+    # nor the plain probes of the sorted matchfind's forms C5 takes
+    guard_plain_probe(pp)
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
@@ -3018,6 +3282,9 @@ def main() -> int:
     # ---- C3, C4: the chain extension against its plain versions --------
     chain_res = chain_phase(batches, lengths, bfinal, card)
 
+    # ---- C5: the sorted matchfind's probes against its plain versions --
+    probe_res = probe_phase(root, chunks, batches, lengths, bfinal, card)
+
     # ---- literal cost tables: CUDA against the CPU --------------------
     for b in batches:
         tab = po.literal_cost_table(b, lengths)
@@ -3026,7 +3293,7 @@ def main() -> int:
     print("literal cost tables: CUDA equals CPU on every batch", flush=True)
 
     # ---- the compress main path, through the entry point ---------------
-    for mod in (pk, sk, dd, ck):
+    for mod in (pk, sk, dd, ck, qk):
         mod.reset_launch_counts()
     outs = [po.compress_chunks_lean(b, lengths, bfinal) for b in batches]
     torch.cuda.synchronize()
@@ -3037,10 +3304,15 @@ def main() -> int:
                 "pack_groups": pk.pack_groups.launches,
                 "commit_fsm": sk.commit_fsm.launches,
                 "code_lens": sk.code_lens.launches,
-                "chain_relax": chain_counts(ck)["chain_relax"]}
+                "chain_relax": chain_counts(ck)["chain_relax"],
+                **probe_counts()}
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"the main path never launched {name}")
+    if launches["segment_probe"] != launches["chain_relax"]:
+        raise AssertionError(f"the lean path: C5 launched "
+                             f"{launches['segment_probe']} times in "
+                             f"{launches['chain_relax']} calls")
     if dd.decompress_chunks_words.launches or \
             chain_counts(ck)["chain_double"]:
         raise AssertionError("the lean path launched the decoder or C4")
@@ -3095,7 +3367,7 @@ def main() -> int:
     corpus_d = torch.as_tensor(chunks.copy(), device=dev)
     greedy = {}
     for name, entry in tiers.items():
-        for mod in (pk, sk, dd, ck):
+        for mod in (pk, sk, dd, ck, qk):
             mod.reset_launch_counts()
         outs_t = [entry(b, lengths, bfinal) for b in batches]
         torch.cuda.synchronize()
@@ -3105,15 +3377,18 @@ def main() -> int:
                     "code_lens": sk.code_lens.launches,
                     "chain_relax": ck.chain_extend_multi.launches,
                     "chain_extend": ck.chain_extend.launches,
-                    "chain_extend2": ck.chain_extend2.launches}
+                    "chain_extend2": ck.chain_extend2.launches,
+                    **probe_counts()}
         # C4 once a call (dyn2 and dyn3: the A/B doubling, and the
-        # one-candidate one of the rescue pass)
+        # one-candidate one of the rescue pass); C5 once a call (static
+        # and dyn1: the main pass; dyn2 and dyn3: the rescue pass)
         two = name in ("dyn2", "dyn3")
         want = {"pack_groups": len(batches), "dp_parse": 0,
                 "commit_fsm": len(batches),
                 "code_lens": 0 if name == "static" else len(batches),
                 "chain_relax": 0, "chain_extend": len(batches),
-                "chain_extend2": len(batches) if two else 0}
+                "chain_extend2": len(batches) if two else 0,
+                "segment_probe": len(batches)}
         if t_launch != want or dd.decompress_chunks_words.launches:
             raise AssertionError(f"{name}: launches {t_launch}, not {want}")
         words_t = torch.cat([w for w, _ in outs_t])
@@ -3199,7 +3474,7 @@ def main() -> int:
         dp_passes[f"level{k}"] = kw["passes"]
     dp_tiers = {}
     for name, entry in dp_entries.items():
-        for mod in (pk, sk, dd, ck):
+        for mod in (pk, sk, dd, ck, qk):
             mod.reset_launch_counts()
         t0 = time.perf_counter()
         outs_t = [entry(b, lengths, bfinal) for b in batches]
@@ -3209,17 +3484,21 @@ def main() -> int:
                     "pack_groups": pk.pack_groups.launches,
                     "commit_fsm": sk.commit_fsm.launches,
                     "code_lens": sk.code_lens.launches,
-                    **chain_counts(ck)}
+                    **chain_counts(ck), **probe_counts()}
         # a commit a cost pass; a code-length build a further pass and
         # one for the emission; C3 once a call, C4 once a call with the
-        # rescue pass (deep, levels 10-12)
+        # rescue pass (deep, levels 10-12); C5 once a call of the lean
+        # candidates (optfast, levels 5-7) or the rescue pass
         rescue = name in ("deep", "level10")
+        lean_form = name in ("optfast", "level5")
         want = {"dp_parse": dp_passes[name] * len(batches),
                 "pack_groups": len(batches),
                 "commit_fsm": dp_passes[name] * len(batches),
                 "code_lens": dp_passes[name] * len(batches),
                 "chain_relax": len(batches),
-                "chain_double": len(batches) if rescue else 0}
+                "chain_double": len(batches) if rescue else 0,
+                "segment_probe": len(batches) if rescue or lean_form
+                else 0}
         if t_launch != want or dd.decompress_chunks_words.launches:
             raise AssertionError(f"{name}: launches {t_launch}, not {want}")
         words_t = torch.cat([w for w, _ in outs_t])
@@ -3914,13 +4193,44 @@ def main() -> int:
             "soak_fuzz_launches": {k: v[name] for k, v in
                                    soak_fuzz["launches"].items()},
             "drivers_launches": drivers["launches"][name]})
+    # C5 on level 6's lean form at 64 x 1 MiB (also dyn1's, the static
+    # tier's and the rescue pass's best form); launches on the lean main
+    # path
+    row = probe_res["main"]["level 6 (lean)"]
+    kernels.append({
+        "name": "segment_probe", "route": "cuda",
+        "source": "libdeflate_tpu_torch/csrc/segment_probe.cu",
+        "replaces": "libdeflate_tpu/compress/tpu_pipeline.py:192",
+        "launches": launches["segment_probe"],
+        "max_abs_err": max(probe_res["err"],
+                           soak_fuzz["max_abs_err"]["segment_probe"],
+                           drivers["max_abs_err"]["segment_probe"]),
+        "ms": row["ms"], "kernel_ms": row["kernel_ms"],
+        "kernel_graph_ms": row["kernel_graph_ms"], "sort_ms": row["sort_ms"],
+        "plain_ms": row["plain_ms"], "plain_turns": row["turns"]["plain"],
+        "bound_ms": row["bytes_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "inputs": row["inputs"],
+        **{k: v for k, v in probe_res["main"].items()
+           if k != "level 6 (lean)"},
+        "held": probe_res["held"],
+        "greedy_tier_launches": {n: r["launches"]["segment_probe"]
+                                 for n, r in greedy.items()},
+        "dp_tier_launches": {n: r["launches"]["segment_probe"]
+                             for n, r in dp_tiers.items()},
+        "options_launches": sum(c["segment_probe"]
+                                for c in opt["chain"].values()),
+        "whole_file_launches": {level: n["segment_probe"] for level, n in
+                                file_launches["compress"].items()},
+        "soak_fuzz_launches": {k: v["segment_probe"] for k, v in
+                               soak_fuzz["launches"].items()},
+        "drivers_launches": drivers["launches"]["segment_probe"]})
     mesh_launches = mesh_res["launches"]
     for row in kernels:
         name = row["name"]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  mesh_res["side_err"][name])
         if name in ("dp_parse", "pack_groups", "commit_fsm", "code_lens",
-                    "chain_relax", "chain_double"):
+                    "chain_relax", "chain_double", "segment_probe"):
             row["mesh_launches"] = {
                 f"{k} shards": {level: n[name] for level, n in by.items()}
                 for k, by in mesh_launches.items() if k != "decode"}

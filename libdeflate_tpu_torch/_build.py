@@ -6,8 +6,9 @@ The sources are ``csrc/dp_parse.cu`` (K1), ``csrc/pack_groups.cu`` (K2),
 ``csrc/launch_probes.cu`` (K5-K7), ``csrc/fsm_decode.cu`` (F1, the
 FSM decoder), ``csrc/commit_fsm.cu`` (C1, the commit FSM) and
 ``csrc/code_lens.cu`` (C2, the code-length build) and
-``csrc/chain_extend.cu`` (C3 and C4, the candidates' chain extension);
-F1 and C1-C4 replace XLA code, not Pallas kernels.  K3 and K4 share
+``csrc/chain_extend.cu`` (C3 and C4, the candidates' chain extension)
+and ``csrc/segment_probe.cu`` (C5, the sorted matchfind's probes);
+F1 and C1-C5 replace XLA code, not Pallas kernels.  K3 and K4 share
 ``csrc/inflate_common.cuh``, and F1 keeps its own reader and tables,
 since its answers on damaged input are the JAX FSM's, not K3's.  Each source has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so``
@@ -44,7 +45,8 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 KERNEL_SOURCES = ("dp_parse", "pack_groups", "decode_chunks",
                   "tokenize_chunks", "launch_probes", "fsm_decode",
-                  "commit_fsm", "code_lens", "chain_extend")
+                  "commit_fsm", "code_lens", "chain_extend",
+                  "segment_probe")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], object] = {}

@@ -16,7 +16,10 @@ kernel, ``scan_kernels.commit_fsm``),
 ``_group_place`` (909), ``_hash3_matchfind`` (934), ``_parse_chunk``
 (965-1083, as ``greedy_candidates`` and ``commit_items``),
 ``compress_chunk_static`` and ``compress_chunks_static`` (1238-1305) and
-``device_stream_to_bytes`` (1308).
+``device_stream_to_bytes`` (1308).  The sorted matchfind's forms that
+levels 0-7 run (``sorted_best``, ``sorted_matchfind_lean``) are, on the
+card, the kernel of ``probe_kernels.segment_probe``, which
+``greedy_candidates``, ``parse_candidates`` and ``rescue_pass`` call.
 
 The JAX functions work on one chunk under ``vmap``; these take a leading
 batch axis.  Where the TPU needed a trick the port uses the direct op:
@@ -197,23 +200,37 @@ def _unpay(x):
     return x >> 18, x & 0xFFFF, (x >> 16) & 3
 
 
+def sorted_best(h, ws, seg: int, depth: int = 2):
+    """The best probe per position of ``_sorted_matchfind`` without
+    ``return_pair``/``return_triple``/``wide_ext``, before its chain
+    extension: one sort of every ``seg``-position segment, ``depth``
+    probes each over the payload words ``ws`` ((w, w4) or (w, w4, w8,
+    w12)), the longest, then the longest remainder, then the nearest.
+    Returns (mlen, dist, fine) [B, n], word-granular.  The plain version
+    of ``probe_kernels.segment_probe``'s "best" form."""
+    order, probe = _segment_probe(h, ws, seg)
+    pays = [_pack_inv(*probe(d)) for d in range(1, depth + 1)]
+    pay, = _unpermute(order, h.shape, functools.reduce(torch.maximum, pays))
+    return _unpack_inv(pay)
+
+
 def sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 2,
                      wide_ext: bool = False):
     """``_sorted_matchfind`` without ``return_pair``/``return_triple``: the
     nearest same-hash candidates per position from one sort of every
     ``seg``-position segment, ``depth`` probes each, 16-byte payloads
     (``w8`` and ``w12`` given) or 8-byte ones (either None).  Without
-    ``wide_ext`` the best probe is chain-extended (``chain_extend``); with
-    it the best and the best at another distance are extended together
-    (``chain_extend2``).  Returns (len, dist) [B, n]."""
+    ``wide_ext`` the best probe (``sorted_best``) is chain-extended
+    (``chain_extend``); with it the best and the best at another distance
+    are extended together (``chain_extend2``).  Returns (len, dist) [B,
+    n].  The compress paths reach the first form through
+    ``probe_kernels.segment_probe``."""
     ws = (w, w4) if w8 is None or w12 is None else (w, w4, w8, w12)
-    order, probe = _segment_probe(h, ws, seg)
-    pays = [_pack_inv(*probe(d)) for d in range(1, depth + 1)]
     from . import chain_kernels as ck
     if not wide_ext:
-        pay, = _unpermute(order, h.shape, functools.reduce(torch.maximum,
-                                                          pays))
-        return ck.chain_extend(*_unpack_inv(pay))
+        return ck.chain_extend(*sorted_best(h, ws, seg, depth))
+    order, probe = _segment_probe(h, ws, seg)
+    pays = [_pack_inv(*probe(d)) for d in range(1, depth + 1)]
     a, b = _best_two(pays)
     pa, pb = _unpermute(order, h.shape, _pay(*a), _pay(*b))
     return ck.chain_extend2(*_unpay(pa), *_unpay(pb))
@@ -225,7 +242,8 @@ def sorted_matchfind_lean(h, ws, seg: int, depth: int = DEPTH):
     w4): the best, the best at another distance, and the nearest
     same-hash candidate per position, each as word-granular (mlen, dist,
     fine) [B, n] triples.  Candidate C keeps the JAX path's packing loss:
-    its length is capped to 12 in steps of 4 and its ``fine`` is 0."""
+    its length is capped to 12 in steps of 4 and its ``fine`` is 0.  The
+    plain version of ``probe_kernels.segment_probe``'s "lean" form."""
     order, probe = _segment_probe(h, ws, seg)
     mlenC, distC, fineC = probe(1)
     pays = [_pack_inv(mlenC, distC, fineC)]
@@ -447,11 +465,11 @@ def chain_extend_multi(cands, strides2=STRIDES, strides1=STRIDES):
             for r, d, f in zip(rs, ds, fs)]
 
 
-def _positions(b: torch.Tensor, length: torch.Tensor, wide_window: bool):
+def _row_inputs(b: torch.Tensor, length: torch.Tensor, wide_window: bool):
     """What every parser starts from: (bp the padded bytes, pos [1,
-    n_pad], length [B, 1], words, w4, w8, w12, the masked hash h,
-    sort_seg, fsm_seg, junk_val), as ``_parse_chunk`` and
-    ``_parse_candidates`` compute them."""
+    n_pad], length [B, 1], words, the masked hash h, sort_seg, fsm_seg,
+    junk_val), as ``_parse_chunk`` and ``_parse_candidates`` compute
+    them."""
     B, n = b.shape
     n_pad, sort_seg, fsm_seg = segment_sizes(n, wide_window)
     junk_val = seg_key_params(sort_seg)[1]
@@ -461,28 +479,35 @@ def _positions(b: torch.Tensor, length: torch.Tensor, wide_window: bool):
     pos = torch.arange(n_pad, device=dev, dtype=torch.int64)[None, :]
     length = length.to(torch.int64)[:, None]
     words = le32_words(bp)
-    w4, w8, w12 = (ahead(words, k) for k in (4, 8, 12))
     h = ((words * MULT) & M32) >> (32 - HASH_ORDER)
     h = torch.where(pos + MIN_MATCH <= length, h, junk_val)
-    return (bp, pos, length, words, w4, w8, w12, h, sort_seg, fsm_seg,
-            junk_val)
+    return bp, pos, length, words, h, sort_seg, fsm_seg, junk_val
 
 
-def rescue_pass(h, words, w4, sort_seg: int, junk_val: int):
+def _positions(b: torch.Tensor, length: torch.Tensor, wide_window: bool):
+    """``_row_inputs`` with the payload words w4, w8 and w12 after
+    ``words``: (bp, pos, length, words, w4, w8, w12, h, sort_seg, fsm_seg,
+    junk_val)."""
+    bp, pos, length, words, *rest = _row_inputs(b, length, wide_window)
+    return (bp, pos, length, words,
+            *(ahead(words, k) for k in (4, 8, 12)), *rest)
+
+
+def rescue_pass(h, bp, sort_seg: int, junk_val: int):
     """The half-segment-shifted second matchfind of the two-pass modes
     (depth 2, 8-byte payloads, chain-extended): every position gets at
-    least half a segment of history.  Returns (len, dist) [B, n_pad],
-    zero over the first half segment."""
+    least half a segment of history.  ``bp`` the padded bytes.  Returns
+    (len, dist) [B, n_pad], zero over the first half segment."""
+    from . import chain_kernels as ck
+    from . import probe_kernels as pk
     half = sort_seg // 2
-
-    def shift(x, fill):
-        return torch.cat([x[:, half:], torch.full_like(x[:, :half], fill)], 1)
 
     def unshift(x):
         return torch.cat([torch.zeros_like(x[:, :half]), x[:, :-half]], 1)
 
-    mlen_b, dist_b = sorted_matchfind(shift(h, junk_val), shift(words, 0),
-                                      shift(w4, 0), None, None, sort_seg)
+    hs = torch.cat([h[:, half:], torch.full_like(h[:, :half], junk_val)], 1)
+    mlen_b, dist_b = ck.chain_extend(*pk.segment_probe(hs, bp, sort_seg, 2,
+                                                       8, "best", half))
     return unshift(mlen_b), unshift(dist_b)
 
 
@@ -520,16 +545,20 @@ def parse_candidates(b: torch.Tensor, length: torch.Tensor, depth: int = 6,
 
     Returns (bp, pos, lenA, dA, lenB, dB, lenC, dC, d3), each [B, n_pad]
     (pos [1, n_pad]); d3 is zero without ``hash3``."""
-    (bp, pos, length, words, w4, w8, w12, h, sort_seg, _,
-     junk_val) = _positions(b, length, wide_window)
+    from . import chain_kernels as ck
+    from . import probe_kernels as pk
+    (bp, pos, length, words, h, sort_seg, _,
+     junk_val) = _row_inputs(b, length, wide_window)
+    if use_wide or use_content:
+        w4, w8, w12 = (ahead(words, k) for k in (4, 8, 12))
     wide = tuple(ahead(words, k) for k in (16, 20, 24, 28)) \
         if use_wide else ()
-    ws = (words, w4) + ((w8, w12) + wide if lcp > 12 else ())
     if use_wide:
+        ws = (words, w4) + ((w8, w12) + wide if lcp > 12 else ())
         rawA, rawB, rawC = sorted_matchfind_triple(h, ws, sort_seg, depth)
     else:
-        rawA, rawB, rawC = sorted_matchfind_lean(h, ws, sort_seg, depth)
-    from . import chain_kernels as ck
+        rawA, rawB, rawC = pk.segment_probe(h, bp, sort_seg, depth,
+                                            16 if lcp > 12 else 8, "lean")
     if use_content:
         rawD, rawE = content_sorted_matchfind(
             h, words, w4, w8, w12, sort_seg, max(depth * 2 // 3, 4), wide,
@@ -564,7 +593,7 @@ def parse_candidates(b: torch.Tensor, length: torch.Tensor, depth: int = 6,
     if two_pass and sort_seg >= 2 * FSM_SEG:
         # the rescue candidate displaces A on a strictly longer match; the
         # displaced A becomes B unless the two share a distance
-        mlen_c, dist_c = rescue_pass(h, words, w4, sort_seg, junk_val)
+        mlen_c, dist_c = rescue_pass(h, bp, sort_seg, junk_val)
         beats_a = mlen_c > lenA
         demote = beats_a & (dist_c != dA)
         newB_l = torch.where(demote, lenA, lenB)
@@ -639,13 +668,20 @@ def greedy_candidates(b: torch.Tensor, length: torch.Tensor,
     with ``hash3`` len-3 matches where no longer one exists; with ``lazy``
     the offset-weighted one-position deferral.  Returns (bp, pos, span,
     is_match, dist, fsm_seg), arrays [B, n_pad] (pos [1, n_pad])."""
-    (bp, pos, length, words, w4, w8, w12, h, sort_seg, fsm_seg,
-     junk_val) = _positions(b, length, wide_window)
-    mlen, dist = sorted_matchfind(h, words, w4, None if lcp <= 8 else w8,
-                                  None if lcp <= 12 else w12, sort_seg,
-                                  depth, wide_ext)
+    from . import chain_kernels as ck
+    from . import probe_kernels as pk
+    (bp, pos, length, words, h, sort_seg, fsm_seg,
+     junk_val) = _row_inputs(b, length, wide_window)
+    if wide_ext:
+        w4, w8, w12 = (ahead(words, k) for k in (4, 8, 12))
+        mlen, dist = sorted_matchfind(h, words, w4, None if lcp <= 8 else w8,
+                                      None if lcp <= 12 else w12, sort_seg,
+                                      depth, True)
+    else:
+        mlen, dist = ck.chain_extend(*pk.segment_probe(
+            h, bp, sort_seg, depth, 16 if lcp > 12 else 8))
     if two_pass and sort_seg >= 2 * FSM_SEG:
-        mlen_b, dist_b = rescue_pass(h, words, w4, sort_seg, junk_val)
+        mlen_b, dist_b = rescue_pass(h, bp, sort_seg, junk_val)
         better = mlen_b > mlen
         mlen = torch.where(better, mlen_b, mlen)
         dist = torch.where(better, dist_b, dist)

@@ -8,8 +8,8 @@ repeats the reference's ``lib/deflate_compress.c``), each stage's output
 the next one's input:
 
 - candidates: ``pipeline.parse_candidates`` (depth 6, no content pass,
-  16-byte payloads, C relaxed), the position pass alone
-  (``sorted_matchfind_lean``) and the relaxation, C3
+  16-byte payloads, C relaxed), the position pass alone (the sort and
+  C5, ``probe_kernels.segment_probe``'s lean form) and the relaxation, C3
   (``chain_kernels.chain_extend_multi``), over three and two of its
   triples;
 - costs: ``optimal.literal_costs_with`` and ``dist_cost`` x4;
@@ -39,15 +39,15 @@ import sys
 
 import torch
 
-from ..compress import chain_kernels, kernels
+from ..compress import chain_kernels, kernels, probe_kernels
 from ..compress.bits import to_i32
 from ..compress.dynamic import (DYN_CAPW_DEEP, dyn_nwords, emit_dynamic_post,
                                 emit_dynamic_pre)
 from ..compress.optimal import (DP_SEG, SEED_LC_LEN, commit,
                                 compress_chunks_optimal_pallas_with,
                                 dist_cost, literal_costs_with)
-from ..compress.pipeline import (_positions, group_premerge,
-                                 parse_candidates, sorted_matchfind_lean)
+from ..compress.pipeline import (_row_inputs, group_premerge,
+                                 parse_candidates)
 from ..device import resolve_device
 from .driver_common import Bench, device_args, header, on_device, text_batch
 
@@ -62,9 +62,8 @@ LADDERS = (("sparse28", kernels.LEN_LADDER),
 def posonly(bufs, lengths):
     """The position pass alone (the script's ``posonly``): the lean
     sorted matchfind's three raw triples over 16-byte payloads."""
-    (_, _, _, words, w4, w8, w12, h, sort_seg, _, _) = _positions(
-        bufs, lengths, True)
-    return sorted_matchfind_lean(h, (words, w4, w8, w12), sort_seg, 6)
+    bp, _, _, _, h, sort_seg, _, _ = _row_inputs(bufs, lengths, True)
+    return probe_kernels.segment_probe(h, bp, sort_seg, 6, 16, "lean")
 
 
 def stages(bufs, lengths, bfinal, bench) -> dict:
