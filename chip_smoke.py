@@ -40,11 +40,12 @@ two paths through their entry points:
 - the sorted matchfind's probes (``probe_phase``): C5
   (``csrc/segment_probe.cu``), which replaces the XLA code of the JAX
   package's ``_sorted_matchfind`` after its sort, equal to its plain
-  versions (``pipeline.sorted_best``, ``pipeline.sorted_matchfind_lean``)
-  on every call of one batch of each tier, on
-  ``experiments/crafted_probe.py``'s sets at every (form, depth, width)
-  the callers run and at depth 32, and at 64 x 1 MiB in each form, timed
-  there beside its plain version in turns, the sort and its bound.  No
+  versions (``probe_kernels.sorted_best``,
+  ``probe_kernels.sorted_matchfind_lean``) on every call of one batch of
+  each tier, on ``experiments/crafted_probe.py``'s sets at every (form,
+  depth, width) the callers run and at depth 32, and at 64 x 1 MiB in
+  each form, timed there beside its plain version in turns, the sort and
+  its bound.  No
   compress path may run those plain versions on CUDA tensors
   (``guard_plain_probe``), and every tier's, option's, whole-file, mesh,
   soak and drivers launch count shows C5 once a static, dyn1, lean,
@@ -577,13 +578,14 @@ def stage_ms(entry, batches, lengths, bfinal) -> dict[str, float]:
 def greedy_pack_inputs(tier: str, bufs, lengths):
     """The pack kernel's (sbuf, gw, nwords) for one batch of a greedy
     tier, built by the stage functions its entry calls."""
+    from libdeflate_tpu_torch.compress import bits
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import pipeline as pp
     if tier == "static":
         bp, pos, cm, cl, eff, dist = pp.parse_chunk(bufs, lengths)
         val, nb = pp.static_items(bp, cm, cl, eff, dist)
         offs = pp.exclusive_bit_offsets(nb)[0] + 3
-        return (*pp.group_premerge(val, nb, offs, capw=pp.GROUP_CAPW),
+        return (*pp.group_premerge(val, nb, offs, capw=bits.GROUP_CAPW),
                 pp.static_nwords(bufs.shape[1]))
     options, refine = pd.greedy_options(**pd.TIERS[tier])
     bp, pos, cm, cl, eff, dist = pp.parse_chunk(bufs, lengths, **options)
@@ -810,7 +812,7 @@ def options_phase(root: Path, corpus: bytes, chunks: np.ndarray, batches,
         sb, g, nw = calls[0]
         err_pack = max(err_pack, require_equal(
             f"pack_groups ({name})", [pk.pack_groups(sb, g, nw)],
-            [pp.group_place(sb, g, nw)]))
+            [pk.group_place(sb, g, nw)]))
         row = {"sbuf": list(sb.shape), "nwords": nw,
                "launches": launches[name]["pack_groups"],
                "ms": graph_ms(lambda: pk.pack_groups(sb, g, nw), 200),
@@ -840,7 +842,6 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch import entry as pe
     from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
-    from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
@@ -909,7 +910,7 @@ def whole_file_phase(root: Path, corpus: bytes, chunks: np.ndarray,
                                  recs["pack_groups"].results):
                 errs["pack_groups"] = max(errs["pack_groups"], require_equal(
                     f"pack_groups (whole file, level {level})", [res],
-                    [pp.group_place(*args)]))
+                    [pk.group_place(*args)]))
                 shapes.append(f"K2: sbuf {list(args[0].shape)}, words "
                               f"{list(res.shape)}")
             del recs
@@ -1113,8 +1114,6 @@ def side_stream_calls(root: Path, dev) -> dict:
     plain version's result on the same inputs)} for every wrapper."""
     from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
-    from libdeflate_tpu_torch.compress import pipeline as pp
-    from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
@@ -1157,7 +1156,7 @@ def side_stream_calls(root: Path, dev) -> dict:
         "dp_parse": (lambda: pk.dp_parse(*dp, 256),
                      pk.dp_parse_plain(*cpu(dp), 256)),
         "pack_groups": (lambda: [pk.pack_groups(*pack)],
-                        [pp.group_place(*cpu(pack))]),
+                        [pk.group_place(*cpu(pack))]),
         "decode_chunks": (
             lambda: dd.decompress_chunks_words(comp.view(np.int32), clen,
                                                olen, 8192),
@@ -1170,9 +1169,9 @@ def side_stream_calls(root: Path, dev) -> dict:
         "fsm_decode": (lambda: fsm.decompress_chunks(rows, clen, 8192),
                        fsm.decompress_chunks(rows, clen, 8192, device="cpu")),
         "commit_fsm": (lambda: sk.commit_fsm(*commit),
-                       pp.greedy_commit_merge(*cpu(commit))),
+                       sk.greedy_commit_merge(*cpu(commit))),
         "code_lens": (lambda: sk.code_lens(hist, 16, 15),
-                      pd.build_code_lens(hist.cpu(), 16, 15)),
+                      sk.build_code_lens(hist.cpu(), 16, 15)),
         "grid_add_one": (lambda: [lo.grid_add_one(x_grid)],
                          [x_grid.cpu() + 1]),
         "loop_add_one": (lambda: [lo.loop_add_one(x_grid)],
@@ -1182,10 +1181,10 @@ def side_stream_calls(root: Path, dev) -> dict:
         "chain_relax": (
             lambda: chain_flat("chain_extend_multi",
                                ck.chain_extend_multi(relax)),
-            chain_flat("chain_extend_multi", pp.chain_extend_multi(
+            chain_flat("chain_extend_multi", ck.chain_extend_multi_plain(
                 [tuple(x.cpu() for x in c) for c in relax]))),
         "chain_double": (lambda: list(ck.chain_extend2(*double)),
-                         list(pp.chain_extend2(*cpu(double)))),
+                         list(ck.chain_extend2_plain(*cpu(double)))),
         "segment_probe": (lambda: probe_flat(qk.segment_probe(*probe)),
                           probe_flat(qk.segment_probe(*cpu(probe)))),
     }
@@ -1297,7 +1296,6 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
     from libdeflate_tpu_torch import entry as pe
     from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import kernels as pk
-    from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
@@ -1389,7 +1387,7 @@ def mesh_phase(root: Path, corpus: bytes, chunks: np.ndarray,
                                  recs["pack_groups"].results):
                 errs["pack_groups"] = max(errs["pack_groups"], require_equal(
                     f"pack_groups (mesh, {k} shards, level {level})", [res],
-                    [pp.group_place(*args)]))
+                    [pk.group_place(*args)]))
             del recs, rec, by_shard
             launches[k][level] = got
         print(f"mesh, {k} shards at once on one card: gzip at levels "
@@ -1985,7 +1983,6 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
     plain, kernel).  Returns the largest errors, times and bounds."""
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import optimal as po
-    from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.experiments import crafted_scan as cs
     from libdeflate_tpu_torch.experiments.harness import record_calls
@@ -2049,7 +2046,7 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
     for name, args in commit_sets.items():
         err_c1 = max(err_c1, require_equal(
             f"commit_fsm ({name})", on_cpu(sk.commit_fsm(*args)),
-            pp.greedy_commit_merge(*on_cpu(args))))
+            sk.greedy_commit_merge(*on_cpu(args))))
     print(f"C1 commit_fsm: equal to its plain version on {len(commit_sets)} "
           f"sets (every commit of a lean pass at seg 1024 and of a dyn1 "
           f"pass at seg 512; one lane a chunk at seg 99840, 2560 and 384; "
@@ -2078,7 +2075,7 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
     for name, args in lens_sets.items():
         err_c2 = max(err_c2, require_equal(
             f"code_lens ({name})", on_cpu(sk.code_lens(*args)),
-            pd.build_code_lens(*on_cpu(args))))
+            sk.build_code_lens(*on_cpu(args))))
     print(f"C2 code_lens: equal to its plain version on {len(lens_sets)} "
           f"sets (every build of a lean, an optfast and a dyn2 pass, "
           f"crafted_scan's histograms of 286, 30 and 512 symbols and nine "
@@ -2114,7 +2111,7 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
         eff = torch.empty_like(span)
         row = times(lambda: sk.commit_fsm(*args),
                     lambda: sk.commit_fsm_into(*args, heads, eff),
-                    lambda: pp.greedy_commit_merge(*args))
+                    lambda: sk.greedy_commit_merge(*args))
         # bytes: span, is_match, dist read once, heads and eff written
         # once; the carried chain: the most heads of one lane, a step each
         nbytes = span.numel() * (8 + 1 + 8 + 1 + 8)
@@ -2132,7 +2129,7 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
         ok = torch.empty(hist.shape[0], dtype=torch.bool, device=dev)
         row = times(lambda: sk.code_lens(*args),
                     lambda: sk.code_lens_into(*args, lens, ok),
-                    lambda: pd.build_code_lens(*args))
+                    lambda: sk.build_code_lens(*args))
         # bytes: the counts read and the lengths written as int64, ok
         # once; the chain: the row with the longest shortest dependent
         # path, one step a cycle: the spend's scan and clamps, the fix
@@ -2156,27 +2153,29 @@ def scan_phase(batches, lengths, bfinal, card: str) -> dict:
 CHAIN_KERNELS = {"chain_extend_multi": "chain_relax",
                  "chain_extend": "chain_double",
                  "chain_extend2": "chain_double"}
-# pipeline's plain chain extensions, kept by guard_plain_chain before it
-# puts guards in their place; the comparisons call these
+# the wrappers' plain versions (``<wrapper>_plain``), kept by
+# guard_plain_chain before it puts guards in their place; the comparisons
+# call these
 PLAIN_CHAIN: dict = {}
 
 
-def guard_plain_chain(pp) -> None:
-    """Keep ``pipeline``'s plain chain extensions in PLAIN_CHAIN and put
-    guards in their place that raise when given CUDA tensors: the wrappers
-    take the plain versions for CPU tensors only, so no compress path may
-    reach them on the card."""
+def guard_plain_chain(ck) -> None:
+    """Keep ``chain_kernels``' plain chain extensions in PLAIN_CHAIN, by
+    wrapper, and put guards in their place that raise when given CUDA
+    tensors: the wrappers look them up when called and take them for CPU
+    tensors only, so no compress path may reach them on the card."""
     for name in CHAIN_KERNELS:
-        plain = PLAIN_CHAIN.setdefault(name, getattr(pp, name))
+        plain = PLAIN_CHAIN.setdefault(name, getattr(ck, name + "_plain"))
 
         def guard(*args, _name=name, _plain=plain, **kw):
             first = args[0][0][0] if _name == "chain_extend_multi" \
                 else args[0]
             if first.is_cuda:
-                raise AssertionError(f"pipeline.{_name} ran on CUDA tensors: "
-                                     f"a compress path went around C3/C4")
+                raise AssertionError(f"chain_kernels.{_name}_plain ran on "
+                                     f"CUDA tensors: a compress path went "
+                                     f"around C3/C4")
             return _plain(*args, **kw)
-        setattr(pp, name, guard)
+        setattr(ck, name + "_plain", guard)
 
 
 def chain_counts(ck) -> dict:
@@ -2186,27 +2185,28 @@ def chain_counts(ck) -> dict:
             + ck.chain_extend2.launches}
 
 
-# C5's forms and pipeline's plain versions of them, which
+# C5's forms and probe_kernels' plain versions of them, which
 # guard_plain_probe keeps in PLAIN_PROBE before it puts guards in their
 # place; the comparisons call these
 PROBE_PLAIN = {"best": "sorted_best", "lean": "sorted_matchfind_lean"}
 PLAIN_PROBE: dict = {}
 
 
-def guard_plain_probe(pp) -> None:
-    """Keep ``pipeline``'s plain versions of C5's two forms in PLAIN_PROBE
-    and put guards in their place that raise when given CUDA tensors: the
-    wrapper takes them for CPU tensors only, so no compress path may reach
-    them on the card."""
+def guard_plain_probe(qk) -> None:
+    """Keep ``probe_kernels``' plain versions of C5's two forms in
+    PLAIN_PROBE and put guards in their place that raise when given CUDA
+    tensors: the wrapper looks them up when called and takes them for CPU
+    tensors only, so no compress path may reach them on the card."""
     for form, name in PROBE_PLAIN.items():
-        plain = PLAIN_PROBE.setdefault(form, getattr(pp, name))
+        plain = PLAIN_PROBE.setdefault(form, getattr(qk, name))
 
         def guard(h, *args, _name=name, _plain=plain, **kw):
             if h.is_cuda:
-                raise AssertionError(f"pipeline.{_name} ran on CUDA tensors: "
-                                     f"a compress path went around C5")
+                raise AssertionError(f"probe_kernels.{_name} ran on CUDA "
+                                     f"tensors: a compress path went around "
+                                     f"C5")
             return _plain(h, *args, **kw)
-        setattr(pp, name, guard)
+        setattr(qk, name, guard)
 
 
 def probe_plain(args) -> list:
@@ -2292,6 +2292,7 @@ def chain_phase(batches, lengths, bfinal, card: str) -> dict:
     the times and the bounds."""
     from collections import Counter
 
+    from libdeflate_tpu_torch.compress import bits
     from libdeflate_tpu_torch.compress import chain_kernels as ck
     from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import optimal as po
@@ -2438,8 +2439,8 @@ def chain_phase(batches, lengths, bfinal, card: str) -> dict:
     for tier in ("lean", "optimal"):
         args = inputs[f"{tier} chain_extend_multi"]
         cands = args[0]
-        s2 = args[1] if len(args) > 1 else pp.STRIDES
-        s1 = args[2] if len(args) > 2 else pp.STRIDES
+        s2 = args[1] if len(args) > 1 else bits.STRIDES
+        s1 = args[2] if len(args) > 2 else bits.STRIDES
         strides = tuple(s1) + tuple(s2)
         K, npos = len(cands), cands[0][0].numel()
         outs = [torch.empty_like(c[0]) for c in cands]
@@ -2493,8 +2494,8 @@ def probe_phase(root: Path, chunks: np.ndarray, batches, lengths, bfinal,
                 card: str) -> dict:
     """C5 (``csrc/segment_probe.cu``), the sorted matchfind's probes
     after the sort, which replaces XLA code of the JAX package's candidate
-    stage, held to its plain versions (``pipeline.sorted_best``,
-    ``pipeline.sorted_matchfind_lean`` on the payload words) on the card,
+    stage, held to its plain versions (``probe_kernels.sorted_best``,
+    ``sorted_matchfind_lean`` on the payload words) on the card,
     exact: on every call of one batch of each tier (PROBE_TIERS: its
     count of calls checked), on ``experiments/crafted_probe.py``'s sets
     at every (form, depth, width) of ``crafted_probe.RUNS``, at depth 32
@@ -2654,10 +2655,8 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
     from collections import Counter
 
     from libdeflate_tpu_torch.compress import chain_kernels as ck
-    from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import optimal as po
-    from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import probe_kernels as qk
     from libdeflate_tpu_torch.compress import scan_kernels as sk
     from libdeflate_tpu_torch.decompress import decode as dd
@@ -2697,13 +2696,13 @@ def soak_fuzz_phase(root: Path, card: str) -> dict:
         counts = {name: w.launches for name, w in wrappers.items()}
         for args in calls["pack_groups"]:
             hold("pack_groups", tier, [pk.pack_groups(*args)],
-                 lambda: [pp.group_place(*args)])
+                 lambda: [pk.group_place(*args)])
         for args in calls["commit_fsm"]:
             hold("commit_fsm", tier, on_cpu(sk.commit_fsm(*args)),
-                 lambda: pp.greedy_commit_merge(*on_cpu(args)))
+                 lambda: sk.greedy_commit_merge(*on_cpu(args)))
         for args in calls["code_lens"]:
             hold("code_lens", tier, on_cpu(sk.code_lens(*args)),
-                 lambda: pd.build_code_lens(*on_cpu(args)))
+                 lambda: sk.build_code_lens(*on_cpu(args)))
         if calls["dp_parse"] and (tier not in k1_tiers or short):
             k1_tiers.append(tier)
             for args in calls["dp_parse"]:
@@ -2872,7 +2871,6 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
     launches are not counted.  Returns the launches and largest
     errors."""
     from libdeflate_tpu_torch.compress import chain_kernels as ck
-    from libdeflate_tpu_torch.compress import dynamic as pd
     from libdeflate_tpu_torch.compress import kernels as pk
     from libdeflate_tpu_torch.compress import pipeline as pp
     from libdeflate_tpu_torch.compress import probe_kernels as qk
@@ -2922,11 +2920,11 @@ def drivers_phase(root: Path, corpus: bytes, card: str) -> dict:
         checks = {
             "dp_parse": lambda a: (pk.dp_parse(*a), pk.dp_parse_plain(*a)),
             "pack_groups": lambda a: ([pk.pack_groups(*a)],
-                                      [pp.group_place(*a)]),
+                                      [pk.group_place(*a)]),
             "commit_fsm": lambda a: (on_cpu(sk.commit_fsm(*a)),
-                                     pp.greedy_commit_merge(*on_cpu(a))),
+                                     sk.greedy_commit_merge(*on_cpu(a))),
             "code_lens": lambda a: (on_cpu(sk.code_lens(*a)),
-                                    pd.build_code_lens(*on_cpu(a)))}
+                                    sk.build_code_lens(*on_cpu(a)))}
         for name, check in checks.items():
             seen = calls[name]
             if not seen:
@@ -3150,9 +3148,9 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     # from here on no compress path may run the plain chain extensions on
     # the card: C3 and C4 take their place
-    guard_plain_chain(pp)
+    guard_plain_chain(ck)
     # nor the plain probes of the sorted matchfind's forms C5 takes
-    guard_plain_probe(pp)
+    guard_plain_probe(qk)
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
@@ -3244,7 +3242,7 @@ def main() -> int:
     }
     err_pack = 0
     for name, args in pack_sets.items():
-        want = pp.group_place(*args)
+        want = pk.group_place(*args)
         err_pack = max(err_pack, require_equal(
             f"pack_groups ({name})", [pk.pack_groups(*args)], [want]))
         print(f"K2 pack_groups ({name}, sbuf {list(args[0].shape)}, up to "
@@ -3432,7 +3430,7 @@ def main() -> int:
             args = greedy_pack_inputs(name, batches[bi], lengths)
             err_pack = max(err_pack, require_equal(
                 f"pack_groups ({name}, batch {bi})",
-                [pk.pack_groups(*args)], [pp.group_place(*args)]))
+                [pk.pack_groups(*args)], [pk.group_place(*args)]))
             if bi == 0:
                 pack_tiers[name] = args
         sbuf_t, gw_t, nw_t = pack_tiers[name]
@@ -3567,7 +3565,7 @@ def main() -> int:
             sbuf_o, gw_o, nw_o = packs[0]
             err_pack = max(err_pack, require_equal(
                 "pack_groups (optfast)", [pk.pack_groups(*packs[0])],
-                [pp.group_place(*packs[0])]))
+                [pk.group_place(*packs[0])]))
     print(f"K1 dp_parse: equal to its plain version at LEN_LADDER and "
           f"LEN_LADDER_DENSE2 on every pass's inputs of optfast, optimal, "
           f"optimal2 and deep (lc [4, 259] in the refined passes); K2 "
@@ -4010,7 +4008,7 @@ def main() -> int:
          "ms": graph_ms(lambda: pk.pack_groups(*real_pack), 200),
          "kernel_ms": graph_ms(lambda: pk.pack_groups_into(sbuf, gw,
                                                            pack_out), 200),
-         "plain_ms": graph_ms(lambda: pp.group_place(*real_pack), 200),
+         "plain_ms": graph_ms(lambda: pk.group_place(*real_pack), 200),
          "bound_ms": 1e3 * pack_bytes / H100_BYTES_PER_S,
          "bound_by": "bytes",
          "library_ms": graph_ms(index_add_call(*real_pack), 200),

@@ -4,8 +4,8 @@ tensors.
 Counterpart of ``libdeflate_tpu/compress/tpu_dynamic.py``: the constants
 (lines 62-74), ``_rev_bits_np``,
 ``_static_packed_tables`` and ``_header_consts`` (81-130),
-``_build_code_lens`` and ``_build_code_lens_pair`` (140-275, with the
-refinement passes and 15-bit codes), ``_canonical_table`` (277), the
+``_build_code_lens_pair`` (264-275, with the refinement passes and
+15-bit codes), ``_canonical_table`` (277), the
 histogram ``_hist_matmul`` (303) and table translate ``_tree_translate``
 (325), ``compress_chunk_dynamic`` and ``emit_dynamic_block`` (362-401),
 ``_p19_fixed`` (403), ``_precode_rle_items`` and ``_precode_rle_header``
@@ -22,8 +22,7 @@ translate becomes indexing, and the duplicate-index ``.at[].add`` header
 and tail scatters become ``scatter_add`` on int64 followed by a 32-bit
 mask.  The sequential scans of the code-length build are a CUDA kernel
 on the card (``scan_kernels.code_lens``, ``csrc/code_lens.cu``); their
-plain version, ``build_code_lens``, keeps them as loops over the symbols
-and levels, batched over chunks.
+plain version is ``scan_kernels.build_code_lens``.
 """
 
 from __future__ import annotations
@@ -35,23 +34,21 @@ import torch
 
 from ..device import constant, from_numpy_batch
 from ..utils.profiling import stage_marks
-from . import kernels
-from .bits import M32, bsr, length_slot, offset_slot, rev16, to_i32
+from . import kernels, scan_kernels
+from .bits import GROUP, M32, behind, length_slot, offset_slot, rev16, to_i32
 from .pipeline import (
     add_bits,
-    behind,
     commit_items,
     exclusive_bit_offsets,
-    GROUP,
     greedy_candidates,
     group_premerge,
 )
+from .scan_kernels import MAX_CODE_LEN
 
 NSYM = 286
 NDIST = 30
 NSYM_ALL = NSYM + NDIST
 DONT_CARE = NSYM_ALL
-MAX_CODE_LEN = 11
 MAX_CODE_LEN_DEEP = 15
 DYN_CAPW = (128 * MAX_CODE_LEN + 31) // 32 + 1        # 45
 DYN_CAPW_DEEP = (128 * MAX_CODE_LEN_DEEP + 31) // 32 + 1   # 61
@@ -148,94 +145,13 @@ def batched_hist(sym: torch.Tensor, nclasses: int) -> torch.Tensor:
     return h.reshape(B, nclasses + 1)[:, :nclasses]
 
 
-def build_code_lens(hist: torch.Tensor, refine_passes: int = 0,
-                    max_len: int = MAX_CODE_LEN):
-    """Kraft-exact length assignment, lengths <= max_len, per row of hist
-    [R, nsym] (``_build_code_lens``), then ``refine_passes`` budget-neutral
-    passes.  Returns (lens [R, nsym], ok [R])."""
-    R, nsym = hist.shape
-    dev = hist.device
-    hist = hist.to(torch.int64)
-    total = torch.clamp(hist.sum(1), min=1)
-    used = hist > 0
-    kraft = 1 << max_len
-    # the same two correctly rounded f32 operations as the JAX code:
-    # f32(kraft) / f32(total), then hist * that
-    scale = torch.full((R,), float(kraft), dtype=torch.float32,
-                       device=dev) / total.to(torch.float32)
-    share = (hist.to(torch.float32) * scale[:, None]).to(torch.int64)
-    e = bsr(torch.clamp(share, min=1))
-    half = 1 << torch.clamp(e - 1, min=0)
-    # uint32 difference: share 0 wraps and always bumps, as in JAX
-    bump = ((share - (1 << e)) & M32) > half
-    e = e + bump.to(torch.int64)
-    k_des = torch.where(used, 1 << torch.clamp(e, 0, max_len - 1), 0)
-
-    ar = torch.arange(nsym, device=dev)
-    order = torch.argsort(-(hist * 512 + (nsym - ar)), dim=1)  # unique keys
-    k_sorted = k_des.gather(1, order)
-    used_sorted = used.gather(1, order)
-    us = used_sorted.to(torch.int64)
-    remaining_after = torch.flip(torch.cumsum(torch.flip(us, [1]), 1),
-                                 [1]) - us
-
-    # frequency-descending greedy spend, reserving 1 unit per later symbol
-    budget = torch.full((R,), kraft, dtype=torch.int64, device=dev)
-    k_got = torch.empty_like(k_sorted)
-    for j in range(nsym):
-        allow = torch.clamp(budget - remaining_after[:, j], min=1)
-        kj = torch.where(used_sorted[:, j],
-                         1 << bsr(torch.minimum(k_sorted[:, j], allow)), 0)
-        budget = budget - kj
-        k_got[:, j] = kj
-    k = torch.zeros_like(k_got).scatter_(1, order, k_got)
-
-    # spend the remainder exactly: double the largest k <= r, else halve
-    # the smallest k > r; first index on ties (unique keys below)
-    r = kraft - k.sum(1)
-    for _ in range(48):
-        can_dbl = used & (k <= r[:, None]) & (k < (kraft >> 1))
-        any_dbl = can_dbl.any(1)
-        dbl_pick = torch.argmax(
-            torch.where(can_dbl, k, -1) * 512 + (511 - ar), dim=1)
-        can_hlv = used & (k > r[:, None]) & (k >= 2)
-        hlv_pick = torch.argmin(
-            torch.where(can_hlv, k, 1 << 30) * 512 + ar, dim=1)
-        idx = torch.where(any_dbl, dbl_pick, hlv_pick)
-        kidx = k.gather(1, idx[:, None])[:, 0]
-        delta = torch.where(any_dbl, kidx, -(kidx >> 1))
-        live = r > 0
-        k = torch.where(live[:, None] & (ar == idx[:, None]),
-                        k + delta[:, None], k)
-        r = torch.where(live, r - delta, r)
-    lens = torch.where(k > 0, max_len - bsr(torch.clamp(k, min=1)), 0)
-
-    # budget-neutral refinement: at each level l = 2..max_len, shorten the
-    # most frequent symbol of length l and lengthen the least frequent of
-    # length l-1 when that saves bits; first index on ties (unique keys)
-    for _ in range(refine_passes):
-        for ln in range(2, max_len + 1):
-            at_l = used & (lens == ln)
-            at_lm1 = used & (lens == ln - 1)
-            a = torch.argmax(torch.where(at_l, hist, -1) * 512 + (511 - ar),
-                             dim=1, keepdim=True)
-            b = torch.argmin(torch.where(at_lm1, hist, 1 << 30) * 512 + ar,
-                             dim=1, keepdim=True)
-            good = (at_l.any(1, keepdim=True) & at_lm1.any(1, keepdim=True)
-                    & (hist.gather(1, a) > hist.gather(1, b)))
-            lens = (lens - (good & (ar == a)).long()
-                    + (good & (ar == b)).long())
-    return lens, (r == 0) & (used.sum(1) >= 2)
-
-
 def build_code_lens_pair(hist_lit: torch.Tensor, hist_dist: torch.Tensor,
                          refine_passes: int = 0,
                          max_len: int = MAX_CODE_LEN):
     """Both alphabets in one batched build (``_build_code_lens_pair``):
     the distance histogram is zero-padded to 286 symbols.  The build is
     ``scan_kernels.code_lens``: its kernel on CUDA, the plain
-    ``build_code_lens`` on the CPU."""
-    from . import scan_kernels     # scan_kernels imports this module
+    ``scan_kernels.build_code_lens`` on the CPU."""
     B = hist_lit.shape[0]
     h = torch.stack([hist_lit, torch.nn.functional.pad(
         hist_dist, (0, NSYM - NDIST))], 1).reshape(2 * B, NSYM)
@@ -563,9 +479,9 @@ def emit_dynamic_block(bp, bfinal, commit_match, commit_lit, eff, dist,
     ``_compress_chunks_optimal_pallas``): ``emit_dynamic_pre`` (or
     ``emit_dynamic_pre_blocks`` for ``blocks`` > 1), the premerge of
     ``group``-item groups (their rows scaled from 128 items' width), the
-    pack kernel (``group_place`` on the CPU) and ``emit_dynamic_post``,
-    with a ``mark`` at each stage.  Returns (words int32 [B, W],
-    total_bits int64 [B])."""
+    pack kernel (``kernels.group_place`` on the CPU) and
+    ``emit_dynamic_post``, with a ``mark`` at each stage.  Returns (words
+    int32 [B, W], total_bits int64 [B])."""
     mark("emit_pre")
     capw = DYN_CAPW_DEEP if refine_passes else DYN_CAPW
     if blocks > 1:

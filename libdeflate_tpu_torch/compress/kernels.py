@@ -8,7 +8,7 @@ Counterpart of ``libdeflate_tpu/compress/pallas_kernels.py``:
   ``csrc/dp_parse.cu``, plain version ``dp_parse_plain``.
 - ``pack_groups`` replaces ``pack_groups_pallas`` (312-347, body
   ``_pack_kernel`` 276-309), the bit placement; kernel
-  ``csrc/pack_groups.cu``, plain version ``pipeline.group_place``.
+  ``csrc/pack_groups.cu``, plain version ``group_place``.
 
 A wrapper given CUDA tensors launches its kernel or raises; it takes the
 plain version only for tensors on the CPU.  Each wrapper counts its
@@ -25,8 +25,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .bits import M32
-from .pipeline import MAX_LEN, group_place
+from .bits import M32, MAX_LEN
 
 # slot-top lengths: 3..10, then the top of each extra-bit band, then 258
 # (tpu_optimal.LEN_LADDER)
@@ -232,6 +231,21 @@ def dp_parse(cost_lit, lenA, dA, cdA, lenB, dB, cdB, lenC, dC, cdC, d3, cd3,
         dp_parse_into(arrs, lc_len, S, span, dist, ladder)
         _build.count_launch(dp_parse)
     return span, dist
+
+
+def group_place(sbuf: torch.Tensor, gw: torch.Tensor,
+                nwords: int) -> torch.Tensor:
+    """Add whole group buffers at their start words (``_group_place``);
+    the plain version of the pack kernel.  sbuf int64 [B, m, capw+1],
+    gw [B, m] -> int64 words [B, nwords].  Targets past the end carry
+    only zero bits and are clamped onto the last word, as in JAX."""
+    B, m, capw1 = sbuf.shape
+    tgt = gw[..., None] + torch.arange(capw1, device=sbuf.device)
+    tgt = torch.clamp(tgt, max=nwords - 1)
+    tgt = tgt + nwords * torch.arange(B, device=sbuf.device)[:, None, None]
+    words = torch.zeros(B * nwords, dtype=torch.int64, device=sbuf.device)
+    words.index_add_(0, tgt.reshape(-1), sbuf.reshape(-1))
+    return words.reshape(B, nwords) & M32
 
 
 def pack_groups_into(sbuf: torch.Tensor, gw: torch.Tensor,

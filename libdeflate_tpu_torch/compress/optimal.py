@@ -43,7 +43,7 @@ import torch
 from ..device import constant, from_numpy_batch
 from ..utils.profiling import stage_marks
 from . import kernels
-from .bits import bsr, length_slot, offset_slot
+from .bits import GROUP, STRIDES, bsr, length_slot, offset_slot
 from .dynamic import (
     MAX_CODE_LEN_DEEP,
     batched_hist,
@@ -53,13 +53,7 @@ from .dynamic import (
     item_sym,
 )
 from .kernels import LEN_LADDER, LEN_LADDER_DENSE2
-from .pipeline import (
-    GROUP,
-    LEAN_CANDIDATES,
-    STRIDES,
-    commit_items,
-    parse_candidates,
-)
+from .pipeline import LEAN_CANDIDATES, commit_items, parse_candidates
 
 DP_SEG = 1024
 BIT = 16

@@ -1,25 +1,22 @@
 """Compress pipeline stages on [B, n] tensors: the DP tiers' candidates
 and the greedy/lazy tiers' parser.
 
-Counterpart of ``libdeflate_tpu/compress/tpu_pipeline.py``: the constants
-(lines 60-81), ``_static_litlen_code`` (107), ``_le32_words`` (163),
-``_segment_sizes`` (175), ``_sorted_matchfind`` (192-395; its
-``return_triple`` branches are ``sorted_matchfind_lean`` and
+Counterpart of ``libdeflate_tpu/compress/tpu_pipeline.py``:
+``_static_litlen_code`` (107), ``_sorted_matchfind`` (192-395; its
+``return_triple`` branch over wide payloads is
 ``sorted_matchfind_triple``), ``_row_cummax`` (397, as ``cummax``),
 ``_content_sorted_matchfind`` (410-538), ``_pay_better`` (541),
-``_pool_probe`` (549), ``_chain_extend`` (631), ``_chain_extend2`` (654),
-``_chain_extend_multi`` (690; on the card these three are the kernels of
-``chain_kernels``), ``_parse_candidates`` (1086-1235, as
-``parse_candidates``), ``_greedy_commit_merge`` (771; on the card its
-kernel, ``scan_kernels.commit_fsm``),
-``_exclusive_bit_offsets`` (828), ``_group_premerge`` (861),
-``_group_place`` (909), ``_hash3_matchfind`` (934), ``_parse_chunk``
+``_pool_probe`` (549), ``_parse_candidates`` (1086-1235, as
+``parse_candidates``), ``_exclusive_bit_offsets`` (828),
+``_group_premerge`` (861), ``_hash3_matchfind`` (934), ``_parse_chunk``
 (965-1083, as ``greedy_candidates`` and ``commit_items``),
 ``compress_chunk_static`` and ``compress_chunks_static`` (1238-1305) and
-``device_stream_to_bytes`` (1308).  The sorted matchfind's forms that
-levels 0-7 run (``sorted_best``, ``sorted_matchfind_lean``) are, on the
-card, the kernel of ``probe_kernels.segment_probe``, which
-``greedy_candidates``, ``parse_candidates`` and ``rescue_pass`` call.
+``device_stream_to_bytes`` (1308).  The stages call the kernel wrappers,
+which hold the rest of that file as their plain versions: the chain
+extensions (``chain_kernels``), the sorted matchfind's forms that levels
+0-7 run and the probe primitives (``probe_kernels``), the commit FSM
+(``scan_kernels``) and the group placement (``kernels``); the constants,
+``_le32_words`` and ``_segment_sizes`` are in ``bits``.
 
 The JAX functions work on one chunk under ``vmap``; these take a leading
 batch axis.  Where the TPU needed a trick the port uses the direct op:
@@ -33,7 +30,6 @@ one.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable
 
 import numpy as np
@@ -41,177 +37,15 @@ import torch
 
 from ..device import from_numpy_batch
 from ..utils.profiling import stage_marks
-from .bits import M32, bsr, length_slot, offset_slot, rev, rev16, to_i32
-
-MULT = 0x1E35A7BD
-HASH_ORDER = 15
-MIN_MATCH = 4
-SORT_SEG = 65536
-POS_BITS = 16
-WINDOW = 32768
-FSM_SEG = 512
-MAX_LEN = 258
-GROUP = 128
-GROUP_CAPW = 37    # 128 positions x <= 9 bits + a carry word
-DEPTH = 6          # sorted-order neighbours probed per position
-STRIDES = (1, 2, 4, 8, 16, 32, 64, 128)
-
-
-def seg_key_params(seg: int) -> tuple[int, int]:
-    """(pos_bits, junk_hash) for a matchfind segment size."""
-    pos_bits = max(POS_BITS, (seg - 1).bit_length())
-    junk = (1 << HASH_ORDER) - 1 if pos_bits >= 17 else (1 << HASH_ORDER)
-    return pos_bits, junk
-
-
-def segment_sizes(n: int, wide: bool = True) -> tuple[int, int, int]:
-    """(padded_n, sort_seg, fsm_seg) for a chunk of n positions
-    (``_segment_sizes``).  ``wide`` gives the single-pass tiers' 128 KiB
-    matchfind segments (lean and dyn1); the static tier and the two-pass
-    tiers pass False for 64 KiB ones."""
-    seg = 2 * SORT_SEG if wide else SORT_SEG
-    if n >= seg:
-        return -(-n // seg) * seg, seg, FSM_SEG
-    if n >= FSM_SEG:
-        np_ = -(-n // FSM_SEG) * FSM_SEG
-        return np_, np_, FSM_SEG
-    np_ = -(-n // GROUP) * GROUP
-    return np_, np_, np_
-
-
-def ahead(x: torch.Tensor, s: int) -> torch.Tensor:
-    """x[..., i + s] along the last axis, zero past the end."""
-    return torch.cat([x[..., s:], torch.zeros_like(x[..., :s])], dim=-1)
-
-
-def behind(x: torch.Tensor, fill=0) -> torch.Tensor:
-    """x[..., i - 1] along the last axis, ``fill`` at the start."""
-    return torch.cat([torch.full_like(x[..., :1], fill), x[..., :-1]], dim=-1)
-
-
-def le32_words(b: torch.Tensor) -> torch.Tensor:
-    """Little-endian 32-bit word starting at every byte position (zero
-    bytes past the end)."""
-    n = b.shape[-1]
-    bp = torch.cat([b.to(torch.int64),
-                    torch.zeros_like(b[..., :1], dtype=torch.int64)
-                    .expand(*b.shape[:-1], 3)], dim=-1)
-    return (bp[..., :n] | (bp[..., 1:n + 1] << 8)
-            | (bp[..., 2:n + 2] << 16) | (bp[..., 3:n + 3] << 24))
-
-
-def _tz_bytes(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(
-        (x & 0xFF) != 0, 0,
-        torch.where((x & 0xFFFF) != 0, 1,
-                    torch.where((x & 0xFFFFFF) != 0, 2, 3)))
-
-
-def _word_lcp(ok, xs):
-    """Word-granular LCP of probes whose payload XORs are ``xs`` (w, w4,
-    then w8, w12 and any wider words), gated by ``ok``: (mlen, fine,
-    eq4), fine the byte remainder from the first unequal word (0 at full
-    LCP), as ``_sorted_matchfind``'s and ``_pool_probe``'s probes
-    compute it."""
-    eq4 = eq = ok & (xs[0] == 0)
-    mlen = 4 * eq4.long()
-    chain = []
-    for x in xs[1:]:
-        eq = eq & (x == 0)
-        mlen = mlen + 4 * eq.long()
-        chain.append(eq)
-    if len(xs) == 2:
-        x_sel = torch.where(~chain[0], xs[1], 0)
-    else:
-        x_sel = xs[-1]
-        for k in range(len(xs) - 3, -1, -1):
-            x_sel = torch.where(~chain[k], xs[k + 1], x_sel)
-    fine = torch.where((x_sel != 0) & eq4, _tz_bytes(x_sel), 0)
-    return mlen, fine, eq4
-
-
-def _segment_probe(h, ws, seg: int):
-    """Sort every ``seg``-position segment of [B, n] by (hash, position)
-    with the payload words ``ws``: (w, w4), (w, w4, w8, w12) or those
-    and the wide words w16..w28.  Returns the sort's order (each sorted
-    slot's local position, [rows, seg]) and probe(d): per sorted slot,
-    the word-granular (mlen, dist, fine) of the slot d before it in the
-    same bucket, as ``_sorted_matchfind``'s probe computes it (lcp 8
-    with two payloads, 16 with four, 32 with eight)."""
-    rows = h.numel() // seg
-    pos_bits, junk = seg_key_params(seg)
-    lp = torch.arange(seg, device=h.device, dtype=torch.int64)
-    # keys h<<pos_bits|lp are unique per row and may fill all 32 bits, so
-    # they sort as int64; the sort's indices are the un-permutation
-    sk, order = torch.sort((h.reshape(rows, seg) << pos_bits) | lp, dim=1)
-    sws = [x.reshape(rows, seg).gather(1, order) for x in ws]
-    shash = sk >> pos_bits
-    col = lp[None, :]
-
-    def probe(d):
-        same = ((shash == torch.roll(shash, d, 1)) & (shash != junk)
-                & (col >= d))
-        dist = torch.where(same, order - torch.roll(order, d, 1), WINDOW + 1)
-        mlen, fine, eq4 = _word_lcp(same & (dist <= WINDOW),
-                                    [x ^ torch.roll(x, d, 1) for x in sws])
-        return mlen, torch.where(eq4, dist, 0), fine
-
-    return order, probe
-
-
-_INVD = WINDOW + 1
-
-
-def _pack_inv(mlen, dist, fine):
-    """mlen<<18 | fine<<16 | (W+1 - dist): one maximum picks the longest,
-    then the longest remainder, then the nearest candidate."""
-    return (mlen << 18) | (fine << 16) | (_INVD - dist)
-
-
-def _unpack_inv(p):
-    return p >> 18, (_INVD - (p & 0xFFFF)) & 0xFFFF, (p >> 16) & 3
-
-
-def _best_two(pays):
-    """The best packed probe and the best at another distance (zero when
-    there is none), each unpacked to (mlen, dist, fine)."""
-    payA = functools.reduce(torch.maximum, pays)
-    invA = payA & 0xFFFF
-    payB = torch.zeros_like(payA)
-    for p in pays:
-        payB = torch.maximum(payB, torch.where((p & 0xFFFF) != invA, p, 0))
-    nz2 = payB != 0
-    return (_unpack_inv(payA),
-            tuple(torch.where(nz2, x, 0) for x in _unpack_inv(payB)))
-
-
-def _unpermute(order, shape, *pays):
-    """Sorted-order payloads back to position order, reshaped to
-    ``shape``."""
-    return [torch.empty_like(p).scatter_(1, order, p).reshape(shape)
-            for p in pays]
-
-
-def _pay(mlen, dist, fine):
-    return (mlen << 18) | (fine << 16) | dist
-
-
-def _unpay(x):
-    return x >> 18, x & 0xFFFF, (x >> 16) & 3
-
-
-def sorted_best(h, ws, seg: int, depth: int = 2):
-    """The best probe per position of ``_sorted_matchfind`` without
-    ``return_pair``/``return_triple``/``wide_ext``, before its chain
-    extension: one sort of every ``seg``-position segment, ``depth``
-    probes each over the payload words ``ws`` ((w, w4) or (w, w4, w8,
-    w12)), the longest, then the longest remainder, then the nearest.
-    Returns (mlen, dist, fine) [B, n], word-granular.  The plain version
-    of ``probe_kernels.segment_probe``'s "best" form."""
-    order, probe = _segment_probe(h, ws, seg)
-    pays = [_pack_inv(*probe(d)) for d in range(1, depth + 1)]
-    pay, = _unpermute(order, h.shape, functools.reduce(torch.maximum, pays))
-    return _unpack_inv(pay)
+from . import chain_kernels as ck
+from . import kernels, scan_kernels
+from . import probe_kernels as pk
+from .bits import (DEPTH, FSM_SEG, GROUP, GROUP_CAPW, HASH_ORDER, M32,
+                   MAX_LEN, MIN_MATCH, MULT, STRIDES, WINDOW, ahead, behind,
+                   bsr, le32_words, length_slot, offset_slot, rev, rev16,
+                   seg_key_params, segment_sizes, to_i32)
+from .probe_kernels import (best_two, pack_inv, pay, sorted_segments, unpay,
+                            unpermute, word_lcp)
 
 
 def sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 2,
@@ -220,47 +54,20 @@ def sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 2,
     nearest same-hash candidates per position from one sort of every
     ``seg``-position segment, ``depth`` probes each, 16-byte payloads
     (``w8`` and ``w12`` given) or 8-byte ones (either None).  Without
-    ``wide_ext`` the best probe (``sorted_best``) is chain-extended
-    (``chain_extend``); with it the best and the best at another distance
-    are extended together (``chain_extend2``).  Returns (len, dist) [B,
-    n].  The compress paths reach the first form through
+    ``wide_ext`` the best probe (``probe_kernels.sorted_best``) is
+    chain-extended (``chain_kernels.chain_extend``); with it the best and
+    the best at another distance are extended together
+    (``chain_kernels.chain_extend2``).  Returns (len, dist) [B, n].  The
+    compress paths reach the first form through
     ``probe_kernels.segment_probe``."""
     ws = (w, w4) if w8 is None or w12 is None else (w, w4, w8, w12)
-    from . import chain_kernels as ck
     if not wide_ext:
-        return ck.chain_extend(*sorted_best(h, ws, seg, depth))
-    order, probe = _segment_probe(h, ws, seg)
-    pays = [_pack_inv(*probe(d)) for d in range(1, depth + 1)]
-    a, b = _best_two(pays)
-    pa, pb = _unpermute(order, h.shape, _pay(*a), _pay(*b))
-    return ck.chain_extend2(*_unpay(pa), *_unpay(pb))
-
-
-def sorted_matchfind_lean(h, ws, seg: int, depth: int = DEPTH):
-    """Lean branch of ``_sorted_matchfind`` (``return_triple=True``,
-    ``wide=None``) over the payload words ``ws``, (w, w4, w8, w12) or (w,
-    w4): the best, the best at another distance, and the nearest
-    same-hash candidate per position, each as word-granular (mlen, dist,
-    fine) [B, n] triples.  Candidate C keeps the JAX path's packing loss:
-    its length is capped to 12 in steps of 4 and its ``fine`` is 0.  The
-    plain version of ``probe_kernels.segment_probe``'s "lean" form."""
-    order, probe = _segment_probe(h, ws, seg)
-    mlenC, distC, fineC = probe(1)
-    pays = [_pack_inv(mlenC, distC, fineC)]
-    pays += [_pack_inv(*probe(d)) for d in range(2, depth + 1)]
-    a, b = _best_two(pays)
-    # C rides payload bits 23..31 of both words as (len/4 capped at 3, dist)
-    cbits = (torch.clamp(mlenC >> 2, 0, 3) << 16) | distC
-    pa, pb = _unpermute(order, h.shape,
-                        _pay(*a) | ((cbits & 0x1FF) << 23),
-                        _pay(*b) | ((cbits >> 9) << 23))
-    cb = ((pa >> 23) & 0x1FF) | (((pb >> 23) & 0x1FF) << 9)
-
-    def unpack(x):
-        return (x >> 18) & 0x1F, x & 0xFFFF, (x >> 16) & 3
-
-    triC = ((cb >> 16) << 2, cb & 0xFFFF, torch.zeros_like(cb))
-    return unpack(pa), unpack(pb), triC
+        return ck.chain_extend(*pk.sorted_best(h, ws, seg, depth))
+    order, probe = sorted_segments(h, ws, seg)
+    pays = [pack_inv(*probe(d)) for d in range(1, depth + 1)]
+    a, b = best_two(pays)
+    pa, pb = unpermute(order, h.shape, pay(*a), pay(*b))
+    return ck.chain_extend2(*unpay(pa), *unpay(pb))
 
 
 def sorted_matchfind_triple(h, ws, seg: int, depth: int = DEPTH):
@@ -269,13 +76,13 @@ def sorted_matchfind_triple(h, ws, seg: int, depth: int = DEPTH):
     plus the remainder): the best, the best at another distance and the
     nearest same-hash candidate per position, each a raw word-granular
     (mlen, dist, fine) [B, n] triple, C unpacked in full."""
-    order, probe = _segment_probe(h, ws, seg)
+    order, probe = sorted_segments(h, ws, seg)
     c = probe(1)
-    pays = [_pack_inv(*c)] + [_pack_inv(*probe(d))
-                              for d in range(2, depth + 1)]
-    a, b = _best_two(pays)
-    return [_unpay(x) for x in _unpermute(order, h.shape, _pay(*a),
-                                          _pay(*b), _pay(*c))]
+    pays = [pack_inv(*c)] + [pack_inv(*probe(d))
+                             for d in range(2, depth + 1)]
+    a, b = best_two(pays)
+    return [unpay(x) for x in unpermute(order, h.shape, pay(*a), pay(*b),
+                                        pay(*c))]
 
 
 def _sort3(ka, kb, kc):
@@ -303,7 +110,7 @@ def _pool_probe(sjunk, slp, sws, depth: int):
                 & (col >= d if d > 0 else col < seg + d))
         dist_i = slp - torch.roll(slp, d, 1)
         ok = same & (dist_i >= 1) & (dist_i <= WINDOW)
-        m2, f2, eq4 = _word_lcp(ok, [x ^ torch.roll(x, d, 1) for x in sws])
+        m2, f2, eq4 = word_lcp(ok, [x ^ torch.roll(x, d, 1) for x in sws])
         d2 = torch.where(eq4, dist_i, 0)
         better = ((m2 > mlen) | ((m2 == mlen) & (f2 > fine))
                   | ((m2 == mlen) & (f2 == fine) & (d2 < dist) & (d2 > 0)))
@@ -319,7 +126,7 @@ def _pool_probe(sjunk, slp, sws, depth: int):
         mlen = torch.where(better, m2, mlen)
         dist = torch.where(better, d2, dist)
         fine = torch.where(better, f2, fine)
-    return _pay(mlen, dist, fine), _pay(mlen2, dist2, fine2)
+    return pay(mlen, dist, fine), pay(mlen2, dist2, fine2)
 
 
 def pay_better(x, y):
@@ -371,11 +178,11 @@ def content_sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 6,
             rpa, rpb = _pool_probe(is_junk.gather(1, order), order,
                                    [x.gather(1, order)
                                     for x in (w, w4, w8, w12)], depth)
-            rank, rpa, rpb = _unpermute(order, (rows, seg), rank_sorted,
+            rank, rpa, rpb = unpermute(order, (rows, seg), rank_sorted,
                                         rpa, rpb)
             round_pools.append((rpa, rpb))
         else:
-            rank, = _unpermute(order, (rows, seg), rank_sorted)
+            rank, = unpermute(order, (rows, seg), rank_sorted)
         ka = rank
         kb = torch.cat([rank[:, h_cov:],
                         torch.full_like(rank[:, :h_cov], 1 << 17)], 1)
@@ -387,82 +194,14 @@ def content_sorted_matchfind(h, w, w4, w8, w12, seg: int, depth: int = 6,
     sws = [x.reshape(rows, seg).gather(1, order)
            for x in (w, w4, w8, w12, *wide)]
     pay_a, pay_b = _pool_probe(is_junk.gather(1, order), order, sws, depth)
-    pa, pb = _unpermute(order, (rows, seg), pay_a, pay_b)
+    pa, pb = unpermute(order, (rows, seg), pay_a, pay_b)
     for q in (q for pool in round_pools for q in pool):
         better = pay_better(q, pa)
         disp = torch.where(better, pa, q)          # the displaced candidate
         keep_b = (disp & 0xFFFF) != (torch.where(better, q, pa) & 0xFFFF)
         pb = torch.where(keep_b & pay_better(disp, pb), disp, pb)
         pa = torch.where(better, q, pa)
-    return _unpay(pa.reshape(shape)), _unpay(pb.reshape(shape))
-
-
-def chain_extend(mlen, dist, fine):
-    """Stride-8 doubling (``_chain_extend``): where a match is exactly s
-    bytes (word-granular) and the position s ahead has the same distance,
-    splice its length and remainder in; s = 8, 16, 32, 64, 128, 256.
-    Returns (len, dist), lengths capped at MAX_LEN."""
-    r, f = mlen, fine
-    s = 8
-    while s < MAX_LEN:
-        take = (r == s) & (ahead(dist, s) == dist)
-        r = r + torch.where(take, ahead(r, s), 0)
-        f = torch.where(take, ahead(f, s), f)
-        s *= 2
-    return torch.clamp(r + torch.where(r >= 4, f, 0), max=MAX_LEN), dist
-
-
-def chain_extend2(mA, dA, fA, mB, dB, fB):
-    """Two-candidate stride-8 doubling (``_chain_extend2``): each chain
-    splices the downstream A at its distance, else the downstream B; the
-    longer extended match wins, ties to A.  Returns (len, dist)."""
-    rA, fa, rB, fb = mA, fA, mB, fB
-    s = 8
-    while s < MAX_LEN:
-        rA_s, dA_s, fa_s = ahead(rA, s), ahead(dA, s), ahead(fa, s)
-        rB_s, dB_s, fb_s = ahead(rB, s), ahead(dB, s), ahead(fb, s)
-        tA1 = (rA == s) & (dA_s == dA)
-        tA2 = (rA == s) & ~tA1 & (dB_s == dA)
-        tB1 = (rB == s) & (dA_s == dB)
-        tB2 = (rB == s) & ~tB1 & (dB_s == dB)
-        rA, fa, rB, fb = (
-            rA + torch.where(tA1, rA_s, torch.where(tA2, rB_s, 0)),
-            torch.where(tA1, fa_s, torch.where(tA2, fb_s, fa)),
-            rB + torch.where(tB1, rA_s, torch.where(tB2, rB_s, 0)),
-            torch.where(tB1, fa_s, torch.where(tB2, fb_s, fb)))
-        s *= 2
-    lenA = torch.clamp(rA + torch.where(rA >= 4, fa, 0), max=MAX_LEN)
-    lenB = torch.clamp(rB + torch.where(rB >= 4, fb, 0), max=MAX_LEN)
-    useB = lenB > lenA
-    return torch.where(useB, lenB, lenA), torch.where(useB, dB, dA)
-
-
-def chain_extend_multi(cands, strides2=STRIDES, strides1=STRIDES):
-    """N-candidate chain extension by multi-stride max-relaxation
-    (``_chain_extend_multi``): a round of strides ``strides1``, then one
-    of ``strides2`` (empty for the lean tiers); lcp(i, d) >= s implies
-    lcp(i, d) = s + lcp(i+s, d).  Returns [(len, dist)] per candidate."""
-    rs = [c[0] for c in cands]
-    ds = [c[1] for c in cands]
-    fs = [c[2] for c in cands]
-    for s in tuple(strides1) + tuple(strides2):
-        r_s = [ahead(r, s) for r in rs]
-        d_s = [ahead(d, s) for d in ds]
-        f_s = [ahead(f, s) for f in fs]
-        new_r, new_f = [], []
-        for k in range(len(cands)):
-            can = rs[k] >= s
-            r_new, f_new = rs[k], fs[k]
-            for j in range(len(cands)):
-                cand = torch.where(can & (d_s[j] == ds[k]), s + r_s[j], 0)
-                better = cand > r_new
-                f_new = torch.where(better, f_s[j], f_new)
-                r_new = torch.where(better, cand, r_new)
-            new_r.append(r_new)
-            new_f.append(f_new)
-        rs, fs = new_r, new_f
-    return [(torch.clamp(r + torch.where(r >= 4, f, 0), max=MAX_LEN), d)
-            for r, d, f in zip(rs, ds, fs)]
+    return unpay(pa.reshape(shape)), unpay(pb.reshape(shape))
 
 
 def _row_inputs(b: torch.Tensor, length: torch.Tensor, wide_window: bool):
@@ -498,8 +237,6 @@ def rescue_pass(h, bp, sort_seg: int, junk_val: int):
     (depth 2, 8-byte payloads, chain-extended): every position gets at
     least half a segment of history.  ``bp`` the padded bytes.  Returns
     (len, dist) [B, n_pad], zero over the first half segment."""
-    from . import chain_kernels as ck
-    from . import probe_kernels as pk
     half = sort_seg // 2
 
     def unshift(x):
@@ -545,8 +282,6 @@ def parse_candidates(b: torch.Tensor, length: torch.Tensor, depth: int = 6,
 
     Returns (bp, pos, lenA, dA, lenB, dB, lenC, dC, d3), each [B, n_pad]
     (pos [1, n_pad]); d3 is zero without ``hash3``."""
-    from . import chain_kernels as ck
-    from . import probe_kernels as pk
     (bp, pos, length, words, h, sort_seg, _,
      junk_val) = _row_inputs(b, length, wide_window)
     if use_wide or use_content:
@@ -630,10 +365,10 @@ def hash3_matchfind(h3, words, seg: int):
     one neighbour, kept within distance 1024.  Returns dist [B, n], 0 for
     none.  It is the matchfind's first probe on the low three bytes of
     each word (its window check never binds under the 1024 cut)."""
-    order, probe = _segment_probe(
+    order, probe = sorted_segments(
         h3, (words & 0xFFFFFF, torch.zeros_like(words)), seg)
     dist = probe(1)[1]
-    return _unpermute(order, h3.shape, torch.where(dist <= 1024, dist, 0))[0]
+    return unpermute(order, h3.shape, torch.where(dist <= 1024, dist, 0))[0]
 
 
 def min_match_len(bp: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
@@ -668,8 +403,6 @@ def greedy_candidates(b: torch.Tensor, length: torch.Tensor,
     with ``hash3`` len-3 matches where no longer one exists; with ``lazy``
     the offset-weighted one-position deferral.  Returns (bp, pos, span,
     is_match, dist, fsm_seg), arrays [B, n_pad] (pos [1, n_pad])."""
-    from . import chain_kernels as ck
-    from . import probe_kernels as pk
     (bp, pos, length, words, h, sort_seg, fsm_seg,
      junk_val) = _row_inputs(b, length, wide_window)
     if wide_ext:
@@ -714,53 +447,12 @@ def greedy_candidates(b: torch.Tensor, length: torch.Tensor,
     return bp, pos, span, is_match, dist, fsm_seg
 
 
-def greedy_commit_merge(span, is_match, dist, seg: int):
-    """Commit FSM with same-distance run coalescing
-    (``_greedy_commit_merge``) over independent ``seg``-position
-    segments of [B, n] arrays.  Returns (committed heads, merged eff)."""
-    shape = span.shape
-    lanes = span.numel() // seg
-    dev = span.device
-
-    def steps(x):
-        return x.reshape(lanes, seg).T
-
-    rem = torch.arange(seg, 0, -1, device=dev, dtype=torch.int64)[:, None]
-    trunc = torch.minimum(steps(span).to(torch.int64), rem)
-    is_m = steps(is_match) & (trunc >= 3)
-    effs = torch.where(is_m, trunc, 1)
-    dd_t = steps(dist).to(torch.int64)
-    # the FSM itself: only (e, pdist, pbud) carry from step to step
-    e = torch.zeros(lanes, dtype=torch.int64, device=dev)
-    pdist = torch.zeros_like(e)
-    pbud = torch.zeros_like(e)
-    heads = torch.empty(seg, lanes, dtype=torch.bool, device=dev)
-    for t in range(seg):
-        eff, im, dd = effs[t], is_m[t], dd_t[t]
-        commit = e == 0
-        absorb = (commit & im & (pdist == dd) & (pdist > 0)
-                  & (pbud + eff <= MAX_LEN))
-        pdist = torch.where(commit & ~absorb, torch.where(im, dd, 0), pdist)
-        pbud = torch.where(commit, torch.where(
-            absorb, pbud + eff, torch.where(im, eff, 0)), pbud)
-        e = torch.where(commit, eff, e) - 1
-        heads[t] = commit & ~absorb
-    # merged span at each head = next head strictly after t, minus t
-    tix = torch.arange(seg, device=dev, dtype=torch.int64)[:, None]
-    x = torch.where(heads, tix, seg)
-    x = torch.flip(torch.cummin(torch.flip(x, [0]), 0).values, [0])
-    nb_after = torch.cat([x[1:], torch.full_like(x[:1], seg)], 0)
-    eff_m = torch.where(heads, nb_after - tix, effs)
-    return heads.T.reshape(shape), eff_m.T.reshape(shape)
-
-
 def commit_items(span, is_match, dist, pos, length, seg: int):
     """Commit with same-distance merging over ``seg``-position segments,
     items past ``length`` ([B]) dropped: (commit_match, commit_lit, eff)
     as ``_parse_chunk`` and ``tpu_optimal._commit`` form them.  The FSM
     is ``scan_kernels.commit_fsm``: its kernel on CUDA, the plain
-    ``greedy_commit_merge`` on the CPU."""
-    from . import scan_kernels     # scan_kernels imports this module
+    ``scan_kernels.greedy_commit_merge`` on the CPU."""
     committed, eff = scan_kernels.commit_fsm(span, is_match, dist, seg)
     live = pos < length[:, None]
     return (committed & (eff >= 3) & live, committed & (eff < 3) & live,
@@ -817,21 +509,6 @@ def group_premerge(values, nbits, offs, capw: int, group: int = GROUP):
     slo = torch.cat([(buf << gs) & M32, torch.zeros_like(buf[..., :1])], -1)
     shi = torch.where(gs > 0, bufp >> (32 - gs), 0)
     return slo | shi, gw
-
-
-def group_place(sbuf: torch.Tensor, gw: torch.Tensor,
-                nwords: int) -> torch.Tensor:
-    """Add whole group buffers at their start words (``_group_place``);
-    the plain version of the pack kernel.  sbuf int64 [B, m, capw+1],
-    gw [B, m] -> int64 words [B, nwords].  Targets past the end carry
-    only zero bits and are clamped onto the last word, as in JAX."""
-    B, m, capw1 = sbuf.shape
-    tgt = gw[..., None] + torch.arange(capw1, device=sbuf.device)
-    tgt = torch.clamp(tgt, max=nwords - 1)
-    tgt = tgt + nwords * torch.arange(B, device=sbuf.device)[:, None, None]
-    words = torch.zeros(B * nwords, dtype=torch.int64, device=sbuf.device)
-    words.index_add_(0, tgt.reshape(-1), sbuf.reshape(-1))
-    return words.reshape(B, nwords) & M32
 
 
 def add_bits(words: torch.Tensor, vals: torch.Tensor,
@@ -893,10 +570,10 @@ def compress_chunks_static(bufs, lengths, bfinal, device=None,
     empty stored block carrying BFINAL.  uint8[B, N], int[B], bool[B] ->
     (words int32[B, W] holding the uint32 bit patterns, total_bits
     int64[B]).  Runs on CUDA unless ``device`` names another device; the
-    bits are placed by the pack kernel on CUDA, by ``group_place`` on the
-    CPU.  ``on_stage(name)`` marks each stage's start and the end; with a
-    profiler session on, each stage is the range ``stage.<name>``."""
-    from .kernels import pack_groups     # kernels imports this module
+    bits are placed by the pack kernel on CUDA, by ``kernels.group_place``
+    on the CPU.  ``on_stage(name)`` marks each stage's start and the end;
+    with a profiler session on, each stage is the range
+    ``stage.<name>``."""
     with stage_marks(on_stage) as mark:
         bufs, lengths, bfinal = from_numpy_batch(bufs, lengths, bfinal,
                                                  device)
@@ -913,7 +590,7 @@ def compress_chunks_static(bufs, lengths, bfinal, device=None,
         mark("premerge")
         sbuf, gw = group_premerge(val, nb, offs + 3, capw=GROUP_CAPW)
         mark("pack")
-        words = pack_groups(sbuf, gw, static_nwords(n))
+        words = kernels.pack_groups(sbuf, gw, static_nwords(n))
         mark("post")
         # block header (BFINAL 0, BTYPE 01), the 7-bit EOB, then the stored
         # sync-flush block: its 3-bit header, byte padding, LEN 0 and NLEN

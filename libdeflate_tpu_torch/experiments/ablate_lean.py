@@ -39,7 +39,7 @@ import zlib
 import torch
 
 from ..compress import kernels
-from ..compress.bits import to_i32
+from ..compress.bits import segment_sizes, to_i32
 from ..compress.dynamic import (DYN_CAPW_DEEP, dyn_nwords, emit_dynamic_post,
                                 emit_dynamic_pre)
 from ..compress.optimal import (BIT, DP_SEG, SEED_LC_LEN,
@@ -47,7 +47,7 @@ from ..compress.optimal import (BIT, DP_SEG, SEED_LC_LEN,
                                 dist_cost_from, lc_len_from_lens,
                                 literal_costs_with, mean_literal_costs)
 from ..compress.pipeline import (device_stream_to_bytes, group_premerge,
-                                 parse_candidates, segment_sizes)
+                                 parse_candidates)
 from ..device import resolve_device
 from . import corpus as pc
 from .driver_common import batches, device_args

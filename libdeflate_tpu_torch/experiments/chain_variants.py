@@ -14,10 +14,11 @@ call of each entry on the first B = 4 x 1 MiB batch of
 strides), optimal's (K = 5, two rounds), dyn1's C4 (one candidate) and
 dyn2's (two); and the scripts' K = 3 triples (``profile_lean``'s x3,
 two rounds).  Every build is checked against the plain versions
-(``pipeline.chain_extend_multi``, ``chain_extend``, ``chain_extend2``
-on the card) on those inputs and on ``experiments/crafted_chain.py``'s
-sets (K = 2, 3, 5 at one and two default rounds, C4's one and two
-candidates, the walk's shapes) at tiles 64, 256 and the wrappers' 1024;
+(``chain_kernels.chain_extend_multi_plain``, ``chain_extend_plain``,
+``chain_extend2_plain`` on the card) on those inputs and on
+``experiments/crafted_chain.py``'s sets (K = 2, 3, 5 at one and two
+default rounds, C4's one and two candidates, the walk's shapes) at tiles
+64, 256 and the wrappers' 1024;
 then each bare launch at the wrappers' tile is timed in turns (this
 tree, parent, parent, this tree), by CUDA graph replay (the card's
 time) and by CUDA events around back-to-back launches.
@@ -45,7 +46,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..compress import chain_kernels, dynamic, optimal, pipeline
+from ..compress import chain_kernels, dynamic, optimal
+from ..compress.bits import STRIDES
 from . import crafted_chain, profile_lean
 from .corpus import make_corpus
 from .harness import build_tagged, record_calls
@@ -110,8 +112,8 @@ def split(name: str, args: tuple):
     """(the candidates' triples, the strides (strides1 then strides2) or
     None for C4) of a wrapper ``name``'s positional arguments."""
     if name == "chain_extend_multi":
-        s2 = args[1] if len(args) > 1 else pipeline.STRIDES
-        s1 = args[2] if len(args) > 2 else pipeline.STRIDES
+        s2 = args[1] if len(args) > 1 else STRIDES
+        s1 = args[2] if len(args) > 2 else STRIDES
         return [tuple(c) for c in args[0]], tuple(s1) + tuple(s2)
     return [tuple(args[3 * i:3 * i + 3]) for i in range(len(args) // 3)], \
         None
@@ -119,7 +121,7 @@ def split(name: str, args: tuple):
 
 def plain(name: str, args: tuple) -> list:
     """The plain version's result as a flat list of tensors."""
-    out = getattr(pipeline, name)(*args)
+    out = getattr(chain_kernels, name + "_plain")(*args)
     if name == "chain_extend_multi":
         return [x for pair in out for x in pair]
     return list(out)

@@ -76,7 +76,7 @@ SET_NAMES = ("text, 128 KiB", "text, 64 KiB", "one byte, one hash",
 
 
 def key_params(seg: int) -> tuple[int, int]:
-    """(pos_bits, junk) of a segment (``pipeline.seg_key_params``)."""
+    """(pos_bits, junk) of a segment (``bits.seg_key_params``)."""
     pos_bits = max(16, (seg - 1).bit_length())
     return pos_bits, (1 << HASH_ORDER) - 1 if pos_bits >= 17 \
         else 1 << HASH_ORDER

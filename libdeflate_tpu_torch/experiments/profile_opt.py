@@ -19,7 +19,7 @@ the next one's input:
 - ``dynamic.emit_dynamic_pre`` at refine 16 and 0;
 - ``pipeline.group_premerge`` at caps 61 and 45, the pack, K2
   (``kernels.pack_groups``), and beside it K2's plain version
-  ``pipeline.group_place`` (where the script times XLA's
+  ``kernels.group_place`` (where the script times XLA's
   ``_group_place``);
 - the whole opt2, opt1 and dyn1 tiers.
 
@@ -40,15 +40,15 @@ import sys
 import torch
 
 from ..compress import chain_kernels, kernels
-from ..compress.bits import to_i32
+from ..compress.bits import ahead, to_i32
 from ..compress.dynamic import (DYN_CAPW, DYN_CAPW_DEEP,
                                 compress_chunks_dynamic, dyn_nwords,
                                 emit_dynamic_post, emit_dynamic_pre)
 from ..compress.optimal import (DP_SEG, SEED_LC_LEN, code_lens_from_items,
                                 commit, compress_chunks_optimal_pallas_with,
                                 dist_cost, literal_costs_with)
-from ..compress.pipeline import (_positions, ahead,
-                                 content_sorted_matchfind, group_place,
+from ..compress.kernels import group_place
+from ..compress.pipeline import (_positions, content_sorted_matchfind,
                                  group_premerge, parse_candidates,
                                  sorted_matchfind_triple)
 from ..device import resolve_device

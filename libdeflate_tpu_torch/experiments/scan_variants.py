@@ -14,7 +14,7 @@ that lean call (8 rows, refine 0, 11 bits) and of one
 ``compress_chunks_optfast`` call (its refine-16, 15-bit build), each on
 the first B = 4 x 1 MiB batch of ``chip_smoke.py``'s 16 MiB corpus.
 Every build is checked against the plain versions
-(``pipeline.greedy_commit_merge``, ``dynamic.build_code_lens``) on those
+(``scan_kernels.greedy_commit_merge``, ``build_code_lens``) on those
 inputs and on ``experiments/crafted_scan.py``'s sets, then each bare
 launch is timed in turns (this tree, parent, parent, this tree), by CUDA
 graph replay (the card's time) and by CUDA events around back-to-back
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..compress import dynamic, optimal, pipeline, scan_kernels
+from ..compress import dynamic, optimal, scan_kernels
 from . import crafted_scan
 from .corpus import make_corpus
 from .harness import build_tagged, record_calls
@@ -113,8 +113,8 @@ def plain(name: str, args: tuple):
     faster there than as launches)."""
     args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
     if name == "commit_fsm":
-        return pipeline.greedy_commit_merge(*args)
-    return dynamic.build_code_lens(*args)
+        return scan_kernels.greedy_commit_merge(*args)
+    return scan_kernels.build_code_lens(*args)
 
 
 def main_path_inputs(dev: torch.device) -> dict:

@@ -1,6 +1,6 @@
 """The port's 32-bit word helpers against the JAX package's.
 
-libdeflate_tpu_torch/compress/bits.py and pipeline.le32_words against
+libdeflate_tpu_torch/compress/bits.py (with le32_words) against
 libdeflate_tpu/compress/tpu_pipeline.py (_rev16, _rev, _bsr,
 _length_slot, _offset_slot, _le32_words).  Inputs are exhaustive ranges
 or numpy-seeded bytes.  Tolerance: exact.
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from libdeflate_tpu.compress import tpu_pipeline as tp
-from libdeflate_tpu_torch.compress import bits, pipeline
+from libdeflate_tpu_torch.compress import bits
 
 
 def _np(x):
@@ -62,7 +62,7 @@ def test_le32_words(extra_pad):
     rng = np.random.default_rng(3)
     b = rng.integers(0, 256, 4099, dtype=np.uint8)
     want = _np(tp._le32_words(jnp.asarray(b), extra_pad=extra_pad))
-    got = pipeline.le32_words(torch.from_numpy(b)[None])[0].numpy()
+    got = bits.le32_words(torch.from_numpy(b)[None])[0].numpy()
     assert np.array_equal(got, want)
 
 

@@ -46,7 +46,7 @@ import torch
 
 from libdeflate_tpu.compress import tpu_pipeline as tp
 from libdeflate_tpu_torch.compress import chain_kernels as ck
-from libdeflate_tpu_torch.compress import dynamic, optimal, pipeline
+from libdeflate_tpu_torch.compress import bits, dynamic, optimal
 from libdeflate_tpu_torch.experiments import crafted_chain as cc
 
 from test_torch_pipeline import text_chunk
@@ -89,7 +89,7 @@ def assert_pairs(got, want, what):
 def test_relax_mirror(K, tile):
     cands = batch(cc.relax_sets(K))
     s1, s2 = MAIN_STRIDES[K]
-    want = pipeline.chain_extend_multi(torch_cands(cands), s2, s1)
+    want = ck.chain_extend_multi_plain(torch_cands(cands), s2, s1)
     assert_pairs(cc.relax_mirror(cands, s1, s2, tile), want,
                  f"K={K}, tile {tile}")
 
@@ -98,7 +98,7 @@ def test_relax_mirror(K, tile):
 def test_relax_mirror_strides(name):
     s1, s2 = cc.STRIDE_SETS[name]
     cands = batch(cc.relax_sets(2))
-    want = pipeline.chain_extend_multi(torch_cands(cands), s2, s1)
+    want = ck.chain_extend_multi_plain(torch_cands(cands), s2, s1)
     assert_pairs(cc.relax_mirror(cands, s1, s2, 64), want, name)
 
 
@@ -116,7 +116,7 @@ def test_relax_sets_reach_the_traps():
     assert reach["ties between j"]["tie"] > 1000
     assert reach["negative lengths and remainders"]["zero_take"] > 0
     # dist 0 matches like any other distance: its splices are taken
-    plain = pipeline.chain_extend_multi(
+    plain = ck.chain_extend_multi_plain(
         torch_cands(cc.relax_sets(3)["dist 0"]))
     raw = cc.relax_sets(3)["dist 0"][0][0]
     assert bool((plain[0][0].numpy()[:, 1200:1800]
@@ -128,8 +128,8 @@ def test_relax_sets_reach_the_traps():
 def test_double_mirror(nc, tile):
     cands = batch(cc.double_sets(nc))
     tc = torch_cands(cands)
-    want = (pipeline.chain_extend(*tc[0]) if nc == 1
-            else pipeline.chain_extend2(*tc[0], *tc[1]))
+    want = (ck.chain_extend_plain(*tc[0]) if nc == 1
+            else ck.chain_extend2_plain(*tc[0], *tc[1]))
     assert_pairs([cc.double_mirror(cands, tile)], [want],
                  f"{nc} candidates, tile {tile}")
 
@@ -159,7 +159,7 @@ def test_relax_mirror_shapes(K):
     s1, s2 = MAIN_STRIDES[K]
     reach = Counter()
     for name, cands in cc.relax_shape_sets(K).items():
-        want = pipeline.chain_extend_multi(torch_cands(cands), s2, s1)
+        want = ck.chain_extend_multi_plain(torch_cands(cands), s2, s1)
         for tile in cc.MIRROR_TILES:
             st = Counter()
             assert_pairs(cc.relax_mirror(cands, s1, s2, tile,
@@ -180,8 +180,8 @@ def test_double_mirror_shapes(nc):
     reach = Counter()
     for name, cands in cc.double_shape_sets(nc).items():
         tc = torch_cands(cands)
-        want = (pipeline.chain_extend(*tc[0]) if nc == 1
-                else pipeline.chain_extend2(*tc[0], *tc[1]))
+        want = (ck.chain_extend_plain(*tc[0]) if nc == 1
+                else ck.chain_extend2_plain(*tc[0], *tc[1]))
         for tile in cc.MIRROR_TILES:
             st = Counter()
             assert_pairs([cc.double_mirror(cands, tile, cc.SHAPE_BLOCKS,
@@ -198,13 +198,13 @@ def test_mirrors_over_grids(blocks):
     """Any grid gives the plain versions' answer: one block walking every
     tile of both rows, a few, and more blocks than tiles."""
     cands = cc.relax_sets(2)["chains across tiles"]
-    want = pipeline.chain_extend_multi(torch_cands(cands), (), cc.STRIDES)
+    want = ck.chain_extend_multi_plain(torch_cands(cands), (), cc.STRIDES)
     assert_pairs(cc.relax_mirror(cands, cc.STRIDES, (), 64, blocks), want,
                  f"{blocks} blocks")
     two = cc.double_sets(2)["splices through the other candidate"]
     tc = torch_cands(two)
     assert_pairs([cc.double_mirror(two, 64, blocks)],
-                 [pipeline.chain_extend2(*tc[0], *tc[1])], f"{blocks} blocks")
+                 [ck.chain_extend2_plain(*tc[0], *tc[1])], f"{blocks} blocks")
 
 
 # ---- (b) the wrappers on CPU tensors against JAX ------------------------
@@ -234,7 +234,7 @@ def test_double_wrappers_against_jax():
     want = jax.vmap(tp._chain_extend2)(*jax_args(two))
     got = ck.chain_extend2(*(x for c in torch_cands(two) for x in c))
     assert_pairs([got], [want], "chain_extend2")
-    assert int(got[0].max()) == pipeline.MAX_LEN
+    assert int(got[0].max()) == bits.MAX_LEN
 
 
 # ---- (c) the routing ----------------------------------------------------

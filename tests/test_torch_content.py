@@ -1,6 +1,7 @@
 """The DP tiers' candidate and cost stages against the JAX package's.
 
-libdeflate_tpu_torch/compress/pipeline.py and optimal.py against
+libdeflate_tpu_torch/compress/pipeline.py, chain_kernels.py's plain
+relaxation and optimal.py against
 libdeflate_tpu/compress/tpu_pipeline.py and tpu_optimal.py:
 _sorted_matchfind's return_triple branch with 32-byte payloads (depth 6
 and 12), _content_sorted_matchfind (doublings 0 and 2, with and without
@@ -29,7 +30,8 @@ import torch
 
 from libdeflate_tpu.compress import tpu_optimal as to
 from libdeflate_tpu.compress import tpu_pipeline as tp
-from libdeflate_tpu_torch.compress import kernels, optimal, pipeline
+from libdeflate_tpu_torch.compress import (bits, chain_kernels, kernels,
+                                          optimal, pipeline)
 
 REPO = Path(__file__).resolve().parents[1]
 N = 1 << 16
@@ -63,7 +65,7 @@ def port_words(bufs, lengths, wide_window=False):
     """The port's matchfind inputs: (h, words, w4, w8, w12, wide, seg)."""
     (_, _, _, w, w4, w8, w12, h, seg, _, _) = pipeline._positions(
         torch.from_numpy(bufs.copy()), torch.tensor(lengths), wide_window)
-    wide = tuple(pipeline.ahead(w, k) for k in (16, 20, 24, 28))
+    wide = tuple(bits.ahead(w, k) for k in (16, 20, 24, 28))
     return h, w, w4, w8, w12, wide, seg
 
 
@@ -145,15 +147,15 @@ def relax_inputs(K, seed):
 @pytest.mark.parametrize("K,rounds", [(5, 2), (3, 1), (3, 2)])
 def test_chain_extend_multi(K, rounds):
     cands = relax_inputs(K, K + rounds)
-    strides2 = pipeline.STRIDES if rounds == 2 else ()
-    got = pipeline.chain_extend_multi(cands, strides2)
+    strides2 = bits.STRIDES if rounds == 2 else ()
+    got = chain_kernels.chain_extend_multi_plain(cands, strides2)
     fn = jax.vmap(lambda *x: tp._chain_extend_multi(
         [x[3 * k:3 * k + 3] for k in range(K)], strides2=strides2))
     want = fn(*(jnp.asarray(x.numpy(), jnp.int32) for c in cands
                 for x in c))
     assert_same([x for p in got for x in p], [x for p in want for x in p],
                  [f"{k} {x}" for k in range(K) for x in ("len", "dist")])
-    assert int(got[0][0].max()) == pipeline.MAX_LEN
+    assert int(got[0][0].max()) == bits.MAX_LEN
 
 
 def test_literal_costs_samples_and_cache():

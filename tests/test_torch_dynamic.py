@@ -1,8 +1,8 @@
 """The port's dynamic-Huffman emit against the JAX package's.
 
-libdeflate_tpu_torch/compress/dynamic.py against
-libdeflate_tpu/compress/tpu_dynamic.py: _emit_dynamic_pre's (val, nb,
-offs) and aux, and _emit_dynamic_post, on the commit arrays the JAX lean
+libdeflate_tpu_torch/compress/dynamic.py, with scan_kernels.py's
+build_code_lens, against libdeflate_tpu/compress/tpu_dynamic.py:
+_emit_dynamic_pre's (val, nb, offs) and aux, and _emit_dynamic_post, on the commit arrays the JAX lean
 parse (_parse_candidates, _literal_costs with sample 32, _dp_parse on the
 dense ladder, _commit) produces for 64 KiB chunks of text, noisy records,
 all zeros (a tiny code) and random bytes (the static block type); plus
@@ -22,7 +22,7 @@ import torch
 from libdeflate_tpu.compress import tpu_dynamic as td
 from libdeflate_tpu.compress import tpu_optimal as to
 from libdeflate_tpu.compress import tpu_pipeline as tp
-from libdeflate_tpu_torch.compress import dynamic
+from libdeflate_tpu_torch.compress import dynamic, scan_kernels
 
 REPO = Path(__file__).resolve().parents[1]
 N = 1 << 16
@@ -146,7 +146,7 @@ def _hists():
 def test_build_code_lens(idx):
     hist = _hists()[idx]
     lens_j, ok_j = td._build_code_lens(jnp.asarray(hist, jnp.int32), td.NSYM)
-    lens, ok = dynamic.build_code_lens(torch.from_numpy(hist)[None])
+    lens, ok = scan_kernels.build_code_lens(torch.from_numpy(hist)[None])
     assert np.array_equal(lens[0].numpy(), np.asarray(lens_j))
     assert bool(ok[0]) == bool(ok_j)
 

@@ -30,6 +30,7 @@ import libdeflate_tpu_torch as lt
 from libdeflate_tpu.compress import tpu_dynamic as td
 from libdeflate_tpu.compress import tpu_pipeline as tp
 from libdeflate_tpu_torch.compress import dynamic as pd
+from libdeflate_tpu_torch.compress import scan_kernels
 
 REPO = Path(__file__).resolve().parents[1]
 N = 1 << 16
@@ -191,9 +192,9 @@ def test_build_code_lens_refined_15_bits(case):
     lens_j, ok_j = jax.jit(functools.partial(
         td._build_code_lens, nsym=pd.NSYM, refine_passes=16,
         max_len=pd.MAX_CODE_LEN_DEEP))(jnp.asarray(hist, jnp.int32))
-    lens, ok = pd.build_code_lens(torch.from_numpy(hist)[None], 16,
+    lens, ok = scan_kernels.build_code_lens(torch.from_numpy(hist)[None], 16,
                                   pd.MAX_CODE_LEN_DEEP)
     assert np.array_equal(lens[0].numpy(), np.asarray(lens_j))
     assert bool(ok[0]) == bool(ok_j)
     if case == "geometric":
-        assert int(lens.max()) > pd.MAX_CODE_LEN
+        assert int(lens.max()) > scan_kernels.MAX_CODE_LEN

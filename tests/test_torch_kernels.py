@@ -233,10 +233,10 @@ def _scan_inputs(which):
 
 @pytest.mark.parametrize("which", ["commit_fsm", "code_lens"])
 def test_cpu_scan_wrappers_take_plain_versions_and_launch_nothing(which):
-    from libdeflate_tpu_torch.compress import dynamic, scan_kernels
+    from libdeflate_tpu_torch.compress import scan_kernels
     args = _scan_inputs(which)
-    plain = {"commit_fsm": pipeline.greedy_commit_merge,
-             "code_lens": dynamic.build_code_lens}[which]
+    plain = {"commit_fsm": scan_kernels.greedy_commit_merge,
+             "code_lens": scan_kernels.build_code_lens}[which]
     scan_kernels.reset_launch_counts()
     got = getattr(scan_kernels, which)(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, plain(*args)))

@@ -24,7 +24,8 @@ import torch
 from libdeflate_tpu.compress import tpu_dynamic as td
 from libdeflate_tpu.compress import tpu_optimal as to
 from libdeflate_tpu.compress import tpu_pipeline as tp
-from libdeflate_tpu_torch.compress import dynamic, kernels, optimal, pipeline
+from libdeflate_tpu_torch.compress import (bits, dynamic, kernels, optimal,
+                                          pipeline)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -41,8 +42,8 @@ REPO = Path(__file__).resolve().parents[1]
     ("_P19_LENS_PERM", dynamic.P19_LENS_PERM, td._P19_LENS_PERM),
     ("scalars", (optimal.DP_SEG, kernels.WIN, optimal.BIT,
                  optimal.LEN_SYM_COST, optimal.DIST_SYM_COST,
-                 dynamic.DYN_CAPW, dynamic.HDR_BITS, pipeline.MULT,
-                 pipeline.SORT_SEG, pipeline.FSM_SEG),
+                 dynamic.DYN_CAPW, dynamic.HDR_BITS, bits.MULT,
+                 bits.SORT_SEG, bits.FSM_SEG),
      (to.DP_SEG, to._WIN, to.BIT, to.LEN_SYM_COST, to.DIST_SYM_COST,
       td.DYN_CAPW, td.HDR_BITS, tp.MULT, tp.SORT_SEG, tp.FSM_SEG)),
 ])

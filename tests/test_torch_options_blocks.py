@@ -25,7 +25,7 @@ import torch
 from dp_tier_cases import one_torch_thread  # noqa: F401
 from libdeflate_tpu.compress import tpu_dynamic as td
 from libdeflate_tpu.compress import tpu_pipeline as tp
-from libdeflate_tpu_torch.compress import dynamic, pipeline
+from libdeflate_tpu_torch.compress import dynamic, kernels, pipeline
 from test_torch_dynamic import CHUNKS, N, jax_commit
 
 KINDS = list(CHUNKS)
@@ -71,7 +71,7 @@ def test_emit_dynamic_pre_blocks(blocks, refine):
     w_j, t_j = finish(val_j, nb_j, offs_j, aux_j, jnp.asarray(bfinal))
     sbuf, gw = pipeline.group_premerge(val, nb, offs, capw)
     w, t = dynamic.emit_dynamic_post(
-        pipeline.group_place(sbuf, gw, nwords), aux, torch.from_numpy(bfinal))
+        kernels.group_place(sbuf, gw, nwords), aux, torch.from_numpy(bfinal))
     assert np.array_equal(t.numpy(), np.asarray(t_j))
     assert np.array_equal(w.numpy(), np.asarray(w_j).astype(np.int64))
     for k, kind in enumerate(KINDS):

@@ -31,7 +31,7 @@ import libdeflate_tpu_torch as lt
 from dp_tier_cases import one_torch_thread  # noqa: F401
 from libdeflate_tpu.compress import tpu_optimal as to
 from libdeflate_tpu.compress import tpu_pipeline as tp
-from libdeflate_tpu_torch.compress import dynamic, kernels, pipeline
+from libdeflate_tpu_torch.compress import bits, dynamic, kernels, pipeline
 from test_torch_pipeline import _emit_items, text_chunk
 
 
@@ -39,7 +39,7 @@ from test_torch_pipeline import _emit_items, text_chunk
 @pytest.mark.parametrize("group", [32, 64, 256])
 def test_group_premerge_group_sizes(source, group):
     values, nbits, offs, nwords = _emit_items(source)
-    capw = (dynamic.DYN_CAPW - 1) * group // pipeline.GROUP + 1
+    capw = (dynamic.DYN_CAPW - 1) * group // bits.GROUP + 1
     sbuf_j, gw_j = tp._group_premerge(
         jnp.asarray(values.astype(np.uint32)), jnp.asarray(nbits, jnp.int32),
         jnp.asarray(offs, jnp.int32), capw=capw, group=group)
@@ -50,7 +50,7 @@ def test_group_premerge_group_sizes(source, group):
     assert np.array_equal(sbuf[0].numpy(), np.asarray(sbuf_j).astype(np.int64))
     assert np.array_equal(gw[0].numpy(), np.asarray(gw_j))
     want = np.asarray(tp._group_place(sbuf_j, gw_j, nwords))
-    got = pipeline.group_place(sbuf, gw, nwords)[0].numpy()
+    got = kernels.group_place(sbuf, gw, nwords)[0].numpy()
     assert np.array_equal(got, want.astype(np.int64))
 
 

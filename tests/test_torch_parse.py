@@ -1,6 +1,7 @@
 """The port's greedy/lazy parser against the JAX package's.
 
-libdeflate_tpu_torch/compress/pipeline.py against
+libdeflate_tpu_torch/compress/pipeline.py, with chain_kernels.py's plain
+doublings, against
 libdeflate_tpu/compress/tpu_pipeline.py: _sorted_matchfind (the packed
 best-of-depth path and the wide_ext A/B path, 16- and 8-byte payloads, 64
 and 128 KiB segments), _chain_extend, _chain_extend2, _hash3_matchfind
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from libdeflate_tpu.compress import tpu_pipeline as tp
+from libdeflate_tpu_torch.compress import bits, chain_kernels
 from libdeflate_tpu_torch.compress import pipeline as pp
 
 REPO = Path(__file__).resolve().parents[1]
@@ -55,13 +57,13 @@ def words_and_hash(bufs, lengths):
     """The parser's inputs to the matchfind, from the port's own stages:
     le32 words, w4/w8/w12 and the hash with its junk bucket, [B, n]."""
     bt = torch.from_numpy(bufs.copy())
-    w = pp.le32_words(bt)
+    w = bits.le32_words(bt)
     pos = torch.arange(bufs.shape[1])[None]
-    h = ((w * pp.MULT) & pp.M32) >> (32 - pp.HASH_ORDER)
-    junk = pp.seg_key_params(bufs.shape[1])[1]
-    h = torch.where(pos + pp.MIN_MATCH <= torch.tensor(lengths)[:, None],
+    h = ((w * bits.MULT) & pp.M32) >> (32 - bits.HASH_ORDER)
+    junk = bits.seg_key_params(bufs.shape[1])[1]
+    h = torch.where(pos + bits.MIN_MATCH <= torch.tensor(lengths)[:, None],
                     h, junk)
-    return h, w, pp.ahead(w, 4), pp.ahead(w, 8), pp.ahead(w, 12)
+    return h, w, bits.ahead(w, 4), bits.ahead(w, 8), bits.ahead(w, 12)
 
 
 def as_jax(x):
@@ -118,16 +120,16 @@ def test_chain_extend():
     m, d, f = chain_inputs(1)
     want = jax.vmap(tp._chain_extend)(*(jnp.asarray(x.numpy(), jnp.int32)
                                         for x in (m, d, f)))
-    got = pp.chain_extend(m, d, f)
+    got = chain_kernels.chain_extend_plain(m, d, f)
     assert_same(got, want, ["len", "dist"])
-    assert int(got[0].max()) == pp.MAX_LEN
+    assert int(got[0].max()) == bits.MAX_LEN
 
 
 def test_chain_extend2():
     a, b = chain_inputs(2), chain_inputs(3)
     want = jax.vmap(tp._chain_extend2)(*(jnp.asarray(x.numpy(), jnp.int32)
                                          for x in a + b))
-    got = pp.chain_extend2(*a, *b)
+    got = chain_kernels.chain_extend2_plain(*a, *b)
     assert_same(got, want, ["len", "dist"])
     assert bool((got[1] == b[1]).any() & (got[1] != a[1]).any())
 
@@ -139,9 +141,9 @@ def test_hash3_matchfind(seg):
         bufs, lengths = bufs.reshape(1, 2 * N), [2 * N]
     _, w, _, _, _ = words_and_hash(bufs, lengths)
     pos = torch.arange(bufs.shape[1])[None]
-    h3 = (((w & 0xFFFFFF) * pp.MULT) & pp.M32) >> (32 - pp.HASH_ORDER)
+    h3 = (((w & 0xFFFFFF) * bits.MULT) & pp.M32) >> (32 - bits.HASH_ORDER)
     h3 = torch.where(pos + 3 <= torch.tensor(lengths)[:, None], h3,
-                     pp.seg_key_params(seg)[1])
+                     bits.seg_key_params(seg)[1])
     want = jax.vmap(functools.partial(tp._hash3_matchfind, seg=seg))(
         as_jax(h3), as_jax(w))
     got = pp.hash3_matchfind(h3, w, seg)
@@ -186,7 +188,7 @@ def test_min_match_len_counts_only_live_bytes():
     got = pp.min_match_len(torch.from_numpy(bufs.copy()),
                            torch.tensor([[N], [N]]))
     # text uses more than 44 byte values; 8 letters give 8
-    assert got[:, 0].tolist() == [pp.MIN_MATCH, 7]
+    assert got[:, 0].tolist() == [bits.MIN_MATCH, 7]
     short = pp.min_match_len(torch.from_numpy(bufs.copy()),
                              torch.tensor([[0], [3]]))
     assert short[:, 0].tolist() == [9, 9]

@@ -1,6 +1,7 @@
 """The port's lean pipeline stages against the JAX package's.
 
-libdeflate_tpu_torch/compress/pipeline.py against
+libdeflate_tpu_torch/compress/pipeline.py, with bits.py and the plain
+versions in scan_kernels.py and kernels.py, against
 libdeflate_tpu/compress/tpu_pipeline.py: _parse_candidates (lean arm:
 depth 6, 128 KiB windows, no content pass, no wide payloads, ext_c=False,
 strides2=()), _greedy_commit_merge, _exclusive_bit_offsets,
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 from libdeflate_tpu.compress import tpu_pipeline as tp
-from libdeflate_tpu_torch.compress import dynamic, kernels, optimal, pipeline
+from libdeflate_tpu_torch.compress import (bits, dynamic, kernels, optimal,
+                                          pipeline, scan_kernels)
 
 REPO = Path(__file__).resolve().parents[1]
 N = 1 << 16
@@ -73,9 +75,9 @@ def port_parse(kind):
 def test_segment_sizes_and_key_params():
     for n in (1, 127, 128, 511, 512, 40000, 1 << 16, (1 << 17) - 1,
               1 << 17, 1 << 18, 1 << 20, (1 << 20) + 5):
-        sizes = pipeline.segment_sizes(n)
+        sizes = bits.segment_sizes(n)
         assert sizes == tp._segment_sizes(n, wide=True), n
-        assert pipeline.seg_key_params(sizes[1]) == \
+        assert bits.seg_key_params(sizes[1]) == \
             tp._seg_key_params(sizes[1]), n
 
 
@@ -100,7 +102,7 @@ def test_greedy_commit_merge(kind, seg):
                                    jnp.asarray(is_match[0].numpy()),
                                    jnp.asarray(dist[0].numpy(), jnp.int32),
                                    seg)
-    got = pipeline.greedy_commit_merge(span, is_match, dist, seg)
+    got = scan_kernels.greedy_commit_merge(span, is_match, dist, seg)
     for g, w in zip(got, want):
         assert np.array_equal(g[0].numpy(), np.asarray(w))
 
@@ -114,7 +116,7 @@ def test_greedy_commit_merge_random_spans():
     want = tp._greedy_commit_merge(jnp.asarray(span, jnp.int32),
                                    jnp.asarray(is_match),
                                    jnp.asarray(dist, jnp.int32), 512)
-    got = pipeline.greedy_commit_merge(
+    got = scan_kernels.greedy_commit_merge(
         torch.from_numpy(span)[None], torch.from_numpy(is_match)[None],
         torch.from_numpy(dist)[None], 512)
     for g, w in zip(got, want):
@@ -168,7 +170,7 @@ def test_group_premerge_and_place(source, capw):
     assert np.array_equal(sbuf[0].numpy(), np.asarray(sbuf_j).astype(np.int64))
     assert np.array_equal(gw[0].numpy(), np.asarray(gw_j))
     want = np.asarray(tp._group_place(sbuf_j, gw_j, nwords))
-    got = pipeline.group_place(sbuf, gw, nwords)[0].numpy()
+    got = kernels.group_place(sbuf, gw, nwords)[0].numpy()
     assert np.array_equal(got, want.astype(np.int64))
 
 

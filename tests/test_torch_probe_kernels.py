@@ -9,7 +9,7 @@ card.  This file holds:
   once from the bytes by aligned words funnel-shifted to the byte, the
   probes' gate and word LCP, the best and a second pass for the
   runner-up, every output at its slot's position) against the plain
-  versions (``pipeline.sorted_best``, ``pipeline.sorted_matchfind_lean``)
+  versions (``probe_kernels.sorted_best``, ``sorted_matchfind_lean``)
   at tiles of 64 and 256 slots, on the crafted sets at every (form,
   depth, payload width) the callers run, with each set's reach asserted:
   equal hashes across tile edges and at a segment's first slots, the junk
@@ -46,7 +46,7 @@ import torch
 from libdeflate_tpu.compress import tpu_pipeline as tp
 from libdeflate_tpu_torch import _build
 from libdeflate_tpu_torch.compress import chain_kernels as ck
-from libdeflate_tpu_torch.compress import dynamic, optimal, pipeline
+from libdeflate_tpu_torch.compress import bits, dynamic, optimal, pipeline
 from libdeflate_tpu_torch.compress import probe_kernels as pk
 from libdeflate_tpu_torch.experiments import crafted_probe as cp
 
@@ -151,8 +151,8 @@ def parser_words(bp, width, shift):
     """Payload words as the parsers made them before the kernel: the
     le32 words and ``ahead`` copies, shifted half a segment for the
     rescue pass as its ``shift`` did."""
-    words = pipeline.le32_words(bp)
-    ws = (words,) + tuple(pipeline.ahead(words, k)
+    words = bits.le32_words(bp)
+    ws = (words,) + tuple(bits.ahead(words, k)
                           for k in range(4, width, 4))
     if shift:
         ws = tuple(torch.cat([x[:, shift:], torch.zeros_like(x[:, :shift])],
@@ -175,9 +175,9 @@ def test_wrapper_against_plain_and_jax(name, form, depth, width):
     got = pk.segment_probe(ht, bt, seg, depth, width, form, shift)
     ws = parser_words(bt, width, shift)
     if form == "best":
-        ref = pipeline.sorted_best(ht, ws, seg, depth)
+        ref = pk.sorted_best(ht, ws, seg, depth)
     else:
-        ref = pipeline.sorted_matchfind_lean(ht, ws, seg, depth)
+        ref = pk.sorted_matchfind_lean(ht, ws, seg, depth)
     assert_all(flat(form, got), flat(form, ref), f"{name}: plain")
     wj = [as_jax(x) for x in ws] + [None] * (4 - len(ws))
     fn = jax.jit(jax.vmap(functools.partial(
